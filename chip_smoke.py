@@ -12,13 +12,36 @@ Phases, each printing its numbers:
      dynamic field with a BARF mask), within the limits of
      startrax_torch/kernels/parity.py, and the kernels' and plain versions'
      times;
+  3b. the field-axis kernel (K fields in one launch, per-point input grads)
+     against its plain version: the K = 2 dynamic fields of
+     startrax/configs/synthetic_star_online_scaled.txt (4x128) on the
+     per-ray step's 131,072 coarse and 262,144 fine points per field, their
+     inputs made from a per-ray pose leaf [R, K, 7] through
+     warp_to_vehicle_frames, without and with the BARF mask (end_barf 12,
+     step 5); one 4x256 case at 512,000 points per field; and the static
+     8x128 field per-field at both passes' shapes; with times;
   4. the main path: StarConfig and LossConfig from
      startrax/configs/carla_star_online_multi.txt, random weights from a
      seed, app-init steps then online training steps on one fixed batch of
      1000 rays x (256 + 256) samples, through the kernels; the fused forward
      and backward launch counts must rise by 2 per app-init step and 6 per
-     online step, and the loss must be finite and fall; then the median step
-     time of the kernel path and of the plain path; then the kernel path's
+     online step, the stacked ones not at all, and the loss must be finite
+     and fall; then the median step time of the kernel path and of the
+     plain path; then the kernel path's render against the plain path's on
+     a small batch;
+  4b. the per-ray-pose (mixed-frame) path at the full widths of
+     synthetic_star_online_scaled.txt: one fixed batch of 2048 rays with
+     per-ray frames drawn from [0, 8), a uniform target and depth; the
+     optimizer as apps/online.py builds it (accumulation 4, clip 1.0); BARF
+     warmup steps (rotations frozen), joint steps, then gauge steps on
+     frame-0 rays from an identity gauge (rotation frozen, depth term 2.0).
+     The losses must be finite and the joint loss fall, the parameters
+     change on every 4th step only, every frame in the batch get a pose
+     grad, the gauge rotation stay identity, the gauge step leave the
+     fields' and poses' grads alone, and the launches per step be those the
+     path makes (online: fwd, bwd, stacked_fwd, stacked_bwd +2 each; gauge:
+     fwd +2, bwd +0, stacked +2 each). Then the step times of the kernel and
+     plain paths, the gauge step's, peak memory, and the kernel path's
      render against the plain path's on a small batch;
   5. one JSON line per kernel, the card's line, and the result line
      {"ok": true, "device": {...}} last.
@@ -29,6 +52,7 @@ config parser startrax.utils.config (stdlib and numpy only). Float32 matmuls
 on the plain paths run in full float32 (TF32 off).
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -41,6 +65,15 @@ N_APPINIT = 3
 N_ONLINE = 20
 N_PLAIN = 5
 FRAME = 3
+# phase 4b: steps of the BARF warmup, the joint phase, the gauge fit, and the
+# plain path; the BARF step (epoch) of the warmup and of phase 3b's masks
+N_WARMUP = 8
+N_JOINT = 48
+N_GAUGE = 8
+N_PLAIN_RAY = 5
+BARF_STEP = 5
+SLICE_CONFIG = "synthetic_star_online_scaled.txt"
+SRC = "startrax_torch/kernels/csrc/fused_mlp.cu"
 
 
 def _require(ok, what):
@@ -69,14 +102,15 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _field(cfg, seed):
+def _field(cfg, seed, n=None):
+    """A field's params from a seed, or a stack of n fields'."""
     import torch
 
     from startrax_torch import convert
     from startrax_torch.models import fields
 
     g = torch.Generator().manual_seed(seed)
-    params = fields.init_field(cfg, g)
+    params = fields.init_field(cfg, g) if n is None else fields.init_stacked_fields(cfg, n, g)
     for blk in params["blocks"]:  # nonzero fc1 so every block carries gradient
         blk["fc1"]["w"] = 0.02 * torch.randn(blk["fc1"]["w"].shape, generator=g)
     return convert.params_from_numpy(convert.params_to_numpy(params), device="cuda",
@@ -133,79 +167,160 @@ def case_inputs(star_cfg, case, seed):
             "pose": pose if warped else None}
 
 
-def phase_kernels(star_cfg, n_rand):
-    """Each kernel against its plain version at the shapes one online step
-    gives it, with both timed; returns the JSON kernel rows (launches filled
-    in later). A row's ms and plain_ms sum the six calls of one online step."""
+MEASURES = ("fwd", "fwd_rms", "w", "input", "input_rms", "pose", "ray_pose", "fwd_abs",
+            "grad_abs")
+STEP_TIMES = ("fwd", "plain_fwd", "bwd", "plain_bwd")
+
+
+def _check_and_time(label, inp, stacked, calls, worst, step_ms):
+    """One case's kernels against their plain version (parity.compare), its
+    readings folded into worst; for a case the step runs (calls > 0), both
+    sides timed in turns (plain, kernel, kernel, plain) and calls x each time
+    added to step_ms."""
     import torch
 
     from startrax_torch.kernels import fused_mlp as fm, parity
 
-    worst = dict.fromkeys(("fwd", "fwd_rms", "w", "pose", "fwd_abs", "grad_abs"), 0.0)
-    step_ms = {"fwd": 0.0, "plain_fwd": 0.0, "bwd": 0.0, "plain_bwd": 0.0}
+    errs, run = parity.compare(**inp, stacked=stacked)
+    torch.cuda.synchronize()
+    print(f"kernel-vs-plain {label}: "
+          + ", ".join(f"{k} {errs[k]:.3e} (limit {lim})" for k, lim in parity.LIMITS.items()
+                      if k in errs), flush=True)
+    for k in worst:
+        worst[k] = max(worst[k], errs.get(k, 0.0))
+    _require(not parity.failures(errs), f"{label}: kernel vs plain: {parity.failures(errs)}")
+    if not calls:
+        return
+    weights = fm.flatten_params(inp["params"], inp["n_blocks"])
+    args = (inp["n_blocks"], inp["pe"])
+
+    def kernel():
+        if stacked:
+            a, r = fm.fused_stacked_apply(inp["params"], inp["x"], inp["d"], *args,
+                                          pe_masks=inp["pe_masks"])
+        else:
+            a, r = fm.fused_field_apply(inp["params"], inp["x"], inp["d"], *args,
+                                        pe_masks=inp["pe_masks"], warp=inp["warp"])
+        return torch.cat([a[..., None], r], -1)
+
+    def plain():
+        if stacked:
+            return fm.fused_stacked_plain(inp["x"], inp["d"], weights, *args, masks=inp["pe_masks"])
+        return fm.fused_mlp_plain(inp["x"], inp["d"], weights, *args, warp=inp["warp"],
+                                  masks=inp["pe_masks"])
+
+    t = {k: [] for k in STEP_TIMES}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for side in order:
+            fwd, out = (kernel, run["out_k"]) if side == "kernel" else (plain, run["out_p"])
+            prefix = "" if side == "kernel" else "plain_"
+            with torch.no_grad():
+                t[prefix + "fwd"].append(_cuda_ms(fwd, 3))
+            t[prefix + "bwd"].append(_cuda_ms(
+                lambda: torch.autograd.grad(out, run["leaves"], run["cot"], retain_graph=True), 3))
+    t = {k: statistics.mean(v) for k, v in t.items()}
+    for k, v in t.items():
+        step_ms[k] += calls * v
+    print(f"time {label}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()), flush=True)
+
+
+def phase_kernels(star_cfg, n_rand):
+    """Each kernel against its plain version at the shapes one online step
+    gives it, with both timed. Returns the worst readings and the times
+    summed over the six calls of one online step."""
+    import torch
+
+    worst, step_ms = dict.fromkeys(MEASURES, 0.0), dict.fromkeys(STEP_TIMES, 0.0)
     for i, case in enumerate(kernel_cases(star_cfg, n_rand)):
-        name, fcfg, _, _, _, calls = case
-        inp = case_inputs(star_cfg, case, i)
-        errs, run = parity.compare(**inp)
-        torch.cuda.synchronize()
-        print(f"kernel-vs-plain {name} {fcfg.depth}x{fcfg.width} N={inp['x'].shape[0]}: "
-              + ", ".join(f"{k} {errs[k]:.3e} (limit {lim})" for k, lim in parity.LIMITS.items()
-                          if k in errs), flush=True)
-        for k in worst:
-            worst[k] = max(worst[k], errs.get(k, 0.0))
-        _require(not parity.failures(errs), f"{name}: kernel vs plain: {parity.failures(errs)}")
-
-        if calls:
-            def kernel():
-                a, r = fm.fused_field_apply(inp["params"], inp["x"], inp["d"], inp["n_blocks"],
-                                            inp["pe"], pe_masks=inp["pe_masks"], warp=inp["warp"])
-                return torch.cat([a[:, None], r], -1)
-
-            def plain():
-                return fm.fused_mlp_plain(inp["x"], inp["d"],
-                                          fm.flatten_params(inp["params"], inp["n_blocks"]),
-                                          inp["n_blocks"], inp["pe"], warp=inp["warp"],
-                                          masks=inp["pe_masks"])
-
-            # plain, kernel, kernel, plain: each side timed twice, in turns
-            t = {k: [] for k in step_ms}
-            for order in (("plain", "kernel"), ("kernel", "plain")):
-                for side in order:
-                    fwd, out = (kernel, run["out_k"]) if side == "kernel" else (plain, run["out_p"])
-                    prefix = "" if side == "kernel" else "plain_"
-                    with torch.no_grad():
-                        t[prefix + "fwd"].append(_cuda_ms(fwd, 3))
-                    t[prefix + "bwd"].append(_cuda_ms(
-                        lambda: torch.autograd.grad(out, run["leaves"], run["cot"],
-                                                    retain_graph=True), 3))
-            t = {k: statistics.mean(v) for k, v in t.items()}
-            for k, v in t.items():
-                step_ms[k] += calls * v
-            print(f"time {name} {fcfg.depth}x{fcfg.width} N={inp['x'].shape[0]}: "
-                  + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()), flush=True)
-        del inp, run
+        name, fcfg, n_points, _, _, calls = case
+        _check_and_time(f"{name} {fcfg.depth}x{fcfg.width} N={n_points}",
+                        case_inputs(star_cfg, case, i), False, calls, worst, step_ms)
         torch.cuda.empty_cache()
     print("time of the six field calls of one online step: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in step_ms.items()), flush=True)
-
-    src = "startrax_torch/kernels/csrc/fused_mlp.cu"
-    lim = parity.LIMITS
-    return [
-        {"name": "fused_mlp_fwd", "route": "cuda", "source": src,
-         "replaces": "startrax/kernels/fused_mlp.py:291", "launches": 0,
-         "max_abs_err": worst["fwd_abs"], "max_scaled_err": worst["fwd"], "tol": lim["fwd"],
-         "rms_scaled_err": worst["fwd_rms"], "tol_rms": lim["fwd_rms"],
-         "ms": step_ms["fwd"], "plain_ms": step_ms["plain_fwd"]},
-        {"name": "fused_mlp_bwd", "route": "cuda", "source": src,
-         "replaces": "startrax/kernels/fused_mlp.py:343", "launches": 0,
-         "max_abs_err": worst["grad_abs"], "max_scaled_err": worst["w"], "tol": lim["w"],
-         "max_pose_rel_err": worst["pose"], "tol_pose": lim["pose"],
-         "ms": step_ms["bwd"], "plain_ms": step_ms["plain_bwd"]},
-    ]
+    return worst, step_ms
 
 
-def _batch(n_rand):
-    """bench.py's fixed batch: normal origins, unit directions, uniform target."""
+def stacked_cases(slice_cfg, n_rand, flagship_cfg, flagship_rays):
+    """The field-axis kernel's cases, as (name, field config, rays, samples
+    per ray, masked, calls per per-ray step): the slice's dynamic fields on
+    each pass, without and with the BARF mask of slice_cfg's end_barf at
+    BARF_STEP (the warmup steps' masked calls are checked, not timed), and
+    the flagship width's fine pass."""
+    s_c = slice_cfg.n_samples
+    s_f = s_c + slice_cfg.n_importance
+    dyn_c, dyn_f = slice_cfg.dynamic_field(), slice_cfg.dynamic_field(True)
+    return [("dynamic coarse", dyn_c, n_rand, s_c, False, 1),
+            ("dynamic fine", dyn_f, n_rand, s_f, False, 1),
+            ("dynamic coarse+barf", dyn_c, n_rand, s_c, True, 0),
+            ("dynamic fine+barf", dyn_f, n_rand, s_f, True, 0),
+            ("flagship dynamic fine", flagship_cfg.dynamic_field(True), flagship_rays,
+             flagship_cfg.n_samples + flagship_cfg.n_importance, False, 0)]
+
+
+def stacked_case_inputs(star_cfg, case, seed):
+    """Random inputs of one field-axis case, as parity.compare takes them:
+    K fields on the samples of bench-style rays, warped into each vehicle's
+    frame by a per-ray pose leaf [R, K, 7]."""
+    import torch
+
+    from startrax_torch.models.fields import barf_masks
+    from startrax_torch.models.star import warp_to_vehicle_frames
+
+    _, fcfg, n_rays, n_samples, masked, _ = case
+    K = star_cfg.num_vehicles
+    pe = (star_cfg.multires, star_cfg.multires_views)
+    g = torch.Generator(device="cuda").manual_seed(40 + seed)
+    o = torch.randn(n_rays, 1, 3, generator=g, device="cuda")
+    dirs = torch.nn.functional.normalize(torch.randn(n_rays, 3, generator=g, device="cuda"), dim=-1)
+    z = torch.linspace(star_cfg.near, star_cfg.far, n_samples, device="cuda")[None, :, None]
+    q = torch.tensor([0.0, 0.0, 0.0, 1.0], device="cuda") \
+        + 0.05 * torch.randn(n_rays, K, 4, generator=g, device="cuda")
+    pose = torch.cat([0.1 * torch.randn(n_rays, K, 3, generator=g, device="cuda"),
+                      torch.nn.functional.normalize(q, dim=-1)], -1).requires_grad_(True)
+    pts_dyn, dirs_dyn = warp_to_vehicle_frames(pose, o + dirs[:, None, :] * z, dirs)
+    n = n_rays * n_samples
+    return {"params": _field(fcfg, seed=50 + seed, n=K),
+            "x": pts_dyn.reshape(K, n, 3).contiguous(),
+            "d": dirs_dyn[:, :, None, :].expand(K, n_rays, n_samples, 3).reshape(K, n, 3)
+            .contiguous(),
+            "n_blocks": fcfg.n_blocks, "pe": pe,
+            "pe_masks": barf_masks(fcfg, BARF_STEP, "cuda") if masked else None, "warp": None,
+            "pose": pose}
+
+
+def phase_field_axis(slice_cfg, n_rand, flagship_cfg, flagship_rays):
+    """The field-axis kernel against its plain version (stacked cases), and
+    the per-field kernel on the slice's static field, each timed where the
+    per-ray step runs it. slice_cfg is the BARF warmup's StarConfig.
+    Returns (worst, step_ms) of the stacked cases and of the static ones,
+    the times summed over one per-ray step's calls."""
+    import torch
+
+    worst_s, ms_s = dict.fromkeys(MEASURES, 0.0), dict.fromkeys(STEP_TIMES, 0.0)
+    for i, case in enumerate(stacked_cases(slice_cfg, n_rand, flagship_cfg, flagship_rays)):
+        name, fcfg, n_rays, n_samples, _, calls = case
+        _check_and_time(f"stacked {name} K={slice_cfg.num_vehicles} {fcfg.depth}x{fcfg.width} "
+                        f"N={n_rays * n_samples}/field",
+                        stacked_case_inputs(slice_cfg, case, i), True, calls, worst_s, ms_s)
+        torch.cuda.empty_cache()
+    worst_f, ms_f = dict.fromkeys(MEASURES, 0.0), dict.fromkeys(STEP_TIMES, 0.0)
+    for i, case in enumerate(kernel_cases(slice_cfg, n_rand)[:2]):  # static coarse and fine
+        name, fcfg, n_points, _, _, calls = case
+        _check_and_time(f"slice {name} {fcfg.depth}x{fcfg.width} N={n_points}",
+                        case_inputs(slice_cfg, case, 10 + i), False, calls, worst_f, ms_f)
+        torch.cuda.empty_cache()
+    for what, ms in (("stacked dynamic", ms_s), ("static", ms_f)):
+        print(f"time of the {what} field calls of one per-ray step: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
+    return worst_s, ms_s, worst_f, ms_f
+
+
+def _batch(n_rand, num_frames=None, near=None, far=None):
+    """bench.py's fixed batch: normal origins, unit directions, uniform
+    target, frame FRAME. With num_frames, a mixed-frame batch: per-ray frames
+    drawn uniformly from [0, num_frames) and a uniform target depth in
+    [near, far]."""
     import numpy as np
     import torch
 
@@ -214,9 +329,14 @@ def _batch(n_rand):
     rays_d = rng.normal(size=(n_rand, 3)).astype(np.float32)
     rays_d /= np.linalg.norm(rays_d, axis=-1, keepdims=True)
     target = rng.uniform(size=(n_rand, 3)).astype(np.float32)
-    return {"rays_o": torch.tensor(rays_o, device="cuda"),
-            "rays_d": torch.tensor(rays_d, device="cuda"),
-            "target": torch.tensor(target, device="cuda"), "frame": FRAME}
+    batch = {"rays_o": torch.tensor(rays_o, device="cuda"),
+             "rays_d": torch.tensor(rays_d, device="cuda"),
+             "target": torch.tensor(target, device="cuda"), "frame": FRAME}
+    if num_frames is not None:
+        depth = rng.uniform(near, far, size=n_rand).astype(np.float32)
+        batch.update(target_depth=torch.tensor(depth, device="cuda"),
+                     frame=torch.tensor(rng.integers(0, num_frames, size=n_rand), device="cuda"))
+    return batch
 
 
 def _online(star_cfg, loss_cfg, cfg, seed):
@@ -274,10 +394,11 @@ def phase_main_path(cfg, star_cfg, loss_cfg):
     print(f"online losses {losses}", flush=True)
     print(f"launches after {N_APPINIT} app-init steps {after_app}, after {N_ONLINE} online "
           f"steps {counts}", flush=True)
-    _require(after_app == {"fwd": 2 * N_APPINIT, "bwd": 2 * N_APPINIT},
-             f"2 launches of each kernel per app-init step, got {after_app}")
-    _require(counts == {"fwd": 2 * N_APPINIT + 6 * N_ONLINE, "bwd": 2 * N_APPINIT + 6 * N_ONLINE},
-             f"6 launches of each kernel per online step, got {counts}")
+    n_app, n_all = 2 * N_APPINIT, 2 * N_APPINIT + 6 * N_ONLINE
+    _require(after_app == {"fwd": n_app, "bwd": n_app, "stacked_fwd": 0, "stacked_bwd": 0},
+             f"2 launches of each per-field kernel per app-init step, got {after_app}")
+    _require(counts == {"fwd": n_all, "bwd": n_all, "stacked_fwd": 0, "stacked_bwd": 0},
+             f"6 launches of each per-field kernel per online step, none stacked, got {counts}")
     _require(all(math.isfinite(v) for v in app_losses + losses), "finite losses")
     _require(statistics.mean(losses[-3:]) < statistics.mean(losses[:3]), "the loss falls")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -327,6 +448,211 @@ def phase_main_path(cfg, star_cfg, loss_cfg):
     return counts
 
 
+def _per_ray_online(cfg, star_cfg, seed):
+    """Online params with a noisy pose table, and the optimizer as
+    apps/online.py builds it for the config (accumulation, clip 1.0)."""
+    import numpy as np
+    import torch
+
+    from startrax_torch.train import loop, optim
+
+    rng = np.random.default_rng(seed)
+    K, F = star_cfg.num_vehicles, cfg.num_frames
+    q = np.array([0.0, 0.0, 0.0, 1.0]) + 0.02 * rng.normal(size=(F - 1, K, 4))
+    poses = np.concatenate([0.05 * rng.normal(size=(F - 1, K, 3)),
+                            q / np.linalg.norm(q, axis=-1, keepdims=True)], -1)
+    params = loop.init_online_params(
+        star_cfg, F, generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda",
+        init_poses=poses.astype(np.float32))
+    opt = optim.make_fused_star_optimizer(
+        params, lrate_static=cfg.lrate_static, lrate_dynamic=cfg.lrate_dynamic,
+        lrate_pose=cfg.lrate_pose, decay_rate=cfg.lrate_decay_rate, decay_epochs=cfg.lrate_decay,
+        decay_milestones=cfg.lrate_decay_steps, pose_decay_rate=cfg.pose_lrate_decay_rate,
+        pose_decay_epochs=cfg.pose_lrate_decay, pose_decay_milestones=cfg.pose_lrate_decay_steps,
+        steps_per_epoch=cfg.steps_per_epoch, grad_clip=1.0,
+        accumulate_steps=cfg.accumulate_grad_batches)
+    return params, opt
+
+
+def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
+    """The per-ray-pose path at the slice's configuration (module docstring,
+    phase 4b). Returns the launch counts of its kernel-path run."""
+    import dataclasses
+
+    import torch
+
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.models.star import render_star
+    from startrax_torch.ops import lie
+    from startrax_torch.train import loop, optim
+    from startrax_torch.utils.tree import tree_leaves
+
+    K, k_acc = star_cfg.num_vehicles, cfg.accumulate_grad_batches
+    batch = _batch(cfg.N_rand, cfg.num_frames, star_cfg.near, star_cfg.far)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = _per_ray_online(cfg, star_cfg, seed=4)
+    warmup = loop.make_online_train_step(star_cfg_barf, loss_cfg, opt,
+                                         freeze_rot=cfg.barf_freeze_rot)
+    joint = loop.make_online_train_step(star_cfg, loss_cfg, opt)
+    nerf = params["nerf"]
+    # leaves an update must move: two fields' weights and the translations
+    watched = [lambda: nerf["static_coarse"]["lin_in"]["w"],
+               lambda: nerf["dynamic_fine"]["rgb"]["w"], lambda: params["poses"][..., :3]]
+    online_launches = {"fwd": 2, "bwd": 2, "stacked_fwd": 2, "stacked_bwd": 2}
+    gauge_launches = {"fwd": 2, "bwd": 0, "stacked_fwd": 2, "stacked_bwd": 2}
+    mini_steps = [0]
+
+    def run(step, n, launches_per_step):
+        """n calls of step() -> loss, each timed with CUDA events and held to
+        its launches; an online step also to the accumulation rhythm."""
+        losses, ms = [], []
+        for _ in range(n):
+            before = [w().detach().clone() for w in watched]
+            counts0 = dict(fm.launches)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+            delta = {k: fm.launches[k] - counts0[k] for k in counts0}
+            _require(delta == launches_per_step,
+                     f"launches per step {launches_per_step}, got {delta}")
+            if launches_per_step is online_launches:
+                changed = any(not torch.equal(b, w().detach()) for b, w in zip(before, watched))
+                mini_steps[0] += 1
+                _require(changed == (mini_steps[0] % k_acc == 0),
+                         f"mini-step {mini_steps[0]}: parameters changed {changed}, an update "
+                         f"every {k_acc} steps")
+        return losses, ms
+
+    fm.reset_launch_counts()
+    warm_losses, warm_ms = run(lambda: warmup(params, batch, epoch=BARF_STEP, generator=gen)[0],
+                               N_WARMUP, online_launches)
+
+    def joint_step():
+        return joint(params, batch, epoch=cfg.end_barf, generator=gen)[0]
+
+    joint_losses, joint_ms = run(joint_step, 1, online_launches)
+    grad = params["poses"].grad
+    for f in sorted(set(batch["frame"].tolist()) - {0}):
+        _require(bool((grad[f - 1].abs().amax(-1) > 0).all()),
+                 f"frame {f}: a non-zero pose grad for every vehicle after one joint step")
+    more_losses, more_ms = run(joint_step, N_JOINT - 1, online_launches)
+    joint_losses, joint_ms = joint_losses + more_losses, joint_ms + more_ms
+
+    grads_before = [(leaf, leaf.grad, leaf.grad.clone()) for leaf in tree_leaves(params)]
+    gauge = lie.se3_identity(K, device="cuda").requires_grad_(True)
+    gauge_step = loop.make_gauge_train_step(
+        star_cfg, optim.make_gauge_optimizer(gauge, cfg.lrate_pose),
+        freeze_rot=cfg.gauge_freeze_rot, depth_lambda=cfg.gauge_depth_lambda)
+    batch0 = dict(batch, frame=torch.zeros_like(batch["frame"]))  # frame-0 rays
+    gauge_losses, gauge_ms = run(
+        lambda: gauge_step(gauge, nerf, params["poses"], batch0, generator=gen), N_GAUGE,
+        gauge_launches)
+    counts = dict(fm.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"per-ray path: BARF warmup losses {warm_losses}", flush=True)
+    print(f"per-ray path: joint losses {joint_losses}", flush=True)
+    print(f"per-ray path: gauge losses {gauge_losses}, gauge {gauge.detach().tolist()}", flush=True)
+    print(f"per-ray path: launches after {N_WARMUP} warmup + {N_JOINT} joint + {N_GAUGE} gauge "
+          f"steps {counts}; optimizer updates {opt.count}", flush=True)
+    n_online = N_WARMUP + N_JOINT
+    _require(counts == {k: n_online * online_launches[k] + N_GAUGE * gauge_launches[k]
+                        for k in counts}, f"launch counts of the per-ray path, got {counts}")
+    _require(opt.count == n_online // k_acc, f"{n_online // k_acc} optimizer updates")
+    _require(all(math.isfinite(v) for v in warm_losses + joint_losses + gauge_losses),
+             "finite losses")
+    _require(statistics.mean(joint_losses[-4:]) < statistics.mean(joint_losses[:4]),
+             "the joint loss falls")
+    q = gauge.detach()[:, 3:7]
+    _require(bool(torch.equal(q, torch.tensor([[0.0, 0.0, 0.0, 1.0]] * K, device="cuda"))),
+             f"the gauge rotation stays identity, got {q.tolist()}")
+    _require(bool(gauge.detach()[:, :3].abs().amax() > 0), "the gauge translation moves")
+    _require(all(leaf.grad is g and torch.equal(leaf.grad, c) for leaf, g, c in grads_before),
+             "the gauge step leaves the fields' and poses' grads untouched")
+    step_ms = statistics.median(joint_ms[4:])
+    print(f"per-ray path, kernel path: median joint step {step_ms:.3f} ms (steps 5-{N_JOINT}), "
+          f"{cfg.N_rand / step_ms * 1e3:.1f} rays/s; median BARF warmup step "
+          f"{statistics.median(warm_ms[2:]):.3f} ms; median gauge step "
+          f"{statistics.median(gauge_ms[2:]):.3f} ms; peak memory {peak_gb:.2f} GB", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        joint_step()
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
+
+    # the kernel path's render against the plain path's on a small batch,
+    # per-ray poses, without and with the BARF mask
+    small = {k: v[:64] for k, v in batch.items()}
+    pose = loop.gather_frame_pose(params["poses"], small["frame"], K)
+    u_strat = torch.rand((64, star_cfg.n_samples), generator=gen, device="cuda")
+    u_pdf = torch.rand((64, star_cfg.n_importance), generator=gen, device="cuda")
+    for c, step in ((star_cfg, None), (star_cfg_barf, BARF_STEP)):
+        with torch.no_grad():
+            outs = [render_star(nerf, cc, small["rays_o"], small["rays_d"], pose=pose, step=step,
+                                u_strat=u_strat, u_pdf=u_pdf)
+                    for cc in (c, dataclasses.replace(c, use_fused=False))]
+        for k in ("rgb0", "rgb"):
+            _require(outs[0][k].shape == (64, 3) and bool(torch.isfinite(outs[0][k]).all()),
+                     f"per-ray render {k}: finite [64, 3]")
+            err = float((outs[0][k] - outs[1][k]).abs().max())
+            print(f"per-ray render {k} (BARF step {step}): kernel path vs plain path max abs err "
+                  f"{err:.3e} (tol 2e-2)", flush=True)
+            _require(err <= 2e-2, f"per-ray render {k}: kernel path vs plain path")
+    after = dict(fm.launches)
+    del params, opt, warmup, joint, gauge_step, outs, grads_before
+    torch.cuda.empty_cache()
+
+    plain_cfg = dataclasses.replace(star_cfg, use_fused=False)
+    params, opt = _per_ray_online(cfg, plain_cfg, seed=4)
+    plain_losses, plain_ms = _timed_steps(loop.make_online_train_step(plain_cfg, loss_cfg, opt),
+                                          N_PLAIN_RAY, params, batch, epoch=cfg.end_barf,
+                                          generator=gen)
+    plain_med = statistics.median(plain_ms[1:])
+    print(f"per-ray path, plain path: losses {plain_losses}, median joint step {plain_med:.3f} ms "
+          f"(steps 2-{N_PLAIN_RAY}), {cfg.N_rand / plain_med * 1e3:.1f} rays/s", flush=True)
+    _require(dict(fm.launches) == after, "the plain path launches no kernel")
+    del params, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _rows(per_field, stacked):
+    """The JSON kernel rows. per_field and stacked are (worst, step_ms,
+    launches) of the per-field kernel (the flagship step's times) and of the
+    field-axis kernel (the per-ray step's times)."""
+    from startrax_torch.kernels import parity
+
+    lim = parity.LIMITS
+    rows = []
+    for prefix, (worst, ms, launches), fwd_at, bwd_at in (
+            ("fused_mlp", per_field, "291", "343"), ("fused_mlp_stacked", stacked, "1027", "1040")):
+        kind = "stacked_" if prefix == "fused_mlp_stacked" else ""
+        rows.append({"name": f"{prefix}_fwd", "route": "cuda", "source": SRC,
+                     "replaces": f"startrax/kernels/fused_mlp.py:{fwd_at}",
+                     "launches": launches[kind + "fwd"], "max_abs_err": worst["fwd_abs"],
+                     "max_scaled_err": worst["fwd"], "tol": lim["fwd"],
+                     "rms_scaled_err": worst["fwd_rms"], "tol_rms": lim["fwd_rms"],
+                     "ms": ms["fwd"], "plain_ms": ms["plain_fwd"]})
+        rows.append({"name": f"{prefix}_bwd", "route": "cuda", "source": SRC,
+                     "replaces": f"startrax/kernels/fused_mlp.py:{bwd_at}",
+                     "launches": launches[kind + "bwd"], "max_abs_err": worst["grad_abs"],
+                     "max_scaled_err": worst["w"], "tol": lim["w"],
+                     "ms": ms["bwd"], "plain_ms": ms["plain_bwd"]})
+    rows[1].update(max_pose_rel_err=per_field[0]["pose"], tol_pose=lim["pose"])
+    rows[3].update(note="also stands for startrax/kernels/fused_mlp.py:343 with "
+                   "input_grads=True (per-point dx, dd)",
+                   max_input_rel_err=stacked[0]["input"], tol_input=lim["input"],
+                   rms_input_err=stacked[0]["input_rms"], tol_input_rms=lim["input_rms"],
+                   rms_ray_pose_err=stacked[0]["ray_pose"], tol_ray_pose=lim["ray_pose"])
+    return rows
+
+
 def main():
     import torch
 
@@ -351,16 +677,29 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_seconds['fused_mlp']:.2f} s)", flush=True)
 
-    cfg = Config(**parse_config_file(
-        os.path.join(here, "startrax", "configs", "carla_star_online_multi.txt")))
-    star_cfg, loss_cfg = star_config_from(cfg), loss_config_from(cfg)
-    print(f"config: K={star_cfg.num_vehicles} {star_cfg.netdepth}x{star_cfg.netwidth} "
-          f"samples {star_cfg.n_samples}+{star_cfg.n_importance} N_rand {cfg.N_rand} "
-          f"near {star_cfg.near} far {star_cfg.far} compute {star_cfg.compute_dtype}", flush=True)
+    def load(name):
+        cfg = Config(**parse_config_file(os.path.join(here, "startrax", "configs", name)))
+        star_cfg = star_config_from(cfg)
+        print(f"config {name}: K={star_cfg.num_vehicles} {star_cfg.netdepth}x{star_cfg.netwidth} "
+              f"samples {star_cfg.n_samples}+{star_cfg.n_importance} N_rand {cfg.N_rand} "
+              f"near {star_cfg.near} far {star_cfg.far} compute {star_cfg.compute_dtype} "
+              f"accumulate {cfg.accumulate_grad_batches}", flush=True)
+        return cfg, star_cfg, loss_config_from(cfg)
 
-    rows = phase_kernels(star_cfg, cfg.N_rand)
+    cfg, star_cfg, loss_cfg = load("carla_star_online_multi.txt")
+    slice_cfg, slice_star, slice_loss = load(SLICE_CONFIG)
+    # as apps/online.py builds them: the main steps at full frequency, the
+    # BARF-masked variant for the warmup
+    slice_star = dataclasses.replace(slice_star, end_barf=-1)
+    slice_star_barf = dataclasses.replace(slice_star, end_barf=slice_cfg.end_barf)
+
+    worst, step_ms = phase_kernels(star_cfg, cfg.N_rand)
+    worst_s, ms_s, worst_f, _ = phase_field_axis(slice_star_barf, slice_cfg.N_rand, star_cfg,
+                                                 cfg.N_rand)
+    worst = {k: max(worst[k], worst_f[k]) for k in worst}
     counts = phase_main_path(cfg, star_cfg, loss_cfg)
-    rows[0]["launches"], rows[1]["launches"] = counts["fwd"], counts["bwd"]
+    counts_s = phase_per_ray_path(slice_cfg, slice_star, slice_star_barf, slice_loss)
+    rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s))
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

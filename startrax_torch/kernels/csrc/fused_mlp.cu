@@ -1,7 +1,23 @@
-// Fused radiance-field MLP for Hopper (sm_90a): forward and backward.
+// Fused radiance-field MLP for Hopper (sm_90a): forward and backward, over a
+// stack of K fields of one shape.
 //
-// Replaces the Pallas TPU kernels `_fwd_kernel` (startrax/kernels/fused_mlp.py:291)
-// and `_bwd_kernel` (startrax/kernels/fused_mlp.py:343).
+// Replaces the Pallas TPU kernels `_fwd_kernel` (startrax/kernels/fused_mlp.py:291),
+// `_bwd_kernel` (startrax/kernels/fused_mlp.py:343), `_stacked_fwd_kernel`
+// (startrax/kernels/fused_mlp.py:1027) and `_stacked_bwd_kernel`
+// (startrax/kernels/fused_mlp.py:1040). One field is the K = 1 case.
+//
+// Field axis: the grid's y index (z for the weight-gradient GEMM and the
+// partial sums) is the field. Every stacked operand is a contiguous stack of
+// K equal per-field blocks ([K, n, 3] points, [K, in, out] weights, [K, n, W]
+// activations, [K, tiles, total] partials, ...), so field k's block starts k
+// block sizes in; the kernels derive those offsets from n and W.
+// The BARF masks are shared by all fields.
+//
+// Backward modes: the pose-sum mode (a warped field whose points carry no
+// gradient) reduces the 12 pose sums per CTA; the input-gradient mode (dx, dd
+// given) writes per-point dx, dd [K, n, 3] f32 through the mask, the encoding
+// backward and, with a warp, the M^T unwarp (as `_bwd_kernel` with
+// input_grads=True and `_stacked_bwd_kernel` do).
 //
 // What it computes, per point: optional SE(3) warp M p + t, M d (packed [16]);
 // NeRF positional encoding of points (multires 10 -> 63 columns) and view
@@ -43,6 +59,13 @@
 //   (B) wgrad_kernel computes dW = X^T dY for every wide layer as a split-N
 //       GEMM, one f32 partial per split;
 //   (C) sum_rows_kernel sums partials in a fixed order.
+//   The TPU's stacked backward zeroed each field's weight grads at its first
+//   tile and relied on the grid's order; here each field has its own partials
+//   and its own sums, so the weight grads keep a zero run-to-run spread.
+// - The TPU's stacked backward recomputed the forward. Here the forward
+//   saves bf16 activations for every field, as the per-field call does: the
+//   backward then runs no second forward (about a third of its matmuls), for
+//   about 3 KB a point and field of device memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -63,12 +86,12 @@ constexpr int LDE = EW + 8;
 constexpr int MAXB = 8;    // most residual blocks a field may have
 
 struct Inputs {
-  const float* x;       // [n, 3] world points
-  const float* d;       // [n, 3] view directions
-  const float* warp;    // [16] M row-major, t; or null
-  const float* mask_x;  // [EW] BARF column mask; or null
+  const float* x;       // [K, n, 3] world points
+  const float* d;       // [K, n, 3] view directions
+  const float* warp;    // [K, 16] M row-major, t; or null
+  const float* mask_x;  // [EW] BARF column mask, shared by the fields; or null
   const float* mask_d;  // [EW]; or null
-  int n, width, n_blocks, fx, fd;
+  int n, width, n_blocks, fx, fd, fields;
 };
 
 // Matmul weights, bf16 row-major [in, out]. The backward receives the
@@ -90,10 +113,11 @@ struct Acts {
 };
 
 // Backward outputs: bf16 pre-activation grads (the dY of each wide layer), the
-// encodings (the X of lin_in and Wv_bot), and per-CTA f32 partials.
+// encodings (the X of lin_in and Wv_bot), per-CTA f32 partials, and in the
+// input-gradient mode the per-point input grads (null otherwise).
 struct Grads {
   bf16* d_in; bf16* d0[MAXB]; bf16* d1[MAXB]; bf16* d_out; bf16* d_f; bf16* d_v;
-  bf16* xe; bf16* de; float* part;
+  bf16* xe; bf16* de; float* part; float* dx; float* dd;
 };
 
 // Layout of one CTA's partial vector. The Python wrapper reads it through
@@ -126,6 +150,7 @@ void parse_inputs(Cursor& c, const int* ints, Inputs& in) {
   in.warp = c.next<const float>();
   in.mask_x = c.next<const float>(); in.mask_d = c.next<const float>();
   in.n = ints[0]; in.width = ints[1]; in.n_blocks = ints[2]; in.fx = ints[3]; in.fd = ints[4];
+  in.fields = ints[5];
 }
 
 void parse_net(Cursor& c, int nb, Net& w) {
@@ -146,6 +171,55 @@ void parse_acts(Cursor& c, int nb, Acts& a) {
   a.h_last = c.next<bf16>(); a.ho = c.next<bf16>(); a.feat = c.next<bf16>(); a.hv_in = c.next<bf16>();
 }
 
+// Field k's blocks of the stacked operands (see the header). The forward's
+// and the backward's weight layouts have the same block sizes. Only the
+// scalar members move: a copy whose arrays were indexed at run time would
+// live in local memory, so the per-block arrays (w0, b0, w1, b1 of Net, h, nn
+// of Acts, d0, d1 of Grads) are read from the kernel parameters and offset
+// where they are used (FieldOff).
+struct FieldOff {
+  size_t b, ww, act;  // a [W] bias, a [W, W] matrix, a [n, W] activation
+};
+
+__device__ __forceinline__ FieldOff field_off(int k, int n, int W) {
+  FieldOff f;
+  f.b = (size_t)k * W; f.ww = f.b * W; f.act = (size_t)k * n * W;
+  return f;
+}
+
+__device__ __forceinline__ Inputs field_inputs(Inputs in, int k) {
+  const size_t o = (size_t)k * in.n * 3;
+  in.x += o; in.d += o;
+  if (in.warp) in.warp += 16 * k;
+  return in;
+}
+
+__device__ __forceinline__ Net field_net(Net w, int k, int W) {
+  const size_t WW = (size_t)W * W, W2 = W / 2;
+  w.w_in += (size_t)k * EW * W; w.b_in += (size_t)k * W;
+  w.w_out += k * WW; w.b_out += (size_t)k * W;
+  w.w_a += (size_t)k * W; w.b_a += k;
+  w.w_f += k * WW; w.b_f += (size_t)k * W;
+  w.wv_top += k * W * W2; w.wv_bot += k * EW * W2; w.b_v += k * W2;
+  w.w_r += k * W2 * 3; w.b_r += 3 * k;
+  return w;
+}
+
+__device__ __forceinline__ Acts field_acts(Acts a, int k, int n, int W) {
+  const size_t o = (size_t)k * n * W;
+  a.h_last += o; a.ho += o; a.feat += o; a.hv_in += o / 2;
+  return a;
+}
+
+__device__ __forceinline__ Grads field_grads(Grads g, int k, int n, int W, size_t part_per_field) {
+  const size_t o = (size_t)k * n * W;
+  g.d_in += o; g.d_out += o; g.d_f += o; g.d_v += o / 2;
+  g.xe += (size_t)k * n * EW; g.de += (size_t)k * n * EW;
+  g.part += k * part_per_field;
+  if (g.dx) { g.dx += (size_t)k * n * 3; g.dd += (size_t)k * n * 3; }
+  return g;
+}
+
 __device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16(v)); }
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
@@ -163,6 +237,13 @@ __device__ __forceinline__ void warp3(const float* w, const float* v, bool with_
                         __fmul_rn(w[3 * r + 2], v[2]));
     y[r] = with_t ? __fadd_rn(s, w[9 + r]) : s;
   }
+}
+
+// y = M^T v (a grad in the warped frame back to the world frame), or v
+// without a warp.
+__device__ __forceinline__ void unwarp3(const float* w, const float* v, float* y) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) y[c] = w ? w[c] * v[0] + w[3 + c] * v[1] + w[6 + c] * v[2] : v[c];
 }
 
 // Column j of the encoding: v[j] for j < 3, else sin/cos(v[dim] 2^freq) with
@@ -311,19 +392,22 @@ size_t bwd_smem(int W) {
 
 // Loads a point tile's raw and warped inputs: raw[t*6 + 0..5] = (x, d),
 // wp[t*6 + 0..5] = (M x + t, M d); zeros past the batch.
-__device__ __forceinline__ void load_points(const Inputs& in, long row0, float* raw, float* wp) {
+// (The field's pointers come by value: a reference to the kernel's local
+// Inputs copy would put that copy in local memory.)
+__device__ __forceinline__ void load_points(const float* x, const float* d, const float* warp, int n,
+                                            long row0, float* raw, float* wp) {
   const int t = threadIdx.x;
   if (t >= T) return;
   const long p = row0 + t;
   float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (p < in.n) {
+  if (p < n) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) { v[i] = in.x[p * 3 + i]; v[3 + i] = in.d[p * 3 + i]; }
+    for (int i = 0; i < 3; ++i) { v[i] = x[p * 3 + i]; v[3 + i] = d[p * 3 + i]; }
   }
   if (raw) for (int i = 0; i < 6; ++i) raw[t * 6 + i] = v[i];
-  if (in.warp) {
-    warp3(in.warp, v, true, wp + t * 6);
-    warp3(in.warp, v + 3, false, wp + t * 6 + 3);
+  if (warp) {
+    warp3(warp, v, true, wp + t * 6);
+    warp3(warp, v + 3, false, wp + t * 6 + 3);
   } else {
     for (int i = 0; i < 6; ++i) wp[t * 6 + i] = v[i];
   }
@@ -381,9 +465,23 @@ __device__ __forceinline__ void add_bias8(float* v, const float* b) {
   for (int q = 0; q < 8; ++q) v[q] += b[q];
 }
 
-__global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs in, Net w, Acts act, float* out) {
+// STACKED = false is the one-field launch: its field index is the constant 0,
+// and it reads the kernel parameters themselves, not field copies of them.
+// (With copies, ptxas allocated the one-field kernel 152 registers against
+// 168 and recomputed 64-bit weight addresses in every GEMM segment: 3% of
+// the forward.)
+template <bool STACKED>
+__global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts all_act, float* out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int W = in.width, W2 = W / 2, LDF = W + 4, LDA = W + 8;
+  const int W = all_in.width, W2 = W / 2, LDF = W + 4, LDA = W + 8, k = STACKED ? blockIdx.y : 0;
+  const Inputs in_k = field_inputs(all_in, k);
+  const Net w_k = field_net(net, k, W);
+  const Acts act_k = field_acts(all_act, k, all_in.n, W);
+  const Inputs& in = STACKED ? in_k : all_in;
+  const Net& w = STACKED ? w_k : net;
+  const Acts& act = STACKED ? act_k : all_act;
+  const FieldOff f = field_off(k, in.n, W);
+  out += (size_t)k * in.n * 4;
   float* hs = reinterpret_cast<float*>(smem);            // [T][LDF] residual stream h (f32)
   float* cs = hs + T * LDF;                              // [T][LDF] matmul result
   bf16* as = reinterpret_cast<bf16*>(cs + T * LDF);      // [T][LDA] bf16 operand
@@ -395,7 +493,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs in, Net w, Acts act, 
   const long row0 = (long)blockIdx.x * T;
   const int nrow = (int)min((long)T, (long)in.n - row0);
 
-  load_points(in, row0, nullptr, ps);
+  load_points(in.x, in.d, in.warp, in.n, row0, nullptr, ps);
   __syncthreads();
   for (int i = tid; i < T * EW; i += NT) {
     const int t = i / EW, j = i - t * EW;
@@ -420,26 +518,26 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs in, Net w, Acts act, 
         add_bias8(h, w.b_in + c);
         st_f8(hs + t * LDF + c, h);
       }
-      if (t < nrow) st_bf8g(h, act.h[b] + (row0 + t) * W + c);
+      if (t < nrow) st_bf8g(h, (all_act.h[b] + f.act) + (row0 + t) * W + c);
       relu8(h, r);
       st_bf8(r, as + t * LDA + c, nullptr);
     }
-    gemm1(as, LDA, w.w0[b], W, W, bs, cs, LDF);
+    gemm1(as, LDA, net.w0[b] + f.ww, W, W, bs, cs, LDF);
     for (int i = tid; i < T * V; i += NT) {
       const int t = i / V, c = (i - t * V) * 8;
       float v[8], r[8];
       ld_f8(cs + t * LDF + c, v);
-      add_bias8(v, w.b0[b] + c);
-      if (t < nrow) st_bf8g(v, act.nn[b] + (row0 + t) * W + c);
+      add_bias8(v, (net.b0[b] + f.b) + c);
+      if (t < nrow) st_bf8g(v, (all_act.nn[b] + f.act) + (row0 + t) * W + c);
       relu8(v, r);
       st_bf8(r, as + t * LDA + c, nullptr);
     }
-    gemm1(as, LDA, w.w1[b], W, W, bs, cs, LDF);
+    gemm1(as, LDA, net.w1[b] + f.ww, W, W, bs, cs, LDF);
     for (int i = tid; i < T * V; i += NT) {  // h = h + (fc1 + b1)
       const int t = i / V, c = (i - t * V) * 8;
       float v[8], h[8];
       ld_f8(cs + t * LDF + c, v);
-      add_bias8(v, w.b1[b] + c);
+      add_bias8(v, (net.b1[b] + f.b) + c);
       ld_f8(hs + t * LDF + c, h);
       add_bias8(h, v);
       st_f8(hs + t * LDF + c, h);
@@ -506,9 +604,23 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs in, Net w, Acts act, 
   }
 }
 
-__global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs in, Net w, Acts act, const float* g, Grads gr) {
+template <bool STACKED>  // as fwd_kernel
+__global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts all_act, const float* g,
+                                                     Grads all_gr) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int W = in.width, W2 = W / 2, LDF = W + 4, LDA = W + 8, nb = in.n_blocks;
+  const int W = all_in.width, W2 = W / 2, LDF = W + 4, LDA = W + 8, nb = all_in.n_blocks;
+  const int k = STACKED ? blockIdx.y : 0;
+  const POff o = partial_offsets(W, nb);
+  const Inputs in_k = field_inputs(all_in, k);
+  const Net w_k = field_net(net, k, W);
+  const Acts act_k = field_acts(all_act, k, all_in.n, W);
+  const Grads gr_k = field_grads(all_gr, k, all_in.n, W, (size_t)gridDim.x * o.total);
+  const Inputs& in = STACKED ? in_k : all_in;
+  const Net& w = STACKED ? w_k : net;
+  const Acts& act = STACKED ? act_k : all_act;
+  const Grads& gr = STACKED ? gr_k : all_gr;
+  const FieldOff f = field_off(k, in.n, W);
+  g += (size_t)k * in.n * 4;
   float* dhs = reinterpret_cast<float*>(smem);           // [T][LDF] residual grad dh (f32)
   float* cs = dhs + T * LDF;                             // [T][LDF] matmul result
   bf16* as = reinterpret_cast<bf16*>(cs + T * LDF);      // [T][LDA] bf16 operand
@@ -522,10 +634,10 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs in, Net w, Acts act, 
   const long row0 = (long)blockIdx.x * T;
   const int nrow = (int)min((long)T, (long)in.n - row0);
   const bool warped = in.warp != nullptr;
-  const POff o = partial_offsets(W, nb);
+  const bool in_grads = gr.dx != nullptr;  // else the pose sums, when warped
   float* part = gr.part + (size_t)blockIdx.x * o.total;
 
-  load_points(in, row0, raw, ps);
+  load_points(in.x, in.d, in.warp, in.n, row0, raw, ps);
   if (tid < T)
     for (int j = 0; j < 4; ++j) gs[tid * 4 + j] = tid < nrow ? g[(row0 + tid) * 4 + j] : 0.f;
   __syncthreads();
@@ -578,14 +690,15 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs in, Net w, Acts act, 
     part[tid == 0 ? o.b_a : o.b_r + tid - 1] = s;
   }
 
-  if (warped) {  // dd_emb = dhv_in @ Wv_bot^T, then the encoding backward, unwarped by M^T
+  if (warped || in_grads) {  // dd_emb = dhv_in @ Wv_bot^T -> mask -> encoding backward -> M^T
     gemm1(as, LDA, w.wv_bot, W2, EW, bs, dhs, LDF);
     float dw[3];
     pe_bwd(dhs, LDF, ps + 3, in.mask_d, in.fd, dw);
     if ((tid & 3) == 0) {
       const int t = tid >> 2;
-      for (int c = 0; c < 3; ++c)
-        pd[t * 3 + c] = in.warp[c] * dw[0] + in.warp[3 + c] * dw[1] + in.warp[6 + c] * dw[2];
+      unwarp3(in.warp, dw, pd + t * 3);
+      if (in_grads && t < nrow)
+        for (int c = 0; c < 3; ++c) gr.dd[(row0 + t) * 3 + c] = pd[t * 3 + c];
     }
   }
 
@@ -643,28 +756,28 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs in, Net w, Acts act, 
       const int t = i / V, c = (i - t * V) * 8;
       float v[8];
       ld_f8(dhs + t * LDF + c, v);
-      st_bf8(v, as + t * LDA + c, t < nrow ? gr.d1[b] + (row0 + t) * W + c : nullptr);
+      st_bf8(v, as + t * LDA + c, t < nrow ? (all_gr.d1[b] + f.act) + (row0 + t) * W + c : nullptr);
     }
     __syncthreads();
     colsum(dhs, LDF, W, part + o.b_blocks + 2 * W * b + W);
-    gemm1(as, LDA, w.w1[b], W, W, bs, cs, LDF);
+    gemm1(as, LDA, net.w1[b] + f.ww, W, W, bs, cs, LDF);
     for (int i = tid; i < T * V; i += NT) {  // dn = da1 * (n > 0)
       const int t = i / V, c = (i - t * V) * 8;
       float a[8], v[8];
-      ld_act8(act.nn[b], row0, t, c, W, nrow, a);
+      ld_act8(all_act.nn[b] + f.act, row0, t, c, W, nrow, a);
       ld_f8(cs + t * LDF + c, v);
 #pragma unroll
       for (int q = 0; q < 8; ++q) v[q] = a[q] > 0.f ? v[q] : 0.f;
       st_f8(cs + t * LDF + c, v);
-      st_bf8(v, as + t * LDA + c, t < nrow ? gr.d0[b] + (row0 + t) * W + c : nullptr);
+      st_bf8(v, as + t * LDA + c, t < nrow ? (all_gr.d0[b] + f.act) + (row0 + t) * W + c : nullptr);
     }
     __syncthreads();
     colsum(cs, LDF, W, part + o.b_blocks + 2 * W * b);
-    gemm1(as, LDA, w.w0[b], W, W, bs, cs, LDF);
+    gemm1(as, LDA, net.w0[b] + f.ww, W, W, bs, cs, LDF);
     for (int i = tid; i < T * V; i += NT) {  // dh += da0 * (h_in > 0)
       const int t = i / V, c = (i - t * V) * 8;
       float a[8], v[8], dh[8];
-      ld_act8(act.h[b], row0, t, c, W, nrow, a);
+      ld_act8(all_act.h[b] + f.act, row0, t, c, W, nrow, a);
       ld_f8(cs + t * LDF + c, v);
       ld_f8(dhs + t * LDF + c, dh);
 #pragma unroll
@@ -681,38 +794,48 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs in, Net w, Acts act, 
   __syncthreads();
   colsum(dhs, LDF, W, part + o.b_in);
 
-  if (warped) {  // dx_emb = dh @ W_in^T -> encoding backward -> unwarp -> pose sums
+  // dx_emb = dh @ W_in^T -> mask -> encoding backward -> M^T -> dx, or the pose sums
+  const bool pose_sums = warped && !in_grads;
+  if (warped || in_grads) {
     gemm1(as, LDA, w.w_in, W, EW, bs, cs, LDF);
     float dw[3];
     pe_bwd(cs, LDF, ps, in.mask_x, in.fx, dw);
     if ((tid & 3) == 0) {
       const int t = tid >> 2;
       float dx[3];
-      for (int c = 0; c < 3; ++c)
-        dx[c] = in.warp[c] * dw[0] + in.warp[3 + c] * dw[1] + in.warp[6 + c] * dw[2];
-      for (int i = 0; i < 3; ++i) {
-        for (int j = 0; j < 3; ++j)
-          pose[t * 12 + 3 * i + j] = dx[i] * raw[t * 6 + j] + pd[t * 3 + i] * raw[t * 6 + 3 + j];
-        pose[t * 12 + 9 + i] = dx[i];
+      unwarp3(in.warp, dw, dx);
+      if (in_grads) {
+        if (t < nrow)
+          for (int c = 0; c < 3; ++c) gr.dx[(row0 + t) * 3 + c] = dx[c];
+      } else {
+        for (int i = 0; i < 3; ++i) {
+          for (int j = 0; j < 3; ++j)
+            pose[t * 12 + 3 * i + j] = dx[i] * raw[t * 6 + j] + pd[t * 3 + i] * raw[t * 6 + 3 + j];
+          pose[t * 12 + 9 + i] = dx[i];
+        }
       }
     }
     __syncthreads();
   }
   if (tid < 12) {
     float s = 0.f;
-    if (warped)
+    if (pose_sums)
       for (int t = 0; t < T; ++t) s += pose[t * 12 + tid];
     part[o.pose + tid] = s;
   }
 }
 
-// part[split][tm*64 + i][tn*64 + j] = sum over this split's points p of
-// X[p][tm*64 + i] * dY[p][tn*64 + j] (X through relu when relu_x).
+// part[field][split][tm*64 + i][tn*64 + j] = sum over this split's points p
+// of X[field][p][tm*64 + i] * dY[field][p][tn*64 + j] (X through relu when
+// relu_x); the field is blockIdx.z, the split blockIdx.y.
 __global__ void __launch_bounds__(NT) wgrad_kernel(const bf16* X, int k_in, int relu_x, const bf16* dY,
                                                    int n_out, long n, long per_split, float* part,
                                                    long part_stride) {
   __shared__ __align__(128) bf16 xs[32 * 72];
   __shared__ __align__(128) bf16 ys[32 * 72];
+  X += (size_t)blockIdx.z * n * k_in;
+  dY += (size_t)blockIdx.z * n * n_out;
+  part += (size_t)blockIdx.z * gridDim.y * part_stride;
   const int tiles_n = n_out / 64;
   const int tm = blockIdx.x / tiles_n, tn = blockIdx.x - tm * tiles_n;
   const long p_begin = (long)blockIdx.y * per_split;
@@ -757,10 +880,13 @@ __global__ void __launch_bounds__(NT) wgrad_kernel(const bf16* X, int k_in, int 
     wmma::store_matrix_sync(dst + (cg * 2 + j) * 16, acc[j], n_out, wmma::mem_row_major);
 }
 
-// out[chunk][c] = sum of in[r][c] over rows r of the chunk, in row order.
+// out[field][chunk][c] = sum of in[field][r][c] over rows r of the chunk, in
+// row order; the field is blockIdx.z, so no chunk spans two fields.
 __global__ void sum_rows_kernel(const float* in, int rows, long cols, int rows_per_chunk, float* out) {
   const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= cols) return;
+  in += (size_t)blockIdx.z * rows * cols;
+  out += (size_t)blockIdx.z * gridDim.y * cols;
   const int r0 = blockIdx.y * rows_per_chunk;
   const int r1 = min(rows, r0 + rows_per_chunk);
   float s = 0.f;
@@ -772,8 +898,9 @@ __global__ void sum_rows_kernel(const float* in, int rows, long cols, int rows_p
 
 extern "C" {
 
+// Every operand is a stack over the fields (see the header).
 // ptrs: x, d, warp, mask_x, mask_d, net (forward layout), acts, out.
-// ints: n, width, n_blocks, multires, multires_views.
+// ints: n (points per field), width, n_blocks, multires, multires_views, fields.
 int stx_fused_fwd(void** ptrs, const int* ints, void* stream) {
   Cursor cur{ptrs, 0};
   Inputs in; Net w; Acts act;
@@ -782,14 +909,16 @@ int stx_fused_fwd(void** ptrs, const int* ints, void* stream) {
   parse_acts(cur, in.n_blocks, act);
   float* out = cur.next<float>();
   const size_t smem = fwd_smem(in.width);
-  cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const int grid = (in.n + T - 1) / T;
-  if (grid > 0) fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, out);
+  const auto kernel = in.fields > 1 ? fwd_kernel<true> : fwd_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const dim3 grid((in.n + T - 1) / T, in.fields);
+  if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, out);
   return (int)cudaGetLastError();
 }
 
 // ptrs: x, d, warp, mask_x, mask_d, net (backward layout), acts, g,
-//       d_in, (d0, d1) x n_blocks, d_out, d_f, d_v, xe, de, part.
+//       d_in, (d0, d1) x n_blocks, d_out, d_f, d_v, xe, de, part, dx, dd.
+// dx and dd are null except in the input-gradient mode. ints as stx_fused_fwd.
 int stx_fused_bwd(void** ptrs, const int* ints, void* stream) {
   Cursor cur{ptrs, 0};
   Inputs in; Net w; Acts act; Grads gr;
@@ -801,10 +930,13 @@ int stx_fused_bwd(void** ptrs, const int* ints, void* stream) {
   for (int i = 0; i < in.n_blocks; ++i) { gr.d0[i] = cur.next<bf16>(); gr.d1[i] = cur.next<bf16>(); }
   gr.d_out = cur.next<bf16>(); gr.d_f = cur.next<bf16>(); gr.d_v = cur.next<bf16>();
   gr.xe = cur.next<bf16>(); gr.de = cur.next<bf16>(); gr.part = cur.next<float>();
+  gr.dx = cur.next<float>(); gr.dd = cur.next<float>();
+  if ((gr.dx == nullptr) != (gr.dd == nullptr)) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem(in.width);
-  cudaFuncSetAttribute(bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const int grid = (in.n + T - 1) / T;
-  if (grid > 0) bwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, g, gr);
+  const auto kernel = in.fields > 1 ? bwd_kernel<true> : bwd_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const dim3 grid((in.n + T - 1) / T, in.fields);
+  if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, g, gr);
   return (int)cudaGetLastError();
 }
 
@@ -827,20 +959,24 @@ int stx_tile_points() { return T; }
 // Padded encoding width of the lin_in and Wv_bot operands.
 int stx_enc_width() { return EW; }
 
+// X [fields, n, k_in], dY [fields, n, n_out] -> part, rows of part_stride
+// floats, [fields, splits] of them.
 int stx_wgrad(const void* X, int k_in, int relu_x, const void* dY, int n_out, long long n, int splits,
-              void* part, long long part_stride, void* stream) {
+              int fields, void* part, long long part_stride, void* stream) {
   const long per_split = (long)((n + splits - 1) / splits);
-  dim3 grid((k_in / 64) * (n_out / 64), splits);
+  dim3 grid((k_in / 64) * (n_out / 64), splits, fields);
   wgrad_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const bf16*>(X), k_in, relu_x, reinterpret_cast<const bf16*>(dY), n_out, (long)n,
       per_split, reinterpret_cast<float*>(part), (long)part_stride);
   return (int)cudaGetLastError();
 }
 
-int stx_sum_rows(const void* in, int rows, long long cols, int rows_per_chunk, void* out, void* stream) {
+// in [fields, rows, cols] -> out [fields, ceil(rows / rows_per_chunk), cols].
+int stx_sum_rows(const void* in, int rows, long long cols, int rows_per_chunk, int fields, void* out,
+                 void* stream) {
   const int chunks = (rows + rows_per_chunk - 1) / rows_per_chunk;
-  dim3 grid((unsigned)((cols + 255) / 256), chunks);
-  if (cols > 0 && chunks > 0)
+  dim3 grid((unsigned)((cols + 255) / 256), chunks, fields);
+  if (cols > 0 && chunks > 0 && fields > 0)
     sum_rows_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const float*>(in), rows, (long)cols, rows_per_chunk, reinterpret_cast<float*>(out));
   return (int)cudaGetLastError();

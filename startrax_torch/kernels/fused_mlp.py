@@ -1,25 +1,32 @@
 """Fused radiance-field MLP: CUDA kernels, their plain PyTorch version, and
 the autograd Function that joins them.
 
-Counterpart of startrax/kernels/fused_mlp.py (`_fwd_kernel` and `_bwd_kernel`,
-behind `fused_field_apply`). The kernels are in csrc/fused_mlp.cu, whose
-header says what bounds them on the card and how the design answers it.
+Counterpart of startrax/kernels/fused_mlp.py: `_fwd_kernel` and `_bwd_kernel`
+behind `fused_field_apply` (one field), `_stacked_fwd_kernel` and
+`_stacked_bwd_kernel` behind `fused_stacked_apply` (K fields in one launch).
+One pair of CUDA kernels, in csrc/fused_mlp.cu, serves both: it runs over a
+stack of K fields, and one field is the K = 1 case. The source's header says
+what bounds the kernels on the card and how the design answers it.
 
-- ``fused_field_apply`` is the wrapper. A CPU tensor goes to
-  ``fused_mlp_plain``; a CUDA tensor launches the kernels or raises.
+- ``fused_field_apply`` and ``fused_stacked_apply`` are the wrappers. A CPU
+  tensor goes to the plain version; a CUDA tensor launches the kernels or
+  raises.
 - ``fused_mlp_plain`` has the kernels' signature and rounding (bf16 matmul
   operands, f32 accumulation, f32 biases and residual stream) and
-  differentiates by autograd. It is also the field's plain path
-  (``use_fused=False``, in bf16 or f32), and ``parity.compare`` holds the
-  kernels against it.
-- ``launches`` counts the wrapper's kernel launches: "fwd" once per forward
-  call, "bwd" once per backward call (one backward call launches the per-tile
-  backward, the weight-gradient GEMMs and the partial sums).
+  differentiates by autograd; ``fused_stacked_plain`` is K calls of it. It is
+  also the field's plain path (``use_fused=False``, in bf16 or f32), and
+  ``parity.compare`` holds the kernels against it.
+- ``launches`` counts the wrappers' kernel launches: "fwd" and "bwd" for
+  ``fused_field_apply``, "stacked_fwd" and "stacked_bwd" for
+  ``fused_stacked_apply``; once per forward call and once per backward call
+  (one backward call launches the per-tile backward and, when a weight
+  needs a grad, the weight-gradient GEMMs and the partial sums).
 
-Only the in-kernel encoding mode with ``input_grads=False`` is ported: points
-and directions carry no gradient, and a warped field's pose gradient leaves
-through the packed warp. Inputs that require grad (the per-ray-pose path and
-the pre-encoded mode) raise NotImplementedError on CUDA.
+The backward runs in one of two modes. When the points or directions need a
+grad (the per-ray-pose path, where they come from warp_to_vehicle_frames), it
+writes per-point dx and dd. Otherwise a warped field's pose gradient leaves
+through the packed warp, from 12 sums reduced in the kernel. The pre-encoded
+input mode (nerf_time's 4-D inputs) is not ported.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from ..ops.encoding import encoding_dim, positional_encoding
 EW = 64  # padded encoding width on the card: 63 point and 27 direction columns
 MAX_BLOCKS = 8
 
-launches = {"fwd": 0, "bwd": 0}
+launches = {"fwd": 0, "bwd": 0, "stacked_fwd": 0, "stacked_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -149,6 +156,16 @@ def fused_mlp_plain(x, d, weights: Sequence[torch.Tensor], n_blocks: int, pe,
     return torch.cat([alpha, rgb], dim=-1)
 
 
+def fused_stacked_plain(x, d, weights: Sequence[torch.Tensor], n_blocks: int, pe, masks=None,
+                        compute_dtype=torch.bfloat16):
+    """Plain version of the stacked kernels: K calls of fused_mlp_plain. x, d:
+    [K, N, 3]; weights: flat stacked params ([K, ...] leaves); masks as for
+    fused_mlp_plain, shared by the fields. Returns [K, N, 4]."""
+    return torch.stack([fused_mlp_plain(x[k], d[k], [w[k] for w in weights], n_blocks, pe,
+                                        masks=masks, compute_dtype=compute_dtype)
+                        for k in range(x.shape[0])])
+
+
 # --------------------------------------------------------------------------
 # CUDA route
 # --------------------------------------------------------------------------
@@ -179,16 +196,16 @@ def _lib():
 
         lib = load("fused_mlp")
         pp, pi, vp = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p
+        ci, cll = ctypes.c_int, ctypes.c_longlong
         for fn in (lib.stx_fused_fwd, lib.stx_fused_bwd):
             fn.argtypes = [pp, pi, vp]
-            fn.restype = ctypes.c_int
-        lib.stx_wgrad.argtypes = [vp, ctypes.c_int, ctypes.c_int, vp, ctypes.c_int,
-                                  ctypes.c_longlong, ctypes.c_int, vp, ctypes.c_longlong, vp]
-        lib.stx_wgrad.restype = ctypes.c_int
-        lib.stx_sum_rows.argtypes = [vp, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, vp, vp]
-        lib.stx_sum_rows.restype = ctypes.c_int
-        lib.stx_partial_offset.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_char_p]
-        lib.stx_partial_offset.restype = ctypes.c_int
+            fn.restype = ci
+        lib.stx_wgrad.argtypes = [vp, ci, ci, vp, ci, cll, ci, ci, vp, cll, vp]
+        lib.stx_wgrad.restype = ci
+        lib.stx_sum_rows.argtypes = [vp, ci, cll, ci, ci, vp, vp]
+        lib.stx_sum_rows.restype = ci
+        lib.stx_partial_offset.argtypes = [ci, ci, ctypes.c_char_p]
+        lib.stx_partial_offset.restype = ci
         if lib.stx_enc_width() != EW:
             raise RuntimeError(f"fused MLP library pads encodings to {lib.stx_enc_width()}, "
                                f"not {EW}")
@@ -216,23 +233,35 @@ def _call(fn, tensors, ints, stream, what):
     _check(fn(ptrs, iv, stream), what)
 
 
+def _sum_rows(lib, src, rows: int, cols: int, rows_per_chunk: int, stream):
+    """src [K, rows, cols] f32 -> [K, ceil(rows / rows_per_chunk), cols], each
+    chunk summed in row order."""
+    K = src.shape[0]
+    out = torch.empty((K, math.ceil(rows / rows_per_chunk), cols), dtype=torch.float32,
+                      device=src.device)
+    _check(lib.stx_sum_rows(src.data_ptr(), rows, cols, rows_per_chunk, K, out.data_ptr(),
+                            stream), "fused MLP partial sums")
+    return out
+
+
 def _pad_rows(w, n_rows: int):
-    return F.pad(w, (0, 0, 0, n_rows - w.shape[0]))
+    return F.pad(w, (0, 0, 0, n_rows - w.shape[-2]))
 
 
 def _kernel_weights(weights, n_blocks: int, transpose: bool):
-    """Flat f32 params -> the kernels' operand list: bf16 matrices (lin_in
-    and Wv_bot zero-padded to EW rows, views split into top and bottom),
-    f32 biases. transpose=True gives the backward's [out, in] matrices; the
-    narrow heads (alpha, rgb) stay as they are."""
+    """Flat f32 stacked params ([K, ...] leaves) -> the kernels' operand list,
+    each a contiguous stack over the fields: bf16 matrices (lin_in and Wv_bot
+    zero-padded to EW rows, views split into top and bottom), f32 biases.
+    transpose=True gives the backward's [K, out, in] matrices; the narrow
+    heads (alpha, rgb) stay as they are."""
     bf = torch.bfloat16
     it = iter(weights)
     W_in, b_in = next(it), next(it)
-    width = W_in.shape[1]
+    width = W_in.shape[-1]
 
     def mat(w):
         w = w.to(bf)
-        return w.t().contiguous() if transpose else w.contiguous()
+        return (w.transpose(-1, -2) if transpose else w).contiguous()
 
     out = [mat(_pad_rows(W_in, EW)), b_in.contiguous()]
     for _ in range(n_blocks):
@@ -244,9 +273,19 @@ def _kernel_weights(weights, n_blocks: int, transpose: bool):
     W_v, b_v = next(it), next(it)
     W_r, b_r = next(it), next(it)
     out += [mat(W_out), b_out.contiguous(), W_a.to(bf).contiguous(), b_a.contiguous(),
-            mat(W_f), b_f.contiguous(), mat(W_v[:width]), mat(_pad_rows(W_v[width:], EW)),
+            mat(W_f), b_f.contiguous(), mat(W_v[:, :width]), mat(_pad_rows(W_v[:, width:], EW)),
             b_v.contiguous(), W_r.to(bf).contiguous(), b_r.contiguous()]
     return out
+
+
+def _param_shapes(width: int, n_blocks: int, in_ch: int, view_ch: int):
+    """Per-field shapes of the flat params, in flatten_params order."""
+    w2 = width // 2
+    shapes = [(in_ch, width), (width,)]
+    shapes += [(width, width), (width,), (width, width), (width,)] * n_blocks
+    shapes += [(width, width), (width,), (width, 1), (1,), (width, width), (width,),
+               (width + view_ch, w2), (w2,), (w2, 3), (3,)]
+    return shapes
 
 
 def _wgrad_splits(n: int) -> int:
@@ -254,25 +293,29 @@ def _wgrad_splits(n: int) -> int:
 
 
 class _FusedMLP(torch.autograd.Function):
-    """Forward: the forward kernel, saving bf16 activations. Backward: the
-    per-tile backward kernel, one split-N GEMM per wide layer, and the
-    deterministic partial sums; the pose grad is dM = M G, dt = M s."""
+    """K fields of one shape through the kernels, on x, d [K, N, 3], an
+    optional packed warp [K, 16] and stacked weights [K, ...]. Forward: the
+    forward kernel, saving bf16 activations. Backward: the per-tile backward
+    kernel; then, when a weight needs a grad, one split-N GEMM per wide layer
+    and the deterministic partial sums. When x or d needs a grad the backward
+    writes per-point dx, dd; otherwise a warp's grad is dM = M G, dt = M s
+    from the kernel's pose sums. ``counter`` names the launch counters
+    ("" or "stacked_")."""
 
     @staticmethod
-    def forward(ctx, x, d, warp, mask_x, mask_d, n_blocks, pe, *weights):
+    def forward(ctx, counter, x, d, warp, mask_x, mask_d, n_blocks, pe, *weights):
         lib = _lib()
-        n, width = x.shape[0], weights[0].shape[1]
-        dev = x.device
+        K, n, width = x.shape[0], x.shape[1], weights[0].shape[-1]
+        dev, bf = x.device, torch.bfloat16
         kw = _kernel_weights(weights, n_blocks, transpose=False)
-        bf = torch.bfloat16
-        acts = [torch.empty((n, width), dtype=bf, device=dev) for _ in range(2 * n_blocks + 3)]
-        acts.append(torch.empty((n, width // 2), dtype=bf, device=dev))
-        out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+        acts = [torch.empty((K, n, width), dtype=bf, device=dev) for _ in range(2 * n_blocks + 3)]
+        acts.append(torch.empty((K, n, width // 2), dtype=bf, device=dev))
+        out = torch.empty((K, n, 4), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _call(lib.stx_fused_fwd, [x, d, warp, mask_x, mask_d, *kw, *acts, out],
-              [n, width, n_blocks, pe[0], pe[1]], stream, "fused MLP forward")
-        launches["fwd"] += 1
-        ctx.n_blocks, ctx.pe = n_blocks, pe
+              [n, width, n_blocks, pe[0], pe[1], K], stream, "fused MLP forward")
+        launches[counter + "fwd"] += 1
+        ctx.counter, ctx.n_blocks, ctx.pe = counter, n_blocks, pe
         ctx.save_for_backward(x, d, warp, mask_x, mask_d, *weights, *acts)
         return out
 
@@ -285,130 +328,170 @@ class _FusedMLP(torch.autograd.Function):
         n_w = 2 + 4 * n_blocks + 10
         weights = saved[5:5 + n_w]
         acts = list(saved[5 + n_w:])
-        n, width = x.shape[0], weights[0].shape[1]
+        K, n, width = x.shape[0], x.shape[1], weights[0].shape[-1]
         w2 = width // 2
-        dev, bf = x.device, torch.bfloat16
-        g = g.contiguous().to(torch.float32)
+        dev, bf, f32 = x.device, torch.bfloat16, torch.float32
+        needs = ctx.needs_input_grad
+        in_grads = needs[1] or needs[2]
+        pose_grad = warp is not None and needs[3]
+        w_grads = any(needs[8:])
+        g = g.contiguous().to(f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
 
+        def buf(cols, dtype=bf):
+            return torch.empty((K, n, cols), dtype=dtype, device=dev)
+
         kw = _kernel_weights(weights, n_blocks, transpose=True)
-        d_in = torch.empty((n, width), dtype=bf, device=dev)
-        d_blocks = [torch.empty((n, width), dtype=bf, device=dev) for _ in range(2 * n_blocks)]
-        d_out = torch.empty((n, width), dtype=bf, device=dev)
-        d_f = torch.empty((n, width), dtype=bf, device=dev)
-        d_v = torch.empty((n, w2), dtype=bf, device=dev)
-        xe = torch.empty((n, EW), dtype=bf, device=dev)
-        de = torch.empty((n, EW), dtype=bf, device=dev)
+        d_in = buf(width)
+        d_blocks = [buf(width) for _ in range(2 * n_blocks)]
+        d_out, d_f, d_v, xe, de = buf(width), buf(width), buf(w2), buf(EW), buf(EW)
+        dx, dd = (buf(3, f32), buf(3, f32)) if in_grads else (None, None)
         off = _partial_offsets(width, n_blocks)
         n_tiles = math.ceil(n / lib.stx_tile_points())
-        part = torch.empty((n_tiles, off["total"]), dtype=torch.float32, device=dev)
+        part = torch.empty((K, n_tiles, off["total"]), dtype=f32, device=dev)
         _call(lib.stx_fused_bwd,
               [x, d, warp, mask_x, mask_d, *kw, *acts, g, d_in, *d_blocks, d_out, d_f, d_v,
-               xe, de, part],
-              [n, width, n_blocks, pe[0], pe[1]], stream, "fused MLP backward")
+               xe, de, part, dx, dd],
+              [n, width, n_blocks, pe[0], pe[1], K], stream, "fused MLP backward")
+        launches[ctx.counter + "bwd"] += 1
 
-        # dW = X^T dY for every wide layer: (X, k_in, relu on X, dY, n_out)
-        h_acts, h_last, ho, feat = acts[:2 * n_blocks], acts[-4], acts[-3], acts[-2]
-        jobs = [(xe, EW, 0, d_in, width)]
-        for b in range(n_blocks):
-            jobs += [(h_acts[2 * b], width, 1, d_blocks[2 * b], width),
-                     (h_acts[2 * b + 1], width, 1, d_blocks[2 * b + 1], width)]
-        jobs += [(h_last, width, 1, d_out, width), (ho, width, 0, d_f, width),
-                 (feat, width, 0, d_v, w2), (de, EW, 0, d_v, w2)]
-        sizes = [k * m for _, k, _, _, m in jobs]
-        total = sum(sizes)
-        splits = _wgrad_splits(n)
-        wpart = torch.empty((splits, total), dtype=torch.float32, device=dev)
-        start = 0
-        for (X, k_in, relu, dY, n_out), size in zip(jobs, sizes):
-            _check(lib.stx_wgrad(X.data_ptr(), k_in, relu, dY.data_ptr(), n_out, n, splits,
-                                 wpart.data_ptr() + 4 * start, total, stream),
-                   "fused MLP weight-gradient GEMM")
-            start += size
-        dw = torch.empty((total,), dtype=torch.float32, device=dev)
-        _check(lib.stx_sum_rows(wpart.data_ptr(), splits, total, splits, dw.data_ptr(), stream),
-               "fused MLP partial sums")
-        chunk = 128
-        n_chunks = math.ceil(n_tiles / chunk)
-        mid = torch.empty((n_chunks, off["total"]), dtype=torch.float32, device=dev)
-        ps = torch.empty((off["total"],), dtype=torch.float32, device=dev)
-        _check(lib.stx_sum_rows(part.data_ptr(), n_tiles, off["total"], chunk, mid.data_ptr(),
-                                stream), "fused MLP partial sums")
-        _check(lib.stx_sum_rows(mid.data_ptr(), n_chunks, off["total"], n_chunks, ps.data_ptr(),
-                                stream), "fused MLP partial sums")
-        launches["bwd"] += 1
+        grads = [None] * n_w
+        if w_grads or (pose_grad and not in_grads):
+            chunk = 128
+            mid = _sum_rows(lib, part, n_tiles, off["total"], chunk, stream)
+            ps = _sum_rows(lib, mid, mid.shape[1], off["total"], mid.shape[1], stream)[:, 0]
+        if w_grads:
+            # dW = X^T dY for every wide layer: (X, k_in, relu on X, dY, n_out)
+            h_acts, h_last, ho, feat = acts[:2 * n_blocks], acts[-4], acts[-3], acts[-2]
+            jobs = [(xe, EW, 0, d_in, width)]
+            for b in range(n_blocks):
+                jobs += [(h_acts[2 * b], width, 1, d_blocks[2 * b], width),
+                         (h_acts[2 * b + 1], width, 1, d_blocks[2 * b + 1], width)]
+            jobs += [(h_last, width, 1, d_out, width), (ho, width, 0, d_f, width),
+                     (feat, width, 0, d_v, w2), (de, EW, 0, d_v, w2)]
+            sizes = [k * m for _, k, _, _, m in jobs]
+            total = sum(sizes)
+            splits = _wgrad_splits(n)
+            wpart = torch.empty((K, splits, total), dtype=f32, device=dev)
+            start = 0
+            for (X, k_in, relu, dY, n_out), size in zip(jobs, sizes):
+                _check(lib.stx_wgrad(X.data_ptr(), k_in, relu, dY.data_ptr(), n_out, n, splits, K,
+                                     wpart.data_ptr() + 4 * start, total, stream),
+                       "fused MLP weight-gradient GEMM")
+                start += size
+            dw = _sum_rows(lib, wpart, splits, total, splits, stream)[:, 0]
 
-        mats = list(torch.split(dw, sizes))
-        in_ch, view_ch = weights[0].shape[0], weights[-4].shape[0] - width
-        grads = [mats[0].view(EW, width)[:in_ch], ps[off["b_in"]:off["b_in"] + width]]
-        for b in range(n_blocks):
-            o0 = off["b_blocks"] + 2 * width * b
-            grads += [mats[1 + 2 * b].view(width, width), ps[o0:o0 + width],
-                      mats[2 + 2 * b].view(width, width), ps[o0 + width:o0 + 2 * width]]
-        k = 1 + 2 * n_blocks
-        grads += [mats[k].view(width, width), ps[off["b_out"]:off["b_out"] + width],
-                  ps[off["w_a"]:off["w_a"] + width].view(width, 1),
-                  ps[off["b_a"]:off["b_a"] + 1],
-                  mats[k + 1].view(width, width), ps[off["b_f"]:off["b_f"] + width],
-                  torch.cat([mats[k + 2].view(width, w2), mats[k + 3].view(EW, w2)[:view_ch]]),
-                  ps[off["b_v"]:off["b_v"] + w2],
-                  ps[off["w_r"]:off["w_r"] + 3 * w2].view(w2, 3),
-                  ps[off["b_r"]:off["b_r"] + 3]]
+            mats = torch.split(dw, sizes, dim=1)
+
+            def mat(i, rows, cols):
+                return mats[i].reshape(K, rows, cols)
+
+            def vec(name, size, at=0):
+                return ps[:, off[name] + at:off[name] + at + size]
+
+            in_ch, view_ch = weights[0].shape[-2], weights[-4].shape[-2] - width
+            grads = [mat(0, EW, width)[:, :in_ch], vec("b_in", width)]
+            for b in range(n_blocks):
+                at = 2 * width * b
+                grads += [mat(1 + 2 * b, width, width), vec("b_blocks", width, at),
+                          mat(2 + 2 * b, width, width), vec("b_blocks", width, at + width)]
+            k = 1 + 2 * n_blocks
+            grads += [mat(k, width, width), vec("b_out", width),
+                      vec("w_a", width).reshape(K, width, 1), vec("b_a", 1),
+                      mat(k + 1, width, width), vec("b_f", width),
+                      torch.cat([mat(k + 2, width, w2), mat(k + 3, EW, w2)[:, :view_ch]], 1),
+                      vec("b_v", w2), vec("w_r", 3 * w2).reshape(K, w2, 3), vec("b_r", 3)]
 
         dwarp = None
-        if warp is not None and ctx.needs_input_grad[2]:
-            pose = ps[off["pose"]:off["pose"] + 12]
-            M = warp[:9].view(3, 3)
-            dM = M @ pose[:9].view(3, 3)
-            dt = M @ pose[9:12]
-            dwarp = torch.cat([dM.reshape(9), dt, warp.new_zeros(4)])
-        return (None, None, dwarp, None, None, None, None, *grads)
+        if pose_grad:
+            M = warp[:, :9].reshape(K, 3, 3)
+            if in_grads:  # from the world-frame input grads, as the TPU rule does
+                G = torch.einsum("kni,knj->kij", dx, x) + torch.einsum("kni,knj->kij", dd, d)
+                s = dx.sum(1)
+            else:
+                G = ps[:, off["pose"]:off["pose"] + 9].reshape(K, 3, 3)
+                s = ps[:, off["pose"] + 9:off["pose"] + 12]
+            dM = M @ G
+            dt = (M @ s[..., None])[..., 0]
+            dwarp = torch.cat([dM.reshape(K, 9), dt, warp.new_zeros(K, 4)], 1)
+        return (None, dx if needs[1] else None, dd if needs[2] else None, dwarp, None, None, None,
+                None, *grads)
 
 
 def _check_cuda_inputs(x, d, weights, n_blocks, pe, warp, masks):
+    """Device, dtype, shape and contiguity of a stacked launch's operands."""
     dev = x.device
-    for name, t, shape in (("x", x, (x.shape[0], 3)), ("d", d, (x.shape[0], 3))):
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
+    if x.dim() != 3:
+        raise ValueError(f"x must be [K, N, 3], got {list(x.shape)}")
+    K, n = x.shape[0], x.shape[1]
+    for name, t in (("x", x), ("d", d)):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (K, n, 3) \
                 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 [N, 3] tensor on {dev}")
-    if x.requires_grad or d.requires_grad:
-        raise NotImplementedError(
-            "fused MLP kernel: gradients wrt points/directions (the input_grads=True mode, "
-            "used by per-ray poses and pre-encoded inputs) are not ported yet")
-    width = weights[0].shape[1]
+            raise ValueError(f"{name} must be a contiguous float32 [K, N, 3] tensor on {dev}")
+    width = weights[0].shape[-1]
     if width % 128 != 0 or width > 256:
         raise ValueError(f"fused MLP kernel needs width 128 or 256, got {width}")
     if not 0 <= n_blocks <= MAX_BLOCKS:
         raise ValueError(f"fused MLP kernel takes at most {MAX_BLOCKS} blocks, got {n_blocks}")
-    if weights[0].shape[0] != encoding_dim(3, pe[0]) or encoding_dim(3, pe[0]) > EW \
-            or weights[-4].shape[0] != width + encoding_dim(3, pe[1]) \
-            or encoding_dim(3, pe[1]) > EW:
-        raise ValueError("fused MLP kernel: weights do not match the encoding widths")
-    for w in weights:
-        if w.device != dev or w.dtype != torch.float32:
-            raise ValueError(f"fused MLP weights must be float32 on {dev}")
-    for name, t, shape in (("warp", warp, (16,)),
+    in_ch, view_ch = encoding_dim(3, pe[0]), encoding_dim(3, pe[1])
+    if in_ch > EW or view_ch > EW:
+        raise ValueError(f"fused MLP kernel pads encodings to {EW} columns, got {in_ch}, {view_ch}")
+    shapes = _param_shapes(width, n_blocks, in_ch, view_ch)
+    if len(weights) != len(shapes):
+        raise ValueError(f"fused MLP kernel: {len(weights)} params for {n_blocks} blocks")
+    for w, shape in zip(weights, shapes):
+        if w.device != dev or w.dtype != torch.float32 or tuple(w.shape) != (K, *shape):
+            raise ValueError(f"fused MLP params must be float32 on {dev}, [{K}, *{list(shape)}] "
+                             f"(the encoding widths and the width); got {list(w.shape)}")
+    for name, t, shape in (("warp", warp, (K, 16)),
                            *((f"pe mask {i}", m, (EW,)) for i, m in enumerate(masks or ()))):
         if t is not None and (t.device != dev or t.dtype != torch.float32
                               or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 {list(shape)} tensor on {dev}")
 
 
+def _launch(counter, x, d, warp, weights, n_blocks: int, pe, masks):
+    _check_cuda_inputs(x, d, weights, n_blocks, pe, warp, masks)
+    mx, md = masks if masks is not None else (None, None)
+    return _FusedMLP.apply(counter, x, d, warp, mx, md, n_blocks, tuple(pe), *weights)
+
+
 def fused_field_apply(params: Dict[str, Any], x, d, n_blocks: int, pe,
                       pe_masks=None, warp=None):
     """Fused field MLP on raw points x [N, 3] and directions d [N, 3] ->
-    (raw_alpha [N], raw_rgb [N, 3]), differentiable in the params and the
-    packed [16] warp. pe = (multires, multires_views); pe_masks = ([EW],
-    [EW]) BARF column masks (see pe_mask_row) or None.
+    (raw_alpha [N], raw_rgb [N, 3]), differentiable in the params, in x and
+    d, and in the packed [16] warp. pe = (multires, multires_views); pe_masks
+    = ([EW], [EW]) BARF column masks (see pe_mask_row) or None.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernels."""
+    CPU tensors take the plain version; CUDA tensors launch the kernels (as
+    one field of a stack)."""
     weights = flatten_params(params, n_blocks)
     if x.device.type == "cpu":
         out = fused_mlp_plain(x, d, weights, n_blocks, pe, warp=warp, masks=pe_masks)
     elif x.device.type == "cuda":
-        _check_cuda_inputs(x, d, weights, n_blocks, pe, warp, pe_masks)
-        mx, md = pe_masks if pe_masks is not None else (None, None)
-        out = _FusedMLP.apply(x, d, warp, mx, md, n_blocks, tuple(pe), *weights)
+        if x.dim() != 2:
+            raise ValueError(f"x must be [N, 3], got {list(x.shape)}")
+        out = _launch("", x[None], d[None], None if warp is None else warp[None],
+                      [w[None] for w in weights], n_blocks, pe, pe_masks)[0]
     else:
         raise ValueError(f"fused MLP: unsupported device {x.device}")
     return out[:, 0], out[:, 1:4]
+
+
+def fused_stacked_apply(params_stacked: Dict[str, Any], x, d, n_blocks: int, pe,
+                        pe_masks=None):
+    """K stacked fields (leaves with a leading [K] axis) on per-field raw
+    points x [K, N, 3] and directions d [K, N, 3] -> (raw_alpha [K, N],
+    raw_rgb [K, N, 3]), differentiable in the params and in x and d. The BARF
+    masks, if any, are shared by the fields.
+
+    CPU tensors take the plain version (fused_stacked_plain); CUDA tensors
+    launch the kernels once for all K fields."""
+    weights = flatten_params(params_stacked, n_blocks)
+    if x.device.type == "cpu":
+        out = fused_stacked_plain(x, d, weights, n_blocks, pe, masks=pe_masks)
+    elif x.device.type == "cuda":
+        out = _launch("stacked_", x, d, None, weights, n_blocks, pe, pe_masks)
+    else:
+        raise ValueError(f"fused MLP: unsupported device {x.device}")
+    return out[..., 0], out[..., 1:4]

@@ -6,9 +6,10 @@ Counterpart of startrax/models/fields.py. Parameters keep the JAX layout:
 every leaf on a leading [K] axis.
 
 Dispatch: with ``use_fused`` (default: on for CUDA tensors) the field runs
-through the fused MLP kernels (kernels/fused_mlp.py); otherwise through their
-plain version, ``fused_mlp_plain``, in ``compute_dtype`` (bf16 operands with
-f32 accumulation, rounded as the kernels round, or f32).
+through the fused MLP kernels (kernels/fused_mlp.py), and a stack of fields
+through one launch of them; otherwise through their plain version,
+``fused_mlp_plain``, in ``compute_dtype`` (bf16 operands with f32
+accumulation, rounded as the kernels round, or f32).
 """
 
 from __future__ import annotations
@@ -18,7 +19,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..kernels.fused_mlp import fused_field_apply, fused_mlp_plain, flatten_params, pe_mask_row
+from ..kernels.fused_mlp import (
+    flatten_params,
+    fused_field_apply,
+    fused_mlp_plain,
+    fused_stacked_apply,
+    fused_stacked_plain,
+    pe_mask_row,
+)
 from ..ops.encoding import barf_weights, encoding_dim
 from ..utils.tree import tree_map
 
@@ -154,9 +162,25 @@ def field_slice(params: Params, k: int) -> Params:
 
 def apply_stacked_fields(params: Params, cfg: FieldConfig, pts, viewdirs, step=None):
     """n stacked fields on per-field inputs: pts [n, R, S, 3], viewdirs
-    [n, R, 3] -> (raw_alpha [n, R, S], raw_rgb [n, R, S, 3]). The field axis
-    is a Python loop; a single-launch stacked kernel is not ported yet."""
-    n = pts.shape[0]
-    outs = [apply_field(field_slice(params, k), cfg, pts[k], viewdirs[k], step=step)
-            for k in range(n)]
-    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    [n, R, 3] -> (raw_alpha [n, R, S], raw_rgb [n, R, S, 3]), differentiable
+    in the params and in pts and viewdirs.
+
+    With the fused kernels, one launch evaluates all n fields, BARF masks
+    included when ``step`` makes them active (kernels.fused_mlp.
+    fused_stacked_apply); otherwise the plain version, field by field."""
+    n, R, S = pts.shape[0], pts.shape[1], pts.shape[2]
+    assert tuple(pts.shape) == (n, R, S, 3) and tuple(viewdirs.shape) == (n, R, 3)
+    if cfg.input_dims != 3:
+        raise NotImplementedError("time-conditioned (4-D input) fields are not ported yet")
+    x = pts.reshape(n, R * S, 3)
+    dirs = viewdirs[:, :, None, :].expand(n, R, S, 3).reshape(n, R * S, 3)
+    pe = (cfg.multires, cfg.multires_views)
+    masks = barf_masks(cfg, step, pts.device)
+    if resolve_use_fused(cfg, pts.device):
+        raw_alpha, raw_rgb = fused_stacked_apply(params, x.contiguous(), dirs.contiguous(),
+                                                 cfg.n_blocks, pe, pe_masks=masks)
+    else:
+        out = fused_stacked_plain(x, dirs, flatten_params(params, cfg.n_blocks), cfg.n_blocks,
+                                  pe, masks=masks, compute_dtype=cfg.compute_dtype)
+        raw_alpha, raw_rgb = out[..., 0], out[..., 1:4]
+    return raw_alpha.reshape(n, R, S), raw_rgb.reshape(n, R, S, 3)

@@ -112,13 +112,14 @@ def pack_warp(pose7):
 
 
 def _apply_dynamic(params, cfg: FieldConfig, pose, pts, viewdirs, step):
-    """K dynamic fields on world points -> ([K, R, S], [K, R, S, 3])."""
-    if resolve_use_fused(cfg, pts.device):
-        if pose.dim() == 3:
-            raise NotImplementedError(
-                "per-ray poses on the fused kernels need the kernel's input-gradient mode, "
-                "which is not ported yet")
-        # shared-pose batch: each vehicle's warp runs inside the kernel
+    """K dynamic fields on world points -> ([K, R, S], [K, R, S, 3]).
+
+    A shared pose [K, 7] on the fused kernels warps inside the kernel, one
+    launch per vehicle. A per-ray pose [R, K, 7] (mixed-frame batches), and
+    every pose on the plain path, warps the points outside and evaluates the
+    K fields through apply_stacked_fields; the pose grad then comes back
+    through the points' and directions' grads."""
+    if pose.dim() == 2 and resolve_use_fused(cfg, pts.device):
         outs = [apply_field(field_slice(params, k), cfg, pts, viewdirs, step=step,
                             warp=pack_warp(pose[k]))
                 for k in range(pose.shape[0])]

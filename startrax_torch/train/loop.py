@@ -18,7 +18,7 @@ from ..ops import lie
 from ..ops.losses import depth_loss as depth_loss_fn
 from ..ops.losses import img2mse, mse2psnr
 from ..ops.losses import sigma_loss as sigma_loss_fn
-from ..utils.tree import tree_leaves
+from ..utils.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,10 +95,14 @@ def compute_losses(result: Dict[str, Any], batch: Dict[str, Any], star_cfg: Star
     return loss, metrics
 
 
-def gather_frame_pose(poses, frame: int, num_vehicles: int):
+def gather_frame_pose(poses, frame, num_vehicles: int):
     """Pose of a frame; frame 0 is pinned to identity. poses: [F-1, K, 7]
-    learnable -> [K, 7]."""
+    learnable; frame: an int (-> [K, 7]) or an [R] integer tensor of per-ray
+    frames (a mixed-frame batch, -> [R, K, 7]). The gradient of a per-ray
+    pose scatter-adds back into its frame's row."""
     pose0 = lie.se3_identity(1, num_vehicles, dtype=poses.dtype, device=poses.device)
+    if torch.is_tensor(frame):
+        frame = frame.to(device=poses.device, dtype=torch.long)
     return torch.cat([pose0, poses], dim=0)[frame]
 
 
@@ -122,17 +126,19 @@ def make_online_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt,
                            trans_only: bool = False, freeze_rot: bool = False):
     """Returns step(params, batch, epoch=0, u_strat=None, u_pdf=None,
     generator=None) -> (loss, metrics), updating params and opt in place.
+    batch["frame"] is an int, or an [R] tensor of per-ray frames.
 
     trans_only pins every quaternion to identity and optimises translations
     only; freeze_rot keeps each pose's current rotation. In both, the
     rotation grads are zeroed before the optimizer so the Adam moments stay
-    untouched. Otherwise quaternions are renormalised after each update."""
+    untouched. Otherwise quaternions are renormalised after each optimizer
+    step, whether or not it emitted an update (gradient accumulation)."""
 
     def train_step(params, batch, epoch=0, u_strat=None, u_pdf=None, generator=None):
         poses = params["poses"]
         q_before = poses.detach()[..., 3:7].clone()
         opt.zero_grad()
-        pose = gather_frame_pose(poses, int(batch["frame"]), star_cfg.num_vehicles)
+        pose = gather_frame_pose(poses, batch["frame"], star_cfg.num_vehicles)
         result = render_star(params["nerf"], star_cfg, batch["rays_o"], batch["rays_d"],
                              pose=pose, train=True, step=epoch, u_strat=u_strat, u_pdf=u_pdf,
                              generator=generator)
@@ -152,6 +158,47 @@ def make_online_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt,
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_gauge_train_step(star_cfg: StarConfig, opt, freeze_rot: bool = False,
+                          depth_lambda: float = 0.0):
+    """Fit of one shared per-vehicle SE(3) gauge G [K, 7] (the gauge_align
+    polish of apps/online.py): each ray is rendered with pose G ∘ p_f, where
+    p_f is its frame's pose, against fixed fields and poses. The loss is the
+    photometric MSE (coarse + fine), plus depth_lambda times the depth loss
+    when the batch carries target_depth. freeze_rot zeroes the quaternion's
+    grad before the optimizer, so it stays at its value and its Adam moments
+    at zero.
+
+    Returns step(gauge, nerf, poses, batch, u_strat=None, u_pdf=None,
+    generator=None) -> loss, updating the gauge (a leaf that requires grad)
+    and opt in place. The fields and poses are read detached: no grad of
+    theirs is formed, and their .grad stays as it was."""
+
+    def gauge_step(gauge, nerf, poses, batch, u_strat=None, u_pdf=None, generator=None):
+        opt.zero_grad()
+        fixed = tree_map(torch.Tensor.detach, nerf)
+        pose_f = gather_frame_pose(poses.detach(), batch["frame"], star_cfg.num_vehicles)
+        pose_c = lie.se3_multiply(gauge.expand(pose_f.shape), pose_f)
+        result = render_star(fixed, star_cfg, batch["rays_o"], batch["rays_d"], pose=pose_c,
+                             train=True, u_strat=u_strat, u_pdf=u_pdf, generator=generator)
+        has_fine = star_cfg.n_importance > 0
+        loss = img2mse(result["rgb0"], batch["target"])
+        if has_fine:
+            loss = loss + img2mse(result["rgb"], batch["target"])
+        if depth_lambda > 0 and "target_depth" in batch:
+            loss = loss + depth_lambda * depth_loss_fn(result["depth" if has_fine else "depth0"],
+                                                       batch["target_depth"], star_cfg.near,
+                                                       star_cfg.far)
+        loss.backward()
+        with torch.no_grad():
+            if freeze_rot:
+                gauge.grad[..., 3:7] = 0.0
+            opt.step()
+            gauge[..., 3:7] = lie.quat_normalize(gauge[..., 3:7])
+        return loss.detach()
+
+    return gauge_step
 
 
 def make_appinit_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt):

@@ -56,31 +56,53 @@ class FusedGroupAdam:
 
     The schedule is read at the pre-increment step count and the bias
     correction uses the post-increment count (optax's convention). Leaves
-    whose .grad is None count as zero gradients."""
+    whose .grad is None count as zero gradients.
+
+    accumulate_steps = k > 1 is optax.MultiSteps around it: each step() folds
+    the grads into a running mean (acc + (g - acc) / (n + 1) after n earlier
+    mini-steps); the k-th applies clip and Adam to that mean and resets it,
+    and the other k - 1 leave the parameters, the moments and the step count
+    (so the schedules) untouched."""
 
     def __init__(self, leaves: Sequence[torch.Tensor], group_ids: Sequence[int],
                  schedules: Sequence[Schedule], grad_clip: Optional[float] = None,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 accumulate_steps: int = 1):
+        if accumulate_steps < 1:
+            raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
         self.leaves = list(leaves)
         self.schedules = list(schedules)
         self.grad_clip = grad_clip
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.accumulate_steps = accumulate_steps
         self.count = 0
+        self.mini_step = 0
         ref = self.leaves[0]
         sizes = [p.numel() for p in self.leaves]
         self.group = torch.cat([torch.full((n,), g, dtype=torch.long, device=ref.device)
                                 for n, g in zip(sizes, group_ids)])
         self.m = torch.zeros(sum(sizes), dtype=torch.float32, device=ref.device)
         self.v = torch.zeros_like(self.m)
+        self.acc = torch.zeros_like(self.m) if accumulate_steps > 1 else None
 
     def zero_grad(self) -> None:
         for p in self.leaves:
             p.grad = None
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self) -> bool:
+        """One optimizer step on the leaves' .grad; returns whether it
+        updated the parameters."""
         g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                        for p in self.leaves])
+        if self.acc is not None:
+            self.acc.add_((g - self.acc) / (self.mini_step + 1))
+            self.mini_step += 1
+            if self.mini_step < self.accumulate_steps:
+                return False
+            g = self.acc.clone()
+            self.acc.zero_()
+            self.mini_step = 0
         if self.grad_clip is not None:
             gnorm = torch.sqrt(torch.sum(g * g))
             g = g * torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -97,6 +119,7 @@ class FusedGroupAdam:
             n = p.numel()
             p.add_(update[start:start + n].view_as(p))
             start += n
+        return True
 
 
 def make_fused_star_optimizer(params: Dict, lrate_static: float, lrate_dynamic: float,
@@ -109,16 +132,17 @@ def make_fused_star_optimizer(params: Dict, lrate_static: float, lrate_dynamic: 
                               grad_clip: Optional[float] = 1.0,
                               accumulate_steps: int = 1) -> FusedGroupAdam:
     """Adam over {"nerf": star params, "poses": [F-1, K, 7]} with three LR
-    groups: static fields, dynamic fields, poses."""
-    if accumulate_steps > 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
+    groups: static fields, dynamic fields, poses. With accumulate_steps = k,
+    an update every k steps on the mean grad, the schedules counting updates
+    (an epoch is steps_per_epoch // k of them)."""
+    sched_steps = max(steps_per_epoch // accumulate_steps, 1)
     kw = dict(decay_rate=decay_rate, decay_epochs=decay_epochs,
-              decay_milestones=decay_milestones, steps_per_epoch=steps_per_epoch)
+              decay_milestones=decay_milestones, steps_per_epoch=sched_steps)
     scheds = [
         make_schedule(lrate_static, **kw),
         make_schedule(lrate_dynamic, **kw),
         make_schedule(lrate_pose, decay_rate=pose_decay_rate, decay_epochs=pose_decay_epochs,
-                      decay_milestones=pose_decay_milestones, steps_per_epoch=steps_per_epoch),
+                      decay_milestones=pose_decay_milestones, steps_per_epoch=sched_steps),
     ]
     leaves, groups = [], []
     for name in sorted(params["nerf"]):
@@ -127,7 +151,8 @@ def make_fused_star_optimizer(params: Dict, lrate_static: float, lrate_dynamic: 
             groups.append(0 if name.startswith("static") else 1)
     leaves.append(params["poses"])
     groups.append(2)
-    return FusedGroupAdam(leaves, groups, scheds, grad_clip=grad_clip)
+    return FusedGroupAdam(leaves, groups, scheds, grad_clip=grad_clip,
+                          accumulate_steps=accumulate_steps)
 
 
 def make_appinit_optimizer(params: Dict, lrate: float, steps_per_epoch: int = 1,
@@ -135,10 +160,17 @@ def make_appinit_optimizer(params: Dict, lrate: float, steps_per_epoch: int = 1,
                            decay_milestones: Optional[Sequence[int]] = None,
                            grad_clip: Optional[float] = None,
                            accumulate_steps: int = 1) -> FusedGroupAdam:
-    """Single-group Adam with a schedule, for appearance init."""
-    if accumulate_steps > 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
+    """Single-group Adam with a schedule, for appearance init; accumulation
+    as in make_fused_star_optimizer."""
     sched = make_schedule(lrate, decay_rate=decay_rate, decay_epochs=decay_epochs,
-                          decay_milestones=decay_milestones, steps_per_epoch=steps_per_epoch)
+                          decay_milestones=decay_milestones,
+                          steps_per_epoch=max(steps_per_epoch // accumulate_steps, 1))
     leaves = tree_leaves(params)
-    return FusedGroupAdam(leaves, [0] * len(leaves), [sched], grad_clip=grad_clip)
+    return FusedGroupAdam(leaves, [0] * len(leaves), [sched], grad_clip=grad_clip,
+                          accumulate_steps=accumulate_steps)
+
+
+def make_gauge_optimizer(gauge: torch.Tensor, lrate: float) -> FusedGroupAdam:
+    """Plain Adam at a constant learning rate, no clip (optax.adam(lrate),
+    as apps/online.py builds it for the gauge fit)."""
+    return FusedGroupAdam([gauge], [0], [lambda count: lrate])

@@ -6,12 +6,17 @@ They import no JAX, so they also run where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 (``--noconftest`` leaves out tests/conftest.py, which sets up JAX.) The
-shape is a small flagship-width field, 4 x 256, on 3000 points, so the last
-point tile is ragged. The comparison and its limits are
-startrax_torch.kernels.parity's, the same that chip_smoke.py applies at the
-step's shapes: forward within 1e-2 (max) and 1.5e-3 (rms) of the output's
-scale, weight grads within 2e-3 of each grad's largest magnitude, the pose
-grad within 1.5e-2 of its largest component.
+shapes are small fields of the flagship's and the scaled synthetic config's
+widths, 4 x 256 and 4 x 128, on 3000 points per field, so the last point
+tile is ragged; the field-axis cases stack K = 2 fields whose inputs come
+from a per-ray pose leaf [R, K, 7] (50 rays of 60 samples) through
+warp_to_vehicle_frames. The
+comparison and its limits are startrax_torch.kernels.parity's, the same that
+chip_smoke.py applies at the step's shapes: forward within 1e-2 (max) and
+1.5e-3 (rms) of the output's scale, weight grads within 2e-3 of each grad's
+largest magnitude, the pose grad within 1.5e-2 of its largest component,
+the input grads within 0.3 of their largest components (single-point
+outliers) and 2e-2 in rms, the per-ray pose grads within 1e-2 in rms.
 """
 
 import pytest
@@ -21,8 +26,9 @@ from startrax_torch import convert
 from startrax_torch.kernels import fused_mlp as tfused
 from startrax_torch.kernels import parity
 from startrax_torch.models import fields as tfields
-from startrax_torch.models.star import pack_warp
+from startrax_torch.models.star import pack_warp, warp_to_vehicle_frames
 from startrax_torch.ops.encoding import barf_weights
+from startrax_torch.utils.tree import tree_map
 
 N = 3000
 PE = (10, 4)
@@ -50,9 +56,12 @@ def _setup(seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["static", "warped", "masked"])
+@pytest.mark.parametrize("mode", ["static", "warped", "masked", "warped_input_grads"])
 def test_fused_kernels_match_plain(card, mode):
     cfg, params, x, d = _setup(seed=6)
+    if mode == "warped_input_grads":  # per-point dx, dd; the pose grad from them
+        x.requires_grad_(True)
+        d.requires_grad_(True)
     pose = torch.tensor([0.1, -0.2, 0.05, 0.1, 0.2, -0.1, 0.97], device=card)
     pose = (pose / torch.cat([torch.ones(3, device=card), pose[3:].norm().expand(4)]))
     pose.requires_grad_(True)
@@ -64,13 +73,57 @@ def test_fused_kernels_match_plain(card, mode):
     tfused.reset_launch_counts()
     errs, _ = parity.compare(params, x, d, cfg.n_blocks, PE, pe_masks=masks, warp=warp,
                              pose=pose if warp is not None else None)
-    assert tfused.launches == {"fwd": 1, "bwd": 1}
+    assert tfused.launches == {"fwd": 1, "bwd": 1, "stacked_fwd": 0, "stacked_bwd": 0}
     assert ("pose" in errs) == (warp is not None)
+    assert ("input" in errs) == (mode == "warped_input_grads")
+    assert not parity.failures(errs), errs
+
+
+def _stacked_setup(width, seed, n_rays=50, n_samples=60):
+    cfg = tfields.FieldConfig(depth=4, width=width)
+    g = torch.Generator().manual_seed(seed)
+    params = tfields.init_stacked_fields(cfg, 2, g)
+    for blk in params["blocks"]:  # nonzero fc1 so every block carries gradient
+        blk["fc1"]["w"] = 0.02 * torch.randn(blk["fc1"]["w"].shape, generator=g)
+    params = convert.params_from_numpy(convert.params_to_numpy(params), device="cuda",
+                                       requires_grad=True)
+    pts = torch.randn(n_rays, n_samples, 3, generator=g).cuda()
+    dirs = torch.nn.functional.normalize(torch.randn(n_rays, 3, generator=g), dim=-1).cuda()
+    q = torch.nn.functional.normalize(torch.randn(n_rays, 2, 4, generator=g), dim=-1)
+    pose = torch.cat([0.1 * torch.randn(n_rays, 2, 3, generator=g), q], -1).cuda()
+    pose.requires_grad_(True)
+    pts_dyn, dirs_dyn = warp_to_vehicle_frames(pose, pts, dirs)
+    n = n_rays * n_samples
+    x = pts_dyn.reshape(2, n, 3).contiguous()
+    d = dirs_dyn[:, :, None, :].expand(2, n_rays, n_samples, 3).reshape(2, n, 3).contiguous()
+    return cfg, params, x, d, pose
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_field_axis_kernels_match_plain(card, width, masked):
+    cfg, params, x, d, pose = _stacked_setup(width, seed=7)
+    masks = None
+    if masked:  # BARF at step 5 of 12
+        masks = tuple(tfused.pe_mask_row(barf_weights(5, 12, f, device=card), f) for f in PE)
+    tfused.reset_launch_counts()
+    errs, _ = parity.compare(params, x, d, cfg.n_blocks, PE, pe_masks=masks, pose=pose,
+                             stacked=True)
+    assert tfused.launches == {"fwd": 0, "bwd": 0, "stacked_fwd": 1, "stacked_bwd": 1}
+    assert {"input", "input_rms", "ray_pose"} <= set(errs)
     assert not parity.failures(errs), errs
 
 
 @pytest.mark.cuda
-def test_input_grads_mode_raises(card):
-    cfg, params, x, d = _setup(seed=7)
-    with pytest.raises(NotImplementedError, match="input_grads"):
-        tfused.fused_field_apply(params, x.requires_grad_(True), d, cfg.n_blocks, PE)
+def test_field_axis_input_grads_without_weight_grads(card):
+    """Frozen weights (the gauge step): the backward skips the weight-grad
+    GEMMs and gives the same dx, dd, bit for bit."""
+    cfg, params, x, d, pose = _stacked_setup(128, seed=8)
+    frozen = tree_map(torch.Tensor.detach, params)
+    grads = []
+    for p in (params, frozen):
+        a, r = tfused.fused_stacked_apply(p, x, d, cfg.n_blocks, PE)
+        grads.append(torch.autograd.grad(a.sum() + (r ** 2).sum(), pose, retain_graph=True))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert bool(grads[0][0].abs().sum() > 0)

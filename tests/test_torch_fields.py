@@ -32,7 +32,7 @@ from startrax_torch.kernels import fused_mlp as tfused
 from startrax_torch.models import fields as tfields
 from startrax_torch.models.star import pack_warp
 from startrax_torch.ops.encoding import barf_weights as tbarf_weights
-from startrax_torch.utils.tree import tree_leaves
+from startrax_torch.utils.tree import tree_leaves, tree_map
 
 JCFG = jfields.FieldConfig(depth=4, width=32, compute_dtype=jnp.float32, use_fused=False)
 TCFG = tfields.FieldConfig(depth=4, width=32, compute_dtype=torch.float32, use_fused=False)
@@ -148,7 +148,8 @@ def test_fused_plain_matches_plain_field_body_in_f32_layout():
 
 
 def test_fused_wrapper_on_cpu_runs_plain_version():
-    """A CPU tensor takes the plain version and counts no kernel launch."""
+    """A CPU tensor takes the plain version and counts no kernel launch, one
+    field or a stack of them."""
     params_np, pts, dirs, _ = _setup(seed=2)
     tp = convert.params_from_numpy(params_np, requires_grad=True)
     weights = tfused.flatten_params(tp, JCFG.n_blocks)
@@ -158,9 +159,14 @@ def test_fused_wrapper_on_cpu_runs_plain_version():
     tfused.reset_launch_counts()
     a, r = tfused.fused_field_apply(tp, x, d, JCFG.n_blocks, pe)
     torch.autograd.grad(a.sum() + r.sum(), weights)
-    assert tfused.launches == {"fwd": 0, "bwd": 0}
+    stack = tree_map(lambda t: torch.stack([t, 2.0 * t]), tp)
+    sa, sr = tfused.fused_stacked_apply(stack, torch.stack([x, -x]), torch.stack([d, d]),
+                                        JCFG.n_blocks, pe)
+    torch.autograd.grad(sa.sum() + sr.sum(), tfused.flatten_params(stack, JCFG.n_blocks))
+    assert tfused.launches == {"fwd": 0, "bwd": 0, "stacked_fwd": 0, "stacked_bwd": 0}
     out = tfused.fused_mlp_plain(x, d, weights, JCFG.n_blocks, pe)
     assert torch.equal(torch.cat([a[:, None], r], -1), out)
+    assert torch.equal(torch.cat([sa[0, :, None], sr[0]], -1), out)
 
 
 def test_stacked_fields_match_startrax():
@@ -173,6 +179,85 @@ def test_stacked_fields_match_startrax():
     at, rt = tfields.apply_stacked_fields(tstack, TCFG, torch.tensor(pts), torch.tensor(dirs))
     np.testing.assert_allclose(at.numpy(), np.asarray(aj), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=1e-5, atol=1e-5)
+
+
+def _stacked_setup(seed, n_points):
+    jstack = jfields.init_stacked_fields(jax.random.PRNGKey(seed), JCFG, 2)
+    jstack = jax.tree.map(
+        lambda x: x + 0.01 * jax.random.normal(jax.random.PRNGKey(seed + 1), x.shape), jstack)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, n_points, 3)).astype(np.float32)
+    d = rng.normal(size=(2, n_points, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return jax.tree.map(np.asarray, jstack), x, d
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_stacked_plain_bf16_matches_pallas_interpret(masked):
+    """The stacked wrapper on CPU tensors (the field-axis kernel's plain
+    version) against the Pallas kernels in interpret mode, in bf16: the
+    stacked pair unmasked, K calls of the input_grads=True kernel with a BARF
+    mask. Forward, weight grads and input grads, at the bf16 bounds of the
+    module docstring; 100 points per field, so the tile of 32 is ragged."""
+    params_np, x, d = _stacked_setup(seed=11, n_points=100)
+    pe = (JCFG.multires, JCFG.multires_views)
+    step, end_barf = 5.0, 12
+    j_masks = t_masks = None
+    if masked:
+        j_masks = tuple(jfused.pe_mask_row(jenc.barf_weights(step, end_barf, f), f) for f in pe)
+        t_masks = tuple(tfused.pe_mask_row(tbarf_weights(step, end_barf, f), f) for f in pe)
+
+    def jloss(p, xx, dd):
+        if masked:
+            outs = [jfused.fused_field_apply(jax.tree.map(lambda t, k=k: t[k], p), xx[k], dd[k],
+                                             JCFG.n_blocks, tile=32, interpret=True, pe=pe,
+                                             pe_masks=j_masks, input_grads=True)
+                    for k in range(2)]
+            a, r = jnp.stack([o[0] for o in outs]), jnp.stack([o[1] for o in outs])
+        else:
+            a, r = jfused.fused_stacked_apply(p, xx, dd, JCFG.n_blocks, tile=32, interpret=True,
+                                              pe=pe)
+        return _loss(jnp, a, r), (a, r)
+
+    (_, (aj, rj)), gj = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jax.tree.map(jnp.asarray, params_np), jnp.asarray(x), jnp.asarray(d))
+
+    tp = convert.params_from_numpy(params_np, requires_grad=True)
+    tx, td = torch.tensor(x, requires_grad=True), torch.tensor(d, requires_grad=True)
+    a, r = tfused.fused_stacked_apply(tp, tx, td, JCFG.n_blocks, pe, pe_masks=t_masks)
+    assert a.shape == (2, 100) and r.shape == (2, 100, 3)
+    scale = max(np.abs(np.asarray(aj)).max(), np.abs(np.asarray(rj)).max())
+    np.testing.assert_allclose(a.detach().numpy() / scale, np.asarray(aj) / scale, atol=1e-2)
+    np.testing.assert_allclose(r.detach().numpy() / scale, np.asarray(rj) / scale, atol=1e-2)
+    grads = torch.autograd.grad(_loss(torch, a, r), tree_leaves(tp) + [tx, td])
+    _assert_scaled(grads, jax.tree.leaves(gj[0]) + [gj[1], gj[2]], atol=2e-2)
+
+
+@pytest.mark.parametrize("barf", [False, True], ids=["plain", "barf"])
+def test_apply_stacked_fields_grads_match_startrax(barf):
+    """apply_stacked_fields in f32 against startrax's (XLA, vmapped) on
+    per-field inputs, with BARF at step 5 of 12 or without: outputs within
+    1e-5, grads of the params, points and directions within 1e-4 of each
+    grad's largest magnitude."""
+    params_np, x, d = _stacked_setup(seed=12, n_points=24)
+    pts, dirs = x.reshape(2, 3, 8, 3), d[:, :3]
+    jcfg = dataclasses.replace(JCFG, end_barf=12) if barf else JCFG
+    tcfg = dataclasses.replace(TCFG, end_barf=12) if barf else TCFG
+    step = 5.0 if barf else None
+
+    def jloss(p, pp, dd):
+        a, r = jfields.apply_stacked_fields(p, jcfg, pp, dd, step=step)
+        return _loss(jnp, a, r), (a, r)
+
+    (_, (aj, rj)), gj = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jax.tree.map(jnp.asarray, params_np), jnp.asarray(pts), jnp.asarray(dirs))
+    tp = convert.params_from_numpy(params_np, requires_grad=True)
+    tpts, tdirs = torch.tensor(pts, requires_grad=True), torch.tensor(dirs, requires_grad=True)
+    a, r = tfields.apply_stacked_fields(tp, tcfg, tpts, tdirs, step=step)
+    np.testing.assert_allclose(a.detach().numpy(), np.asarray(aj), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(r.detach().numpy(), np.asarray(rj), rtol=1e-5, atol=1e-5)
+    grads = torch.autograd.grad(_loss(torch, a, r), tree_leaves(tp) + [tpts, tdirs])
+    _assert_scaled(grads, jax.tree.leaves(gj[0]) + [gj[1], gj[2]], atol=1e-4)
 
 
 def test_init_field_shapes_match_startrax():
@@ -223,3 +308,35 @@ def test_parity_check_reads_zero_on_cpu_and_flags_a_planted_fault(monkeypatch):
     monkeypatch.setattr(parity, "fused_field_apply", drops_points)
     errs, _ = parity.compare(tp, x, d, JCFG.n_blocks, pe)
     assert "w" in parity.failures(errs) and errs["fwd"] == 0.0
+
+
+def test_parity_check_stacked_reads_zero_on_cpu_and_flags_a_planted_fault(monkeypatch):
+    """parity.compare on a stack of two fields whose inputs come from a
+    per-ray pose leaf [R, K, 7] through warp_to_vehicle_frames: on CPU
+    tensors every reading is 0, and a wrapper that leaves dd at zero fails
+    the input measure."""
+    from startrax_torch.kernels import parity
+    from startrax_torch.models.star import warp_to_vehicle_frames
+
+    params_np, x, d = _stacked_setup(seed=13, n_points=8)
+    tp = convert.params_from_numpy(params_np, requires_grad=True)
+    rng = np.random.default_rng(13)
+    q = rng.normal(size=(4, 2, 4))
+    pose = np.concatenate([0.3 * rng.normal(size=(4, 2, 3)),
+                           q / np.linalg.norm(q, axis=-1, keepdims=True)], -1)
+    tpose = torch.tensor(pose.astype(np.float32), requires_grad=True)
+    pts_dyn, dirs_dyn = warp_to_vehicle_frames(tpose, torch.tensor(x[0].reshape(4, 2, 3)),
+                                               torch.tensor(d[0, :4]))
+    xs = pts_dyn.reshape(2, 8, 3)
+    ds = dirs_dyn[:, :, None, :].expand(2, 4, 2, 3).reshape(2, 8, 3)
+    pe = (JCFG.multires, JCFG.multires_views)
+    errs, _ = parity.compare(tp, xs, ds, JCFG.n_blocks, pe, pose=tpose, stacked=True)
+    assert parity.failures(errs) == []
+    assert all(errs[k] == 0.0 for k in ("fwd", "fwd_rms", "w", "input", "input_rms", "ray_pose"))
+
+    def zero_dd(params, x, d, *args, **kw):
+        return tfused.fused_stacked_apply(params, x, d.detach() + 0.0 * d, *args, **kw)
+
+    monkeypatch.setattr(parity, "fused_stacked_apply", zero_dd)
+    errs, _ = parity.compare(tp, xs, ds, JCFG.n_blocks, pe, pose=tpose, stacked=True)
+    assert "input" in parity.failures(errs) and errs["w"] == 0.0 and errs["fwd"] == 0.0

@@ -105,6 +105,45 @@ def test_render_star_matches_startrax(online):
         np.testing.assert_allclose(a / scale, b / scale, atol=1e-2)
 
 
+@pytest.mark.parametrize("barf", [False, True], ids=["plain", "barf"])
+def test_render_star_per_ray_pose_matches_startrax(barf):
+    """A mixed-frame batch: every ray has its own pose [R, K, 7], which
+    reaches the dynamic fields through warp_to_vehicle_frames, with BARF at
+    step 5 of 12 or without. Same bounds as the shared-pose test."""
+    jcfg, params_np, rays_o, rays_d, pose = _setup(seed=3)
+    if barf:
+        jcfg = dataclasses.replace(jcfg, end_barf=12)
+    step = 5 if barf else None
+    rng = np.random.default_rng(3)
+    pose = np.broadcast_to(pose, (N_RAYS,) + pose.shape).copy()
+    pose[..., :3] += 0.1 * rng.normal(size=pose[..., :3].shape).astype(np.float32)
+    key = jax.random.PRNGKey(8)
+
+    def jrender(p, pose):
+        out = jstar.render_star(p, jcfg, jnp.asarray(rays_o), jnp.asarray(rays_d), key=key,
+                                pose=pose, train=True, step=step, with_test_outputs=True)
+        return _loss(jnp, out, True), out
+
+    (_, out_j), (gp_j, gpose_j) = jax.jit(
+        jax.value_and_grad(jrender, argnums=(0, 1), has_aux=True))(
+        jax.tree.map(jnp.asarray, params_np), jnp.asarray(pose))
+
+    tp = convert.params_from_numpy(params_np, requires_grad=True)
+    tpose = torch.tensor(pose, requires_grad=True)
+    u_strat, u_pdf = _jax_uniforms(key, jcfg)
+    out_t = tstar.render_star(tp, _tcfg(jcfg), torch.tensor(rays_o), torch.tensor(rays_d),
+                              pose=tpose, train=True, step=step, with_test_outputs=True,
+                              u_strat=u_strat, u_pdf=u_pdf)
+    for k in out_j:
+        np.testing.assert_allclose(out_t[k].detach().numpy(), np.asarray(out_j[k]),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    grads = torch.autograd.grad(_loss(torch, out_t, True), tree_leaves(tp) + [tpose])
+    for a, b in zip(grads, jax.tree.leaves(gp_j) + [gpose_j]):
+        b = np.asarray(b)
+        scale = np.abs(b).max() + 1e-6
+        np.testing.assert_allclose(a.numpy() / scale, b / scale, atol=1e-2)
+
+
 def test_render_star_eval_is_deterministic_and_matches_startrax():
     jcfg, params_np, rays_o, rays_d, pose = _setup(seed=1)
     out_j = jax.jit(lambda p, o, d, pose: jstar.render_star(p, jcfg, o, d, pose=pose,

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from __graft_entry__ import _flagship_cfg
+from startrax.ops import lie as jlie
 from startrax.train import loop as jloop
 from startrax.train import optim as joptim
 from startrax_torch import convert
@@ -164,8 +165,172 @@ def test_gather_frame_pose_pins_frame0():
     np.testing.assert_array_equal(tloop.gather_frame_pose(poses, 2, 2).numpy(), poses[1].numpy())
 
 
-def test_gradient_accumulation_not_ported():
-    params = tloop.init_online_params(_tcfg(_flagship_cfg(tiny=True)), 3,
-                                      generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        toptim.make_fused_star_optimizer(params, LR, LR, LR, accumulate_steps=50)
+def test_gather_frame_pose_per_ray_frames_and_grad_scatter():
+    """[R] frames give [R, K, 7] poses (frame 0 pinned to identity); the
+    per-ray grads scatter-add back into each frame's row, as in JAX."""
+    rng = np.random.default_rng(8)
+    poses = rng.normal(size=(3, 2, 7)).astype(np.float32)
+    frames = np.array([0, 2, 1, 2, 3, 0, 2], np.int32)
+    w = rng.normal(size=(len(frames), 2, 7)).astype(np.float32)
+    jpose = jloop.gather_frame_pose(jnp.asarray(poses), jnp.asarray(frames), 2)
+    jgrad = jax.grad(lambda p: jnp.sum(w * jloop.gather_frame_pose(p, jnp.asarray(frames), 2)))(
+        jnp.asarray(poses))
+    tposes = torch.tensor(poses, requires_grad=True)
+    tpose = tloop.gather_frame_pose(tposes, torch.tensor(frames), 2)
+    assert tpose.shape == (len(frames), 2, 7)
+    np.testing.assert_array_equal(tpose.detach().numpy(), np.asarray(jpose))
+    (tgrad,) = torch.autograd.grad((torch.tensor(w) * tpose).sum(), tposes)
+    np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tgrad[1].numpy(), w[1] + w[3] + w[6], rtol=1e-6)
+
+
+def _mixed_batch(seed, frames, near, far):
+    jbatch, tbatch = _batch(seed, frame=0)
+    depth = np.random.default_rng(seed + 100).uniform(near, far, size=N_RAYS).astype(np.float32)
+    jbatch.update(frame=jnp.asarray(frames, jnp.int32), target_depth=jnp.asarray(depth))
+    tbatch.update(frame=torch.tensor(frames), target_depth=torch.tensor(depth))
+    return jbatch, tbatch
+
+
+def _noisy_online_params(jcfg, seed):
+    jparams = jloop.init_online_params(jax.random.PRNGKey(seed), jcfg, num_frames=4)
+    poses = np.asarray(jparams["poses"]).copy()
+    poses[..., :3] = 0.05 * np.random.default_rng(seed + 1).normal(size=poses[..., :3].shape)
+    jparams["poses"] = jnp.asarray(poses)
+    return jparams, convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                              requires_grad=True)
+
+
+@pytest.mark.parametrize("variant", ["joint", "freeze_rot_barf"])
+def test_mixed_frame_online_steps_with_accumulation_match_startrax(variant):
+    """Three steps on a mixed-frame batch (per-ray frames, depth loss) with
+    accumulate_steps=2: the update comes on step 2 only, step 1 leaves the
+    parameters bit for bit. freeze_rot_barf is the BARF warmup (end_barf 12,
+    epoch 5, rotations frozen). Bounds as the module docstring says, with
+    one update behind the parameters."""
+    import dataclasses
+
+    jcfg = _flagship_cfg(tiny=True)
+    barf = variant == "freeze_rot_barf"
+    if barf:
+        jcfg = dataclasses.replace(jcfg, end_barf=12)
+    epoch = 5 if barf else 12
+    jparams, tparams = _noisy_online_params(jcfg, seed=9)
+    loss_cfg = dict(LOSS_CFG, use_depth_loss=True, depth_lambda=0.1)
+    opt_kw = dict(lrate_static=LR, lrate_dynamic=LR, lrate_pose=LR, steps_per_epoch=100,
+                  decay_milestones=[60], grad_clip=1.0, accumulate_steps=2)
+    jtx = joptim.make_fused_star_optimizer(jparams, **opt_kw)
+    jstate = jtx.init(jparams)
+    jstep = jloop.make_online_train_step(jcfg, jloop.LossConfig(**loss_cfg), jtx, freeze_rot=barf)
+    topt = toptim.make_fused_star_optimizer(tparams, **opt_kw)
+    tstep = tloop.make_online_train_step(_tcfg(jcfg), tloop.LossConfig(**loss_cfg), topt,
+                                         freeze_rot=barf)
+    frames = np.array([0, 1, 2, 3, 3, 1, 2, 0], np.int32)
+    jbatch, tbatch = _mixed_batch(10, frames, jcfg.near, jcfg.far)
+    before = [t.detach().clone() for t in tree_leaves(tparams)]
+    key = jax.random.PRNGKey(11)
+    for i in range(3):
+        key, sub = jax.random.split(key)
+        u_strat, u_pdf = _uniforms(sub, jcfg)
+        jparams, jstate, jl, _ = jstep(jparams, jstate, jbatch, sub, jnp.asarray(epoch))
+        tl, _ = tstep(tparams, tbatch, epoch=epoch, u_strat=u_strat, u_pdf=u_pdf)
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4 if i < 2 else 2e-3)
+        if i == 0:
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(tparams), before))
+            g = tparams["poses"].grad
+            assert all(bool(g[f - 1].abs().sum() > 0) for f in (1, 2, 3))
+    assert not torch.equal(tparams["poses"].detach(), before[-1])
+    _assert_params_close(tparams, jparams, 1)
+
+
+def test_gauge_steps_match_startrax():
+    """Gauge steps with the depth term at 2.0 on a mixed-frame batch. First
+    the whole gauge gradient, rotation included, against the one the JAX
+    step hands its optimizer (through se3_multiply and the per-ray render),
+    within 1e-4 of its largest entry. Then three steps (optax.adam against
+    make_gauge_optimizer) with the rotation frozen: the losses within the
+    module's bounds, the gauge within 2 x lr x steps, its quaternion exactly
+    identity, and no grad formed for fields or poses."""
+    import optax
+
+    jcfg = _flagship_cfg(tiny=True)
+    jparams, tparams = _noisy_online_params(jcfg, seed=12)
+    jgauge = jlie.se3_identity(jcfg.num_vehicles)
+    frames = np.array([1, 2, 3, 0, 3, 2, 1, 1], np.int32)
+    jbatch, tbatch = _mixed_batch(13, frames, jcfg.near, jcfg.far)
+    key = jax.random.PRNGKey(14)
+
+    # an optax transformation that keeps the gradient as its state and moves nothing
+    capture = optax.GradientTransformation(jnp.zeros_like,
+                                           lambda g, s, p=None: (jnp.zeros_like(g), g))
+    jcap = jloop.make_gauge_train_step(jcfg, capture, depth_lambda=2.0)
+    _, jgrad, _ = jcap(jgauge, capture.init(jgauge), jparams["nerf"], jparams["poses"], jbatch,
+                       key)
+    tprobe = torch.tensor(np.asarray(jgauge), requires_grad=True)
+    tcap = tloop.make_gauge_train_step(_tcfg(jcfg), toptim.make_gauge_optimizer(tprobe, LR),
+                                       depth_lambda=2.0)
+    tcap(tprobe, tparams["nerf"], tparams["poses"], tbatch, *_uniforms(key, jcfg))
+    jgrad = np.asarray(jgrad)
+    assert np.abs(jgrad[:, :3]).min() > 0 and np.abs(jgrad[:, 3:6]).min() > 0
+    np.testing.assert_allclose(tprobe.grad.numpy(), jgrad, rtol=0,
+                               atol=1e-4 * np.abs(jgrad).max())
+
+    jtx = optax.adam(LR)
+    jopt = jtx.init(jgauge)
+    jstep = jloop.make_gauge_train_step(jcfg, jtx, freeze_rot=True, depth_lambda=2.0)
+    tgauge = torch.tensor(np.asarray(jgauge), requires_grad=True)
+    tstep = tloop.make_gauge_train_step(_tcfg(jcfg), toptim.make_gauge_optimizer(tgauge, LR),
+                                        freeze_rot=True, depth_lambda=2.0)
+    for i in range(3):
+        key, sub = jax.random.split(key)
+        u_strat, u_pdf = _uniforms(sub, jcfg)
+        jgauge, jopt, jl = jstep(jgauge, jopt, jparams["nerf"], jparams["poses"], jbatch, sub)
+        tl = tstep(tgauge, tparams["nerf"], tparams["poses"], tbatch, u_strat=u_strat,
+                   u_pdf=u_pdf)
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4 if i == 0 else 2e-3)
+    np.testing.assert_allclose(tgauge.detach().numpy(), np.asarray(jgauge), rtol=0,
+                               atol=2 * LR * 3)
+    assert bool(tgauge.detach()[:, :3].abs().sum() > 0)
+    np.testing.assert_array_equal(tgauge.detach()[:, 3:].numpy(), [[0, 0, 0, 1]] * 2)
+    assert all(t.grad is None for t in tree_leaves(tparams))
+
+
+@pytest.mark.parametrize("kind", ["star", "appinit"])
+def test_gradient_accumulation_matches_multisteps(kind):
+    """Six steps of fixed gradients with accumulate_steps=3 against
+    optax.MultiSteps around the JAX optimizer: the parameters after every
+    step (left bit for bit between updates), and a milestone that halves
+    the learning rate after the first update (steps_per_epoch 3 -> one
+    update an epoch)."""
+    rng = np.random.default_rng(15)
+    if kind == "star":
+        p0 = {"nerf": {"static_coarse": {"w": rng.normal(size=(3, 4))},
+                       "dynamic_coarse": {"w": rng.normal(size=(2, 2, 3))}},
+              "poses": rng.normal(size=(2, 2, 7))}
+    else:
+        p0 = {"a": rng.normal(size=(3, 4)), "b": rng.normal(size=5)}
+    p0 = jax.tree.map(lambda a: a.astype(np.float32), p0)
+    kw = dict(steps_per_epoch=3, decay_milestones=[1], grad_clip=1.0, accumulate_steps=3)
+    if kind == "star":
+        jtx = joptim.make_fused_star_optimizer(p0, 1e-2, 2e-2, 3e-2, **kw)
+    else:
+        jtx = joptim.make_appinit_optimizer(1e-2, params=p0, **kw)
+    jp, js = jax.tree.map(jnp.asarray, p0), jtx.init(p0)
+    tp = convert.params_from_numpy(p0, requires_grad=True)
+    if kind == "star":
+        topt = toptim.make_fused_star_optimizer(tp, 1e-2, 2e-2, 3e-2, **kw)
+    else:
+        topt = toptim.make_appinit_optimizer(tp, 1e-2, **kw)
+    for i in range(6):
+        g = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(np.float32), p0)
+        upd, js = jtx.update(jax.tree.map(jnp.asarray, g), js, jp)
+        jp = jax.tree.map(lambda a, u: a + u, jp, upd)
+        before = [t.detach().clone() for t in tree_leaves(tp)]
+        for t, gg in zip(tree_leaves(tp), jax.tree.leaves(g)):
+            t.grad = torch.tensor(gg)
+        assert topt.step() == (i % 3 == 2)
+        if i % 3 != 2:
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(tp), before))
+        for a, b in zip(tree_leaves(tp), jax.tree.leaves(jp)):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+    assert topt.count == 2
