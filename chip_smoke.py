@@ -43,13 +43,27 @@ Phases, each printing its numbers:
      fwd +2, bwd +0, stacked +2 each). Then the step times of the kernel and
      plain paths, the gauge step's, peak memory, and the kernel path's
      render against the plain path's on a small batch;
-  5. one JSON line per kernel, the card's line, and the result line
-     {"ok": true, "device": {...}} last.
+  5. the time-conditioned baseline (nerf_time) at the full widths of
+     startrax/configs/carla_nerf_time.txt (8x256 coarse and fine, 84 + 27
+     encoded input columns, 1000 rays x (256 + 256) samples, bf16): (a) the
+     kernels' pre-encoded mode against its plain version on the coarse
+     pass's 256,000 and the fine pass's 512,000 points, on 3,000 ragged
+     points with input grads and on the coarse shape with input grads, with
+     times; (b) 20 steps on one fixed batch at frame 3 of 16 through the
+     kernels, each adding exactly 2 "enc_fwd" and 2 "enc_bwd" launches and
+     none of another kind, the loss finite and falling, then 5 steps of the
+     plain path; (c) the tiled eval render of a 64x64 frame from get_rays,
+     kernel path against plain path;
+  6. one JSON line per kernel (with its bound: the larger of its FLOP over
+     989 TFLOP/s dense bf16 and its bytes, each input read once and each
+     output written once, over 3.35 TB/s), the card's line, and the result
+     line {"ok": true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device or when any phase
-fails. Imports nothing of JAX: only torch, numpy, startrax_torch and the
-config parser startrax.utils.config (stdlib and numpy only). Float32 matmuls
-on the plain paths run in full float32 (TF32 off).
+fails. Imports nothing of JAX or of the JAX package: only torch, numpy and
+startrax_torch; the configs are read as text by the port's own parser.
+Float32 matmuls and convolutions on the plain paths run in full float32
+(TF32 off).
 """
 
 import dataclasses
@@ -73,13 +87,30 @@ N_GAUGE = 8
 N_PLAIN_RAY = 5
 BARF_STEP = 5
 SLICE_CONFIG = "synthetic_star_online_scaled.txt"
+# phase 5: nerf_time's config, its kernel-path and plain-path steps, the
+# render's frame size
+NT_CONFIG = "carla_nerf_time.txt"
+N_NT = 20
+N_NT_PLAIN = 5
+RENDER_HW = 64
 SRC = "startrax_torch/kernels/csrc/fused_mlp.cu"
+# NVIDIA H100 SXM: dense bf16 tensor-core peak and memory rate (data sheet)
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def _require(ok, what):
     """A check that stays under python -O: raise when a phase fails."""
     if not ok:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def _counts(**nonzero):
+    """A launch-count dict: every counter of kernels.fused_mlp at 0 but the
+    ones given."""
+    from startrax_torch.kernels import fused_mlp as fm
+
+    return dict.fromkeys(fm.launches, 0) | nonzero
 
 
 def _card_line():
@@ -110,7 +141,8 @@ def _field(cfg, seed, n=None):
     from startrax_torch.models import fields
 
     g = torch.Generator().manual_seed(seed)
-    params = fields.init_field(cfg, g) if n is None else fields.init_stacked_fields(cfg, n, g)
+    params = (fields.init_field(cfg, g, device="cpu") if n is None
+              else fields.init_stacked_fields(cfg, n, g, device="cpu"))
     for blk in params["blocks"]:  # nonzero fc1 so every block carries gradient
         blk["fc1"]["w"] = 0.02 * torch.randn(blk["fc1"]["w"].shape, generator=g)
     return convert.params_from_numpy(convert.params_to_numpy(params), device="cuda",
@@ -118,16 +150,52 @@ def _field(cfg, seed, n=None):
 
 
 def _points(n, near, far, seed):
-    """Samples along bench-style rays: normal origins, unit directions."""
+    """n samples along bench-style rays of 256 samples (the last ray cut
+    short): normal origins, unit directions."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    o = torch.randn(n // 256, 1, 3, generator=g, device="cuda")
-    d = torch.nn.functional.normalize(torch.randn(n // 256, 1, 3, generator=g, device="cuda"),
-                                      dim=-1)
+    rays = -(-n // 256)
+    o = torch.randn(rays, 1, 3, generator=g, device="cuda")
+    d = torch.nn.functional.normalize(torch.randn(rays, 1, 3, generator=g, device="cuda"), dim=-1)
     z = torch.linspace(near, far, 256, device="cuda")[None, :, None]
-    x = (o + d * z).reshape(-1, 3).contiguous()
-    return x, d.expand(-1, 256, -1).reshape(-1, 3).contiguous()
+    x = (o + d * z).reshape(-1, 3)[:n].contiguous()
+    return x, d.expand(-1, 256, -1).reshape(-1, 3)[:n].contiguous()
+
+
+def kernel_work(params, x, n_blocks, pe, input_grads, warped):
+    """FLOP and bytes of one kernel call's work, forward and backward, as
+    {"fwd": (flop, bytes), "bwd": (flop, bytes)}: the multiply-adds of every
+    layer at its real widths (the encoding's padding and the PE's sin/cos
+    not counted), each input read once and each output written once: the
+    points (raw, or encoded with pe=None), the f32 params, the output, the
+    saved bf16 activations (written forward, read backward), the cotangent,
+    the param grads and, with input grads, dx and dd. params and x may be
+    stacked over K fields ([K, ...] leaves, x [K, N, C])."""
+    w_in = params["lin_in"]["w"]
+    K = x.shape[0] if x.dim() == 3 else 1
+    n = K * x.shape[-2]
+    W, in_ch = w_in.shape[-1], w_in.shape[-2]
+    view_ch, w2 = params["views"]["w"].shape[-2] - W, W // 2
+    macs = in_ch * W + (2 * n_blocks + 2) * W * W + W + (W + view_ch) * w2 + 3 * w2
+    # the backward's data grads skip lin_in and Wv_bot unless dx, dd are needed
+    data = macs - (0 if input_grads or warped else in_ch * W + view_ch * w2)
+    from startrax_torch.utils.tree import tree_leaves
+
+    param_bytes = 4 * sum(t.numel() for t in tree_leaves(params))
+    in_bytes = 4 * ((in_ch + view_ch) if pe is None else 6)
+    act_bytes = 2 * ((2 * n_blocks + 3) * W + w2)
+    fwd = (2 * macs * n, n * (in_bytes + act_bytes + 16) + param_bytes)
+    bwd = (2 * (macs + data) * n,
+           n * (in_bytes + act_bytes + 16 + (in_bytes if input_grads else 0)) + 2 * param_bytes)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def bound(flop, nbytes):
+    """(bound ms, "operations" or "bytes"): the larger of flop at the bf16
+    peak and bytes at the memory rate."""
+    t_op, t_b = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
 
 def kernel_cases(star_cfg, n_rand):
@@ -169,14 +237,16 @@ def case_inputs(star_cfg, case, seed):
 
 MEASURES = ("fwd", "fwd_rms", "w", "input", "input_rms", "pose", "ray_pose", "fwd_abs",
             "grad_abs")
-STEP_TIMES = ("fwd", "plain_fwd", "bwd", "plain_bwd")
+STEP_TIMES = ("fwd", "plain_fwd", "bwd", "plain_bwd", "fwd_flop", "fwd_bytes", "bwd_flop",
+              "bwd_bytes")
 
 
 def _check_and_time(label, inp, stacked, calls, worst, step_ms):
     """One case's kernels against their plain version (parity.compare), its
     readings folded into worst; for a case the step runs (calls > 0), both
-    sides timed in turns (plain, kernel, kernel, plain) and calls x each time
-    added to step_ms."""
+    sides timed in turns (plain, kernel, kernel, plain), the forward with
+    grad on as a training step runs it, and calls x each time and x the
+    call's work (kernel_work) added to step_ms."""
     import torch
 
     from startrax_torch.kernels import fused_mlp as fm, parity
@@ -184,8 +254,8 @@ def _check_and_time(label, inp, stacked, calls, worst, step_ms):
     errs, run = parity.compare(**inp, stacked=stacked)
     torch.cuda.synchronize()
     print(f"kernel-vs-plain {label}: "
-          + ", ".join(f"{k} {errs[k]:.3e} (limit {lim})" for k, lim in parity.LIMITS.items()
-                      if k in errs), flush=True)
+          + ", ".join(f"{k} {errs[k]:.3e} (limit {lim})"
+                      for k, lim in parity.limits(errs).items() if k in errs), flush=True)
     for k in worst:
         worst[k] = max(worst[k], errs.get(k, 0.0))
     _require(not parity.failures(errs), f"{label}: kernel vs plain: {parity.failures(errs)}")
@@ -209,19 +279,24 @@ def _check_and_time(label, inp, stacked, calls, worst, step_ms):
         return fm.fused_mlp_plain(inp["x"], inp["d"], weights, *args, warp=inp["warp"],
                                   masks=inp["pe_masks"])
 
-    t = {k: [] for k in STEP_TIMES}
+    t = {k: [] for k in STEP_TIMES[:4]}
     for order in (("plain", "kernel"), ("kernel", "plain")):
         for side in order:
             fwd, out = (kernel, run["out_k"]) if side == "kernel" else (plain, run["out_p"])
             prefix = "" if side == "kernel" else "plain_"
-            with torch.no_grad():
-                t[prefix + "fwd"].append(_cuda_ms(fwd, 3))
+            t[prefix + "fwd"].append(_cuda_ms(fwd, 3))
             t[prefix + "bwd"].append(_cuda_ms(
                 lambda: torch.autograd.grad(out, run["leaves"], run["cot"], retain_graph=True), 3))
     t = {k: statistics.mean(v) for k, v in t.items()}
+    work = kernel_work(inp["params"], inp["x"], inp["n_blocks"], inp["pe"],
+                       inp["x"].requires_grad or inp["d"].requires_grad, inp["warp"] is not None)
+    t.update(fwd_flop=work["fwd"][0], fwd_bytes=work["fwd"][1], bwd_flop=work["bwd"][0],
+             bwd_bytes=work["bwd"][1])
     for k, v in t.items():
         step_ms[k] += calls * v
-    print(f"time {label}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()), flush=True)
+    print(f"time {label}: " + ", ".join(f"{k} {t[k]:.3f} ms" for k in STEP_TIMES[:4])
+          + ", bound fwd {:.3f} ms ({}), bwd {:.3f} ms ({})".format(
+              *bound(*work["fwd"]), *bound(*work["bwd"])), flush=True)
 
 
 def phase_kernels(star_cfg, n_rand):
@@ -237,7 +312,7 @@ def phase_kernels(star_cfg, n_rand):
                         case_inputs(star_cfg, case, i), False, calls, worst, step_ms)
         torch.cuda.empty_cache()
     print("time of the six field calls of one online step: "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in step_ms.items()), flush=True)
+          + ", ".join(f"{k} {step_ms[k]:.3f} ms" for k in STEP_TIMES[:4]), flush=True)
     return worst, step_ms
 
 
@@ -312,7 +387,7 @@ def phase_field_axis(slice_cfg, n_rand, flagship_cfg, flagship_rays):
         torch.cuda.empty_cache()
     for what, ms in (("stacked dynamic", ms_s), ("static", ms_f)):
         print(f"time of the {what} field calls of one per-ray step: "
-              + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
+              + ", ".join(f"{k} {ms[k]:.3f} ms" for k in STEP_TIMES[:4]), flush=True)
     return worst_s, ms_s, worst_f, ms_f
 
 
@@ -395,9 +470,9 @@ def phase_main_path(cfg, star_cfg, loss_cfg):
     print(f"launches after {N_APPINIT} app-init steps {after_app}, after {N_ONLINE} online "
           f"steps {counts}", flush=True)
     n_app, n_all = 2 * N_APPINIT, 2 * N_APPINIT + 6 * N_ONLINE
-    _require(after_app == {"fwd": n_app, "bwd": n_app, "stacked_fwd": 0, "stacked_bwd": 0},
+    _require(after_app == _counts(fwd=n_app, bwd=n_app),
              f"2 launches of each per-field kernel per app-init step, got {after_app}")
-    _require(counts == {"fwd": n_all, "bwd": n_all, "stacked_fwd": 0, "stacked_bwd": 0},
+    _require(counts == _counts(fwd=n_all, bwd=n_all),
              f"6 launches of each per-field kernel per online step, none stacked, got {counts}")
     _require(all(math.isfinite(v) for v in app_losses + losses), "finite losses")
     _require(statistics.mean(losses[-3:]) < statistics.mean(losses[:3]), "the loss falls")
@@ -499,8 +574,8 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
     # leaves an update must move: two fields' weights and the translations
     watched = [lambda: nerf["static_coarse"]["lin_in"]["w"],
                lambda: nerf["dynamic_fine"]["rgb"]["w"], lambda: params["poses"][..., :3]]
-    online_launches = {"fwd": 2, "bwd": 2, "stacked_fwd": 2, "stacked_bwd": 2}
-    gauge_launches = {"fwd": 2, "bwd": 0, "stacked_fwd": 2, "stacked_bwd": 2}
+    online_launches = _counts(fwd=2, bwd=2, stacked_fwd=2, stacked_bwd=2)
+    gauge_launches = _counts(fwd=2, stacked_fwd=2, stacked_bwd=2)
     mini_steps = [0]
 
     def run(step, n, launches_per_step):
@@ -622,34 +697,183 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
     return counts
 
 
-def _rows(per_field, stacked):
-    """The JSON kernel rows. per_field and stacked are (worst, step_ms,
-    launches) of the per-field kernel (the flagship step's times) and of the
-    field-axis kernel (the per-ray step's times)."""
+def nerf_time_cases(star_cfg, n_rand):
+    """The pre-encoded kernels' cases, as (name, field config, points, input
+    grads, calls per nerf_time step): the coarse and the fine pass's field
+    call, then 3,000 ragged points and the coarse shape with input grads
+    (dx_emb, dd_emb), checked, not timed."""
+    from startrax_torch.models.nerf_time import time_field_cfg
+
+    n_coarse = n_rand * star_cfg.n_samples
+    n_fine = n_rand * (star_cfg.n_samples + star_cfg.n_importance)
+    coarse, fine = time_field_cfg(star_cfg, False), time_field_cfg(star_cfg, True)
+    return [("coarse", coarse, n_coarse, False, 1), ("fine", fine, n_fine, False, 1),
+            ("ragged+input grads", fine, 3000, True, 0),
+            ("coarse+input grads", coarse, n_coarse, True, 0)]
+
+
+def nerf_time_case_inputs(star_cfg, case, seed, num_frames):
+    """Random inputs of one pre-encoded case, as parity.compare takes them:
+    samples along bench-style rays at frame FRAME's time, encoded as
+    models.fields.apply_field encodes them (84 and 27 columns)."""
+    import torch
+
+    from startrax_torch.ops.encoding import positional_encoding
+
+    _, fcfg, n_points, input_grads, _ = case
+    x, d = _points(n_points, star_cfg.near, star_cfg.far, seed=60 + seed)
+    x = torch.cat([x, torch.full_like(x[:, :1], FRAME / (num_frames - 1))], -1)
+    x_emb = positional_encoding(x, fcfg.multires).contiguous()
+    d_emb = positional_encoding(d, fcfg.multires_views).contiguous()
+    return {"params": _field(fcfg, seed=70 + seed), "x": x_emb.requires_grad_(input_grads),
+            "d": d_emb.requires_grad_(input_grads), "n_blocks": fcfg.n_blocks, "pe": None,
+            "pe_masks": None, "warp": None}
+
+
+def phase_nerf_time(cfg, star_cfg, loss_cfg):
+    """The nerf_time path (module docstring, phase 5). Returns the worst
+    readings and the times of the pre-encoded kernels (summed over a step's
+    two calls) and the launch counts of the kernel path's steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from startrax_torch.eval.image import psnr, ssim
+    from startrax_torch.eval.render import render_image_nerf_time
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.models.nerf_time import init_nerf_time
+    from startrax_torch.ops.rays import focal_from_fov, get_rays, intrinsics_matrix
+    from startrax_torch.train import loop, optim
+    from startrax_torch.utils.tree import tree_leaves
+
+    worst, step_ms = dict.fromkeys(MEASURES, 0.0), dict.fromkeys(STEP_TIMES, 0.0)
+    for i, case in enumerate(nerf_time_cases(star_cfg, cfg.N_rand)):
+        name, fcfg, n_points, _, calls = case
+        _check_and_time(f"pre-encoded {name} {fcfg.depth}x{fcfg.width} in_ch {fcfg.input_ch} "
+                        f"N={n_points}", nerf_time_case_inputs(star_cfg, case, i, cfg.num_frames),
+                        False, calls, worst, step_ms)
+        torch.cuda.empty_cache()
+    print("time of the two field calls of one nerf_time step: "
+          + ", ".join(f"{k} {step_ms[k]:.3f} ms" for k in STEP_TIMES[:4]), flush=True)
+
+    def setup(c):
+        params = init_nerf_time(c, generator=torch.Generator(device="cuda").manual_seed(5),
+                                device="cuda")
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_(True)
+        # as apps/nerf_time.py builds it
+        opt = optim.make_appinit_optimizer(params, cfg.lrate, steps_per_epoch=cfg.steps_per_epoch,
+                                           decay_rate=cfg.lrate_decay_rate,
+                                           decay_epochs=cfg.lrate_decay,
+                                           decay_milestones=cfg.lrate_decay_steps)
+        return params, loop.make_nerf_time_train_step(c, loss_cfg, opt, cfg.num_frames)
+
+    batch = _batch(cfg.N_rand)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    torch.cuda.reset_peak_memory_stats()
+    params, step = setup(star_cfg)
+    fm.reset_launch_counts()
+    losses, ms = [], []
+    for _ in range(N_NT):
+        before = dict(fm.launches)
+        (loss,), (t,) = _timed_steps(step, 1, params, batch, generator=gen)
+        losses.append(loss)
+        ms.append(t)
+        delta = {k: fm.launches[k] - before[k] for k in before}
+        _require(delta == _counts(enc_fwd=2, enc_bwd=2),
+                 f"2 launches of each pre-encoded kernel per nerf_time step, none other, got {delta}")
+    counts = dict(fm.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"nerf_time losses {losses}", flush=True)
+    print(f"launches after {N_NT} nerf_time steps {counts}", flush=True)
+    _require(all(math.isfinite(v) for v in losses), "finite nerf_time losses")
+    _require(statistics.mean(losses[-3:]) < statistics.mean(losses[:3]), "the nerf_time loss falls")
+    kernel_ms = statistics.median(ms[2:])
+    print(f"nerf_time kernel path: median step {kernel_ms:.3f} ms (steps 3-{N_NT}), "
+          f"{cfg.N_rand / kernel_ms * 1e3:.1f} rays/s, peak memory {peak_gb:.2f} GB", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, batch, generator=gen)
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
+
+    # the tiled eval render of one frame, kernel path against plain path
+    K = intrinsics_matrix(RENDER_HW, RENDER_HW, focal_from_fov(RENDER_HW, 60.0))
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = [0.0, 0.0, 0.5 * (star_cfg.near + star_cfg.far)]
+    rays_o, rays_d = get_rays(RENDER_HW, RENDER_HW, K, c2w, device="cuda")
+    plain_cfg = dataclasses.replace(star_cfg, use_fused=False)
+    before = dict(fm.launches)
+    outs = [render_image_nerf_time(params, c, rays_o, rays_d, FRAME, cfg.num_frames,
+                                   device="cuda") for c in (star_cfg, plain_cfg)]
+    delta = {k: fm.launches[k] - before[k] for k in before}
+    _require(delta == _counts(enc_fwd=2), f"the render's launches: 2 pre-encoded forward, got {delta}")
+    for k in ("rgb0", "rgb"):
+        _require(outs[0][k].shape == (RENDER_HW, RENDER_HW, 3) and np.isfinite(outs[0][k]).all(),
+                 f"nerf_time render {k}: finite [{RENDER_HW}, {RENDER_HW}, 3]")
+        err = float(np.abs(outs[0][k] - outs[1][k]).max())
+        a, b = (torch.tensor(o[k], device="cuda") for o in outs)
+        print(f"nerf_time render {k}: kernel path vs plain path max abs err {err:.3e} (tol 2e-2), "
+              f"PSNR {float(psnr(a, b)):.2f} dB, SSIM {float(ssim(a, b)):.5f}", flush=True)
+        _require(err <= 2e-2, f"nerf_time render {k}: kernel path vs plain path")
+    after = dict(fm.launches)
+    del params, step, outs
+    torch.cuda.empty_cache()
+
+    params, step = setup(plain_cfg)
+    plain_losses, plain_ms = _timed_steps(step, N_NT_PLAIN, params, batch, generator=gen)
+    plain_med = statistics.median(plain_ms[1:])
+    print(f"nerf_time plain path: losses {plain_losses}, median step {plain_med:.3f} ms "
+          f"(steps 2-{N_NT_PLAIN}), {cfg.N_rand / plain_med * 1e3:.1f} rays/s", flush=True)
+    _require(dict(fm.launches) == after, "the plain path launches no kernel")
+    del params, step
+    torch.cuda.empty_cache()
+    return worst, step_ms, counts
+
+
+def _rows(per_field, stacked, encoded):
+    """The JSON kernel rows. per_field, stacked and encoded are (worst,
+    step_ms, launches) of the per-field kernel (the flagship step's times),
+    the field-axis kernel (the per-ray step's times) and the pre-encoded
+    mode (the nerf_time step's times)."""
     from startrax_torch.kernels import parity
 
-    lim = parity.LIMITS
     rows = []
     for prefix, (worst, ms, launches), fwd_at, bwd_at in (
-            ("fused_mlp", per_field, "291", "343"), ("fused_mlp_stacked", stacked, "1027", "1040")):
-        kind = "stacked_" if prefix == "fused_mlp_stacked" else ""
-        rows.append({"name": f"{prefix}_fwd", "route": "cuda", "source": SRC,
-                     "replaces": f"startrax/kernels/fused_mlp.py:{fwd_at}",
-                     "launches": launches[kind + "fwd"], "max_abs_err": worst["fwd_abs"],
-                     "max_scaled_err": worst["fwd"], "tol": lim["fwd"],
-                     "rms_scaled_err": worst["fwd_rms"], "tol_rms": lim["fwd_rms"],
-                     "ms": ms["fwd"], "plain_ms": ms["plain_fwd"]})
-        rows.append({"name": f"{prefix}_bwd", "route": "cuda", "source": SRC,
-                     "replaces": f"startrax/kernels/fused_mlp.py:{bwd_at}",
-                     "launches": launches[kind + "bwd"], "max_abs_err": worst["grad_abs"],
-                     "max_scaled_err": worst["w"], "tol": lim["w"],
-                     "ms": ms["bwd"], "plain_ms": ms["plain_bwd"]})
+            ("fused_mlp", per_field, "291", "343"), ("fused_mlp_stacked", stacked, "1027", "1040"),
+            ("fused_mlp_enc", encoded, "291", "343")):
+        kind = {"fused_mlp": "", "fused_mlp_stacked": "stacked_", "fused_mlp_enc": "enc_"}[prefix]
+        lim = parity.ENC_LIMITS if kind == "enc_" else parity.LIMITS
+        for side in ("fwd", "bwd"):
+            bound_ms, bound_by = bound(ms[side + "_flop"], ms[side + "_bytes"])
+            row = {"name": f"{prefix}_{side}", "route": "cuda", "source": SRC,
+                   "replaces": f"startrax/kernels/fused_mlp.py:{fwd_at if side == 'fwd' else bwd_at}",
+                   "launches": launches[kind + side],
+                   "max_abs_err": worst["fwd_abs" if side == "fwd" else "grad_abs"],
+                   "ms": ms[side], "plain_ms": ms["plain_" + side], "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
+            if side == "fwd":
+                row.update(max_scaled_err=worst["fwd"], tol=lim["fwd"],
+                           rms_scaled_err=worst["fwd_rms"], tol_rms=lim["fwd_rms"])
+            else:
+                row.update(max_scaled_err=worst["w"], tol=lim["w"])
+            rows.append(row)
+    lim = parity.LIMITS
     rows[1].update(max_pose_rel_err=per_field[0]["pose"], tol_pose=lim["pose"])
     rows[3].update(note="also stands for startrax/kernels/fused_mlp.py:343 with "
                    "input_grads=True (per-point dx, dd)",
                    max_input_rel_err=stacked[0]["input"], tol_input=lim["input"],
                    rms_input_err=stacked[0]["input_rms"], tol_input_rms=lim["input_rms"],
                    rms_ray_pose_err=stacked[0]["ray_pose"], tol_ray_pose=lim["ray_pose"])
+    lim = parity.ENC_LIMITS
+    rows[4].update(note="the pe=None (pre-encoded input) mode of _fwd_kernel")
+    rows[5].update(note="the pe=None (pre-encoded input) mode of _bwd_kernel; dx_emb, dd_emb "
+                   "when the inputs need a grad",
+                   max_input_rel_err=encoded[0]["input"], tol_input=lim["input"],
+                   rms_input_err=encoded[0]["input_rms"], tol_input_rms=lim["input_rms"])
     return rows
 
 
@@ -661,9 +885,13 @@ def main():
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    from startrax.utils.config import Config, parse_config_file
     from startrax_torch.kernels import build, fused_mlp as fm
-    from startrax_torch.utils.config import loss_config_from, star_config_from
+    from startrax_torch.utils.config import (
+        Config,
+        loss_config_from,
+        parse_config_file,
+        star_config_from,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -692,6 +920,7 @@ def main():
     # BARF-masked variant for the warmup
     slice_star = dataclasses.replace(slice_star, end_barf=-1)
     slice_star_barf = dataclasses.replace(slice_star, end_barf=slice_cfg.end_barf)
+    nt_cfg, nt_star, nt_loss = load(NT_CONFIG)
 
     worst, step_ms = phase_kernels(star_cfg, cfg.N_rand)
     worst_s, ms_s, worst_f, _ = phase_field_axis(slice_star_barf, slice_cfg.N_rand, star_cfg,
@@ -699,7 +928,9 @@ def main():
     worst = {k: max(worst[k], worst_f[k]) for k in worst}
     counts = phase_main_path(cfg, star_cfg, loss_cfg)
     counts_s = phase_per_ray_path(slice_cfg, slice_star, slice_star_barf, slice_loss)
-    rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s))
+    worst_e, ms_e, counts_e = phase_nerf_time(nt_cfg, nt_star, nt_loss)
+    rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s), (worst_e, ms_e, counts_e))
+    print(f"total: {time.perf_counter() - t0:.1f} s, the build included", flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

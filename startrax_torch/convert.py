@@ -13,11 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve
 from .utils.tree import tree_map
 
 
 def params_from_numpy(tree, device=None, requires_grad: bool = False):
-    """Nested dicts/lists of arrays -> the same structure of float32 tensors."""
+    """Nested dicts/lists of arrays -> the same structure of float32 tensors
+    on ``device`` (None: the card, device.resolve)."""
+    device = resolve(device)
 
     def leaf(a):
         t = torch.tensor(np.asarray(a, dtype=np.float32), device=device)

@@ -1,0 +1,73 @@
+"""Tiled full-frame rendering for validation and test (PyTorch).
+
+Counterpart of startrax/eval/render.py (``render_image``,
+``render_image_nerf_time``), without the device mesh: H*W rays go through
+the eval render in tiles of ``tile`` rays under ``torch.no_grad``, so no
+graph is kept and the fused kernels save no activations (kernels/fused_mlp:
+each tile's scratch is freed with the tile). The last tile may be short.
+Each tile's outputs are copied to the host; the result is numpy arrays
+[H, W, ...].
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..device import resolve
+from ..models.nerf_time import render_nerf_time
+from ..models.star import StarConfig, render_star
+
+DEFAULT_KEYS = ("rgb", "depth", "rgb0", "depth0", "rgb_static", "rgb_dynamic",
+                "depth_static", "depth_dynamic", "dynamic_transmittance",
+                "rgb_dynamic_all", "acc", "disp")
+
+
+def _render_tiles(tile_render, rays_o, rays_d, tile: int, keys, device) -> Dict[str, np.ndarray]:
+    """tile_render(o [r, 3], d [r, 3]) -> outputs, over the H*W rays of
+    rays_o, rays_d [H, W, 3] (tensors or arrays) in tiles of ``tile`` rays."""
+    H, W = rays_o.shape[:2]
+    n = H * W
+    ro, rd = (r.to(torch.float32) if isinstance(r, torch.Tensor)
+              else torch.from_numpy(np.array(r, dtype=np.float32))  # a copy: r may be read-only
+              for r in (rays_o, rays_d))
+    ro, rd = ro.reshape(n, 3), rd.reshape(n, 3)
+    chunks: Dict[str, list] = {}
+    with torch.no_grad():
+        for i in range(0, n, tile):
+            out = tile_render(ro[i:i + tile].to(device), rd[i:i + tile].to(device))
+            for k in keys:
+                if out.get(k) is not None:
+                    chunks.setdefault(k, []).append(out[k].cpu().numpy())
+    return {k: np.concatenate(parts, axis=0).reshape((H, W) + parts[0].shape[1:])
+            for k, parts in chunks.items()}
+
+
+def render_image(params, cfg: StarConfig, rays_o, rays_d, pose=None, tile: int = 8192,
+                 with_test_outputs: bool = False, keys=DEFAULT_KEYS,
+                 device=None) -> Dict[str, np.ndarray]:
+    """Eval render of H*W rays (rays_o, rays_d [H, W, 3]) in tiles: host
+    arrays [H, W, ...] of ``keys``; keys the render does not give (the
+    dynamic maps of appearance init) are skipped. pose: [K, 7] or None.
+    device=None is the card (device.resolve)."""
+    device = resolve(device)
+
+    def tile_render(o, d):
+        return render_star(params, cfg, o, d, pose=pose, train=False,
+                           with_test_outputs=with_test_outputs)
+
+    return _render_tiles(tile_render, rays_o, rays_d, tile, keys, device)
+
+
+def render_image_nerf_time(params, cfg: StarConfig, rays_o, rays_d, frame, num_frames: int,
+                           tile: int = 8192, keys=DEFAULT_KEYS,
+                           device=None) -> Dict[str, np.ndarray]:
+    """render_image for the time-conditioned baseline at ``frame``."""
+    device = resolve(device)
+
+    def tile_render(o, d):
+        return render_nerf_time(params, cfg, o, d, frame, num_frames, train=False)
+
+    return _render_tiles(tile_render, rays_o, rays_d, tile, keys, device)

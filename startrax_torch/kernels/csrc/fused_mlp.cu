@@ -19,6 +19,17 @@
 // backward and, with a warp, the M^T unwarp (as `_bwd_kernel` with
 // input_grads=True and `_stacked_bwd_kernel` do).
 //
+// Input modes (the template flag ENC, fixed at compile time so that the
+// raw-point instances keep their code): raw points and directions, encoded
+// in the kernel (below); or pre-encoded features, `_fwd_kernel` /
+// `_bwd_kernel` with pe=None (nerf_time's 4-D points with time, 84 columns):
+// x_emb [n, in_ch] with in_ch <= XW = 96, d_emb [n, view_ch] with view_ch <=
+// EW, staged to shared memory as bf16 with the pad columns zeroed, and lin_in
+// streams an [XW, W] weight whose rows past in_ch are zero. No warp, mask or
+// pose sums in that mode; its input-gradient mode writes dx_emb = dh W_in^T
+// [n, in_ch] and dd_emb = dhv_in Wv_bot^T [n, view_ch] f32. One field a
+// launch: the field-axis launch refuses it.
+//
 // What it computes, per point: optional SE(3) warp M p + t, M d (packed [16]);
 // NeRF positional encoding of points (multires 10 -> 63 columns) and view
 // directions (multires_views 4 -> 27 columns), both zero-padded to EW = 64
@@ -82,15 +93,22 @@ constexpr int T = 64;      // points per CTA
 constexpr int NT = 256;    // threads per CTA (8 warps: 4 row strips x 2 column groups)
 constexpr int KC = 32;     // weight rows streamed through shared memory per chunk
 constexpr int EW = 64;     // padded encoding width (63 point columns, 27 direction columns)
+constexpr int XW = 3 * KC; // padded width of pre-encoded point features (nerf_time: 84 columns)
 constexpr int LDE = EW + 8;
 constexpr int MAXB = 8;    // most residual blocks a field may have
 
+// Rows of lin_in's weight, the padded width of the point encoding.
+template <bool ENC>
+__host__ __device__ constexpr int in_rows() { return ENC ? XW : EW; }
+
 struct Inputs {
-  const float* x;       // [K, n, 3] world points
-  const float* d;       // [K, n, 3] view directions
+  const float* x;       // [K, n, 3] world points; [K, n, fx] encoded (ENC)
+  const float* d;       // [K, n, 3] view directions; [K, n, fd] encoded (ENC)
   const float* warp;    // [K, 16] M row-major, t; or null
   const float* mask_x;  // [EW] BARF column mask, shared by the fields; or null
   const float* mask_d;  // [EW]; or null
+  // fx, fd: multires of the points and the directions; with ENC, the
+  // encoded widths in_ch and view_ch
   int n, width, n_blocks, fx, fd, fields;
 };
 
@@ -187,16 +205,18 @@ __device__ __forceinline__ FieldOff field_off(int k, int n, int W) {
   return f;
 }
 
+template <bool ENC>
 __device__ __forceinline__ Inputs field_inputs(Inputs in, int k) {
-  const size_t o = (size_t)k * in.n * 3;
-  in.x += o; in.d += o;
+  const size_t pts = (size_t)k * in.n;
+  in.x += pts * (ENC ? in.fx : 3); in.d += pts * (ENC ? in.fd : 3);
   if (in.warp) in.warp += 16 * k;
   return in;
 }
 
+template <bool ENC>
 __device__ __forceinline__ Net field_net(Net w, int k, int W) {
   const size_t WW = (size_t)W * W, W2 = W / 2;
-  w.w_in += (size_t)k * EW * W; w.b_in += (size_t)k * W;
+  w.w_in += (size_t)k * in_rows<ENC>() * W; w.b_in += (size_t)k * W;
   w.w_out += k * WW; w.b_out += (size_t)k * W;
   w.w_a += (size_t)k * W; w.b_a += k;
   w.w_f += k * WW; w.b_f += (size_t)k * W;
@@ -211,12 +231,15 @@ __device__ __forceinline__ Acts field_acts(Acts a, int k, int n, int W) {
   return a;
 }
 
-__device__ __forceinline__ Grads field_grads(Grads g, int k, int n, int W, size_t part_per_field) {
+// cx, cd: the columns of a point's dx and dd (3, or in_ch and view_ch with ENC).
+template <bool ENC>
+__device__ __forceinline__ Grads field_grads(Grads g, int k, int n, int W, size_t part_per_field,
+                                             int cx, int cd) {
   const size_t o = (size_t)k * n * W;
   g.d_in += o; g.d_out += o; g.d_f += o; g.d_v += o / 2;
-  g.xe += (size_t)k * n * EW; g.de += (size_t)k * n * EW;
+  g.xe += (size_t)k * n * in_rows<ENC>(); g.de += (size_t)k * n * EW;
   g.part += k * part_per_field;
-  if (g.dx) { g.dx += (size_t)k * n * 3; g.dd += (size_t)k * n * 3; }
+  if (g.dx) { g.dx += (size_t)k * n * cx; g.dd += (size_t)k * n * cd; }
   return g;
 }
 
@@ -413,6 +436,20 @@ __device__ __forceinline__ void load_points(const float* x, const float* d, cons
   }
 }
 
+// Copies a tile of pre-encoded features, rounded to bf16, into dst [T][ld]
+// (ld may be a global row stride): dst[t][j] = src[row0 + t][j] for j < cols
+// (the row stride of src), 0 for cols <= j < width and past the batch; rows
+// past the batch are left out when skip_tail is set.
+__device__ __forceinline__ void stage_encoded(const float* src, int cols, int width, int n, long row0,
+                                              bf16* dst, int ld, bool skip_tail) {
+  for (int i = threadIdx.x; i < T * width; i += NT) {
+    const int t = i / width, j = i - t * width;
+    const long p = row0 + t;
+    if (skip_tail && p >= n) continue;
+    dst[t * ld + j] = __float2bfloat16(p < n && j < cols ? src[p * cols + j] : 0.f);
+  }
+}
+
 // Eight saved bf16 activations at (row0 + t, c .. c + 7) as floats; zeros
 // past the batch. c is a multiple of 8.
 __device__ __forceinline__ void ld_act8(const bf16* a, long row0, int t, int c, int ld, int nrow,
@@ -469,13 +506,13 @@ __device__ __forceinline__ void add_bias8(float* v, const float* b) {
 // and it reads the kernel parameters themselves, not field copies of them.
 // (With copies, ptxas allocated the one-field kernel 152 registers against
 // 168 and recomputed 64-bit weight addresses in every GEMM segment: 3% of
-// the forward.)
-template <bool STACKED>
+// the forward.) ENC selects the pre-encoded input mode (see the header).
+template <bool STACKED, bool ENC>
 __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts all_act, float* out) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int W = all_in.width, W2 = W / 2, LDF = W + 4, LDA = W + 8, k = STACKED ? blockIdx.y : 0;
-  const Inputs in_k = field_inputs(all_in, k);
-  const Net w_k = field_net(net, k, W);
+  const Inputs in_k = field_inputs<ENC>(all_in, k);
+  const Net w_k = field_net<ENC>(net, k, W);
   const Acts act_k = field_acts(all_act, k, all_in.n, W);
   const Inputs& in = STACKED ? in_k : all_in;
   const Net& w = STACKED ? w_k : net;
@@ -493,22 +530,27 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
   const long row0 = (long)blockIdx.x * T;
   const int nrow = (int)min((long)T, (long)in.n - row0);
 
-  load_points(in.x, in.d, in.warp, in.n, row0, nullptr, ps);
-  __syncthreads();
-  for (int i = tid; i < T * EW; i += NT) {
-    const int t = i / EW, j = i - t * EW;
-    float vx = pe_val(ps + t * 6, j, in.fx), vd = pe_val(ps + t * 6 + 3, j, in.fd);
-    if (in.mask_x) vx *= in.mask_x[j];
-    if (in.mask_d) vd *= in.mask_d[j];
-    as[t * LDA + j] = __float2bfloat16(vx);
-    es[t * LDE + j] = __float2bfloat16(vd);
+  if constexpr (ENC) {
+    stage_encoded(in.x, in.fx, XW, in.n, row0, as, LDA, false);
+    stage_encoded(in.d, in.fd, EW, in.n, row0, es, LDE, false);
+  } else {
+    load_points(in.x, in.d, in.warp, in.n, row0, nullptr, ps);
+    __syncthreads();
+    for (int i = tid; i < T * EW; i += NT) {
+      const int t = i / EW, j = i - t * EW;
+      float vx = pe_val(ps + t * 6, j, in.fx), vd = pe_val(ps + t * 6 + 3, j, in.fd);
+      if (in.mask_x) vx *= in.mask_x[j];
+      if (in.mask_d) vd *= in.mask_d[j];
+      as[t * LDA + j] = __float2bfloat16(vx);
+      es[t * LDE + j] = __float2bfloat16(vd);
+    }
   }
 
   // The elementwise passes give each thread the same eight-column groups of
   // the tile (16-byte stores of the saved bf16 activations), so a pass may
   // read what the previous W-wide pass wrote without a barrier.
   const int V = W / 8, V2 = W2 / 8;
-  gemm1(as, LDA, w.w_in, EW, W, bs, hs, LDF);
+  gemm1(as, LDA, w.w_in, in_rows<ENC>(), W, bs, hs, LDF);
   for (int b = 0; b < in.n_blocks; ++b) {
     for (int i = tid; i < T * V; i += NT) {
       const int t = i / V, c = (i - t * V) * 8;
@@ -604,17 +646,18 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
   }
 }
 
-template <bool STACKED>  // as fwd_kernel
+template <bool STACKED, bool ENC>  // as fwd_kernel
 __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts all_act, const float* g,
                                                      Grads all_gr) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int W = all_in.width, W2 = W / 2, LDF = W + 4, LDA = W + 8, nb = all_in.n_blocks;
   const int k = STACKED ? blockIdx.y : 0;
   const POff o = partial_offsets(W, nb);
-  const Inputs in_k = field_inputs(all_in, k);
-  const Net w_k = field_net(net, k, W);
+  const Inputs in_k = field_inputs<ENC>(all_in, k);
+  const Net w_k = field_net<ENC>(net, k, W);
   const Acts act_k = field_acts(all_act, k, all_in.n, W);
-  const Grads gr_k = field_grads(all_gr, k, all_in.n, W, (size_t)gridDim.x * o.total);
+  const Grads gr_k = field_grads<ENC>(all_gr, k, all_in.n, W, (size_t)gridDim.x * o.total,
+                                      ENC ? all_in.fx : 3, ENC ? all_in.fd : 3);
   const Inputs& in = STACKED ? in_k : all_in;
   const Net& w = STACKED ? w_k : net;
   const Acts& act = STACKED ? act_k : all_act;
@@ -637,18 +680,24 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   const bool in_grads = gr.dx != nullptr;  // else the pose sums, when warped
   float* part = gr.part + (size_t)blockIdx.x * o.total;
 
-  load_points(in.x, in.d, in.warp, in.n, row0, raw, ps);
+  if constexpr (!ENC) load_points(in.x, in.d, in.warp, in.n, row0, raw, ps);
   if (tid < T)
     for (int j = 0; j < 4; ++j) gs[tid * 4 + j] = tid < nrow ? g[(row0 + tid) * 4 + j] : 0.f;
   __syncthreads();
-  for (int i = tid; i < T * EW; i += NT) {  // encodings: the X of lin_in and Wv_bot
-    const int t = i / EW, j = i - t * EW;
-    if (t >= nrow) continue;
-    float vx = pe_val(ps + t * 6, j, in.fx), vd = pe_val(ps + t * 6 + 3, j, in.fd);
-    if (in.mask_x) vx *= in.mask_x[j];
-    if (in.mask_d) vd *= in.mask_d[j];
-    gr.xe[(row0 + t) * EW + j] = __float2bfloat16(vx);
-    gr.de[(row0 + t) * EW + j] = __float2bfloat16(vd);
+  // encodings: the X of lin_in and Wv_bot
+  if constexpr (ENC) {
+    stage_encoded(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * XW, XW, true);
+    stage_encoded(in.d, in.fd, EW, in.n, row0, gr.de + row0 * EW, EW, true);
+  } else {
+    for (int i = tid; i < T * EW; i += NT) {
+      const int t = i / EW, j = i - t * EW;
+      if (t >= nrow) continue;
+      float vx = pe_val(ps + t * 6, j, in.fx), vd = pe_val(ps + t * 6 + 3, j, in.fd);
+      if (in.mask_x) vx *= in.mask_x[j];
+      if (in.mask_d) vd *= in.mask_d[j];
+      gr.xe[(row0 + t) * EW + j] = __float2bfloat16(vx);
+      gr.de[(row0 + t) * EW + j] = __float2bfloat16(vd);
+    }
   }
 
   // The elementwise passes below give each thread the same eight-column
@@ -692,13 +741,20 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
 
   if (warped || in_grads) {  // dd_emb = dhv_in @ Wv_bot^T -> mask -> encoding backward -> M^T
     gemm1(as, LDA, w.wv_bot, W2, EW, bs, dhs, LDF);
-    float dw[3];
-    pe_bwd(dhs, LDF, ps + 3, in.mask_d, in.fd, dw);
-    if ((tid & 3) == 0) {
-      const int t = tid >> 2;
-      unwarp3(in.warp, dw, pd + t * 3);
-      if (in_grads && t < nrow)
-        for (int c = 0; c < 3; ++c) gr.dd[(row0 + t) * 3 + c] = pd[t * 3 + c];
+    if constexpr (ENC) {  // dd_emb is the input grad
+      for (int i = tid; i < T * in.fd; i += NT) {
+        const int t = i / in.fd, c = i - t * in.fd;
+        if (t < nrow) gr.dd[(row0 + t) * in.fd + c] = dhs[t * LDF + c];
+      }
+    } else {
+      float dw[3];
+      pe_bwd(dhs, LDF, ps + 3, in.mask_d, in.fd, dw);
+      if ((tid & 3) == 0) {
+        const int t = tid >> 2;
+        unwarp3(in.warp, dw, pd + t * 3);
+        if (in_grads && t < nrow)
+          for (int c = 0; c < 3; ++c) gr.dd[(row0 + t) * 3 + c] = pd[t * 3 + c];
+      }
     }
   }
 
@@ -797,21 +853,28 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   // dx_emb = dh @ W_in^T -> mask -> encoding backward -> M^T -> dx, or the pose sums
   const bool pose_sums = warped && !in_grads;
   if (warped || in_grads) {
-    gemm1(as, LDA, w.w_in, W, EW, bs, cs, LDF);
-    float dw[3];
-    pe_bwd(cs, LDF, ps, in.mask_x, in.fx, dw);
-    if ((tid & 3) == 0) {
-      const int t = tid >> 2;
-      float dx[3];
-      unwarp3(in.warp, dw, dx);
-      if (in_grads) {
-        if (t < nrow)
-          for (int c = 0; c < 3; ++c) gr.dx[(row0 + t) * 3 + c] = dx[c];
-      } else {
-        for (int i = 0; i < 3; ++i) {
-          for (int j = 0; j < 3; ++j)
-            pose[t * 12 + 3 * i + j] = dx[i] * raw[t * 6 + j] + pd[t * 3 + i] * raw[t * 6 + 3 + j];
-          pose[t * 12 + 9 + i] = dx[i];
+    gemm1(as, LDA, w.w_in, W, in_rows<ENC>(), bs, cs, LDF);
+    if constexpr (ENC) {  // dx_emb is the input grad
+      for (int i = tid; i < T * in.fx; i += NT) {
+        const int t = i / in.fx, c = i - t * in.fx;
+        if (t < nrow) gr.dx[(row0 + t) * in.fx + c] = cs[t * LDF + c];
+      }
+    } else {
+      float dw[3];
+      pe_bwd(cs, LDF, ps, in.mask_x, in.fx, dw);
+      if ((tid & 3) == 0) {
+        const int t = tid >> 2;
+        float dx[3];
+        unwarp3(in.warp, dw, dx);
+        if (in_grads) {
+          if (t < nrow)
+            for (int c = 0; c < 3; ++c) gr.dx[(row0 + t) * 3 + c] = dx[c];
+        } else {
+          for (int i = 0; i < 3; ++i) {
+            for (int j = 0; j < 3; ++j)
+              pose[t * 12 + 3 * i + j] = dx[i] * raw[t * 6 + j] + pd[t * 3 + i] * raw[t * 6 + 3 + j];
+            pose[t * 12 + 9 + i] = dx[i];
+          }
         }
       }
     }
@@ -827,7 +890,10 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
 
 // part[field][split][tm*64 + i][tn*64 + j] = sum over this split's points p
 // of X[field][p][tm*64 + i] * dY[field][p][tn*64 + j] (X through relu when
-// relu_x); the field is blockIdx.z, the split blockIdx.y.
+// relu_x); the field is blockIdx.z, the split blockIdx.y. KTAIL: k_in is an
+// odd multiple of 32 (the pre-encoded X, XW = 96 wide), so the last row tile
+// reads and writes only its first 32 rows.
+template <bool KTAIL>
 __global__ void __launch_bounds__(NT) wgrad_kernel(const bf16* X, int k_in, int relu_x, const bf16* dY,
                                                    int n_out, long n, long per_split, float* part,
                                                    long part_stride) {
@@ -849,7 +915,7 @@ __global__ void __launch_bounds__(NT) wgrad_kernel(const bf16* X, int k_in, int 
     const long p = p0 + lr;
     uint4 vx = make_uint4(0, 0, 0, 0), vy = make_uint4(0, 0, 0, 0);
     if (p < p_end) {
-      vx = *reinterpret_cast<const uint4*>(X + p * k_in + tm * 64 + lc);
+      if (!KTAIL || tm * 64 + lc < k_in) vx = *reinterpret_cast<const uint4*>(X + p * k_in + tm * 64 + lc);
       vy = *reinterpret_cast<const uint4*>(dY + p * n_out + tn * 64 + lc);
     }
     if (relu_x) {
@@ -874,6 +940,7 @@ __global__ void __launch_bounds__(NT) wgrad_kernel(const bf16* X, int k_in, int 
       }
     }
   }
+  if (KTAIL && tm * 64 + rt * 16 >= k_in) return;
   float* dst = part + blockIdx.y * part_stride + (long)(tm * 64 + rt * 16) * n_out + tn * 64;
 #pragma unroll
   for (int j = 0; j < 2; ++j)
@@ -894,13 +961,21 @@ __global__ void sum_rows_kernel(const float* in, int rows, long cols, int rows_p
   out[(long)blockIdx.y * cols + c] = s;
 }
 
+// The pre-encoded mode takes one field, no warp or mask, and encoded widths
+// within the padded ones.
+bool enc_inputs_ok(const Inputs& in) {
+  return in.fields == 1 && in.warp == nullptr && in.mask_x == nullptr && in.mask_d == nullptr &&
+         in.fx > 0 && in.fx <= XW && in.fd > 0 && in.fd <= EW;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Every operand is a stack over the fields (see the header).
 // ptrs: x, d, warp, mask_x, mask_d, net (forward layout), acts, out.
-// ints: n (points per field), width, n_blocks, multires, multires_views, fields.
+// ints: n (points per field), width, n_blocks, multires, multires_views, fields,
+// pre-encoded (0 or 1; then in_ch and view_ch stand in for the multires).
 int stx_fused_fwd(void** ptrs, const int* ints, void* stream) {
   Cursor cur{ptrs, 0};
   Inputs in; Net w; Acts act;
@@ -908,8 +983,11 @@ int stx_fused_fwd(void** ptrs, const int* ints, void* stream) {
   parse_net(cur, in.n_blocks, w);
   parse_acts(cur, in.n_blocks, act);
   float* out = cur.next<float>();
+  const bool enc = ints[6] != 0;
+  if (enc && !enc_inputs_ok(in)) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem(in.width);
-  const auto kernel = in.fields > 1 ? fwd_kernel<true> : fwd_kernel<false>;
+  const auto kernel = enc ? fwd_kernel<false, true>
+                          : in.fields > 1 ? fwd_kernel<true, false> : fwd_kernel<false, false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((in.n + T - 1) / T, in.fields);
   if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, out);
@@ -932,8 +1010,11 @@ int stx_fused_bwd(void** ptrs, const int* ints, void* stream) {
   gr.xe = cur.next<bf16>(); gr.de = cur.next<bf16>(); gr.part = cur.next<float>();
   gr.dx = cur.next<float>(); gr.dd = cur.next<float>();
   if ((gr.dx == nullptr) != (gr.dd == nullptr)) return (int)cudaErrorInvalidValue;
+  const bool enc = ints[6] != 0;
+  if (enc && !enc_inputs_ok(in)) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem(in.width);
-  const auto kernel = in.fields > 1 ? bwd_kernel<true> : bwd_kernel<false>;
+  const auto kernel = enc ? bwd_kernel<false, true>
+                          : in.fields > 1 ? bwd_kernel<true, false> : bwd_kernel<false, false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((in.n + T - 1) / T, in.fields);
   if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, g, gr);
@@ -959,13 +1040,18 @@ int stx_tile_points() { return T; }
 // Padded encoding width of the lin_in and Wv_bot operands.
 int stx_enc_width() { return EW; }
 
+// Padded width of the pre-encoded point features (lin_in's rows in that mode).
+int stx_enc_in_width() { return XW; }
+
 // X [fields, n, k_in], dY [fields, n, n_out] -> part, rows of part_stride
-// floats, [fields, splits] of them.
+// floats, [fields, splits] of them. k_in a multiple of 32, n_out of 64.
 int stx_wgrad(const void* X, int k_in, int relu_x, const void* dY, int n_out, long long n, int splits,
               int fields, void* part, long long part_stride, void* stream) {
+  if (k_in % 32 != 0 || n_out % 64 != 0) return (int)cudaErrorInvalidValue;
   const long per_split = (long)((n + splits - 1) / splits);
-  dim3 grid((k_in / 64) * (n_out / 64), splits, fields);
-  wgrad_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+  dim3 grid(((k_in + 63) / 64) * (n_out / 64), splits, fields);
+  const auto kernel = k_in % 64 != 0 ? wgrad_kernel<true> : wgrad_kernel<false>;
+  kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const bf16*>(X), k_in, relu_x, reinterpret_cast<const bf16*>(dY), n_out, (long)n,
       per_split, reinterpret_cast<float*>(part), (long)part_stride);
   return (int)cudaGetLastError();

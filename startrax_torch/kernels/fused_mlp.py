@@ -17,7 +17,8 @@ what bounds the kernels on the card and how the design answers it.
   also the field's plain path (``use_fused=False``, in bf16 or f32), and
   ``parity.compare`` holds the kernels against it.
 - ``launches`` counts the wrappers' kernel launches: "fwd" and "bwd" for
-  ``fused_field_apply``, "stacked_fwd" and "stacked_bwd" for
+  ``fused_field_apply`` on raw points, "enc_fwd" and "enc_bwd" on
+  pre-encoded features, "stacked_fwd" and "stacked_bwd" for
   ``fused_stacked_apply``; once per forward call and once per backward call
   (one backward call launches the per-tile backward and, when a weight
   needs a grad, the weight-gradient GEMMs and the partial sums).
@@ -25,8 +26,22 @@ what bounds the kernels on the card and how the design answers it.
 The backward runs in one of two modes. When the points or directions need a
 grad (the per-ray-pose path, where they come from warp_to_vehicle_frames), it
 writes per-point dx and dd. Otherwise a warped field's pose gradient leaves
-through the packed warp, from 12 sums reduced in the kernel. The pre-encoded
-input mode (nerf_time's 4-D inputs) is not ported.
+through the packed warp, from 12 sums reduced in the kernel.
+
+Input modes. With ``pe = (multires, multires_views)`` the kernels take raw
+points and directions and encode them inside. With ``pe=None`` they take
+pre-encoded features (``_fwd_kernel`` / ``_bwd_kernel`` with pe=None in the
+JAX package): x_emb [N, in_ch] with in_ch <= XW and d_emb [N, view_ch] with
+view_ch <= EW, one field a launch, no warp or mask. nerf_time's 4-D points
+with time take this mode (models/fields.apply_field with ``time``), counted
+as "enc_fwd" and "enc_bwd". Its backward writes dx_emb and dd_emb only when
+they need a grad. The JAX package writes them always (``apply_field``'s
+``input_grads=True``), but on the nerf_time path they flow into points that
+carry no gradient, so leaving them out changes no result.
+
+Under ``torch.no_grad`` (an eval render) the forward saves nothing: every
+activation it would save for the backward goes to one [N, W] scratch
+buffer, freed with the call.
 """
 
 from __future__ import annotations
@@ -42,9 +57,10 @@ import torch.nn.functional as F
 from ..ops.encoding import encoding_dim, positional_encoding
 
 EW = 64  # padded encoding width on the card: 63 point and 27 direction columns
+XW = 96  # padded width of pre-encoded point features (nerf_time: 84 columns)
 MAX_BLOCKS = 8
 
-launches = {"fwd": 0, "bwd": 0, "stacked_fwd": 0, "stacked_bwd": 0}
+launches = {"fwd": 0, "bwd": 0, "stacked_fwd": 0, "stacked_bwd": 0, "enc_fwd": 0, "enc_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -117,23 +133,29 @@ def warp_points(v, warp, with_t: bool):
     return torch.stack(ys, dim=-1)
 
 
-def fused_mlp_plain(x, d, weights: Sequence[torch.Tensor], n_blocks: int, pe,
+def fused_mlp_plain(x, d, weights: Sequence[torch.Tensor], n_blocks: int, pe=None,
                     warp=None, masks=None, compute_dtype=torch.bfloat16):
     """Plain PyTorch version of the kernels, and the field's plain body. x, d:
-    raw [N, 3] points and directions; weights: flat f32 params
-    (flatten_params order); pe: (multires, multires_views); warp: packed [16]
-    or None; masks: ([EW], [EW]) BARF column masks or None. compute_dtype
-    bf16 rounds as the kernels do; float32 runs plain f32 matmuls. Returns
-    [N, 4] = (raw alpha, raw rgb)."""
+    raw [N, 3] points and directions, or with pe=None the pre-encoded
+    features [N, in_ch] and [N, view_ch]; weights: flat f32 params
+    (flatten_params order); pe: (multires, multires_views) or None; warp:
+    packed [16] or None; masks: ([EW], [EW]) BARF column masks or None (both
+    need pe). compute_dtype bf16 rounds as the kernels do; float32 runs plain
+    f32 matmuls. Returns [N, 4] = (raw alpha, raw rgb)."""
     dot = {torch.bfloat16: _dot, torch.float32: _dot_f32}[compute_dtype]
-    if warp is not None:
-        x = warp_points(x, warp, True)
-        d = warp_points(d, warp, False)
-    xe = positional_encoding(x, pe[0])
-    de = positional_encoding(d, pe[1])
-    if masks is not None:
-        xe = xe * masks[0][: xe.shape[-1]]
-        de = de * masks[1][: de.shape[-1]]
+    if pe is None:
+        if warp is not None or masks is not None:
+            raise ValueError("a warp or BARF masks need the in-kernel encoding (pe)")
+        xe, de = x, d
+    else:
+        if warp is not None:
+            x = warp_points(x, warp, True)
+            d = warp_points(d, warp, False)
+        xe = positional_encoding(x, pe[0])
+        de = positional_encoding(d, pe[1])
+        if masks is not None:
+            xe = xe * masks[0][: xe.shape[-1]]
+            de = de * masks[1][: de.shape[-1]]
     it = iter(weights)
     W_in, b_in = next(it), next(it)
     blocks = [(next(it), next(it), next(it), next(it)) for _ in range(n_blocks)]
@@ -206,9 +228,9 @@ def _lib():
         lib.stx_sum_rows.restype = ci
         lib.stx_partial_offset.argtypes = [ci, ci, ctypes.c_char_p]
         lib.stx_partial_offset.restype = ci
-        if lib.stx_enc_width() != EW:
-            raise RuntimeError(f"fused MLP library pads encodings to {lib.stx_enc_width()}, "
-                               f"not {EW}")
+        if (lib.stx_enc_width(), lib.stx_enc_in_width()) != (EW, XW):
+            raise RuntimeError(f"fused MLP library pads encodings to {lib.stx_enc_width()} and "
+                               f"{lib.stx_enc_in_width()} columns, not {EW} and {XW}")
         _lib_handle = lib
     return _lib_handle
 
@@ -248,12 +270,12 @@ def _pad_rows(w, n_rows: int):
     return F.pad(w, (0, 0, 0, n_rows - w.shape[-2]))
 
 
-def _kernel_weights(weights, n_blocks: int, transpose: bool):
+def _kernel_weights(weights, n_blocks: int, transpose: bool, in_rows: int):
     """Flat f32 stacked params ([K, ...] leaves) -> the kernels' operand list,
-    each a contiguous stack over the fields: bf16 matrices (lin_in and Wv_bot
-    zero-padded to EW rows, views split into top and bottom), f32 biases.
-    transpose=True gives the backward's [K, out, in] matrices; the narrow
-    heads (alpha, rgb) stay as they are."""
+    each a contiguous stack over the fields: bf16 matrices (lin_in
+    zero-padded to in_rows rows, Wv_bot to EW, views split into top and
+    bottom), f32 biases. transpose=True gives the backward's [K, out, in]
+    matrices; the narrow heads (alpha, rgb) stay as they are."""
     bf = torch.bfloat16
     it = iter(weights)
     W_in, b_in = next(it), next(it)
@@ -263,7 +285,7 @@ def _kernel_weights(weights, n_blocks: int, transpose: bool):
         w = w.to(bf)
         return (w.transpose(-1, -2) if transpose else w).contiguous()
 
-    out = [mat(_pad_rows(W_in, EW)), b_in.contiguous()]
+    out = [mat(_pad_rows(W_in, in_rows)), b_in.contiguous()]
     for _ in range(n_blocks):
         W0, b0, W1, b1 = next(it), next(it), next(it), next(it)
         out += [mat(W0), b0.contiguous(), mat(W1), b1.contiguous()]
@@ -293,30 +315,36 @@ def _wgrad_splits(n: int) -> int:
 
 
 class _FusedMLP(torch.autograd.Function):
-    """K fields of one shape through the kernels, on x, d [K, N, 3], an
-    optional packed warp [K, 16] and stacked weights [K, ...]. Forward: the
-    forward kernel, saving bf16 activations. Backward: the per-tile backward
-    kernel; then, when a weight needs a grad, one split-N GEMM per wide layer
-    and the deterministic partial sums. When x or d needs a grad the backward
-    writes per-point dx, dd; otherwise a warp's grad is dM = M G, dt = M s
-    from the kernel's pose sums. ``counter`` names the launch counters
-    ("" or "stacked_")."""
+    """K fields of one shape through the kernels, on x, d [K, N, 3] (or, with
+    pe=None, one field's pre-encoded x_emb [1, N, in_ch], d_emb [1, N,
+    view_ch]), an optional packed warp [K, 16] and stacked weights [K, ...].
+    Forward: the forward kernel, saving bf16 activations when ``save``.
+    Backward: the per-tile backward kernel; then, when a weight needs a grad,
+    one split-N GEMM per wide layer and the deterministic partial sums. When
+    x or d needs a grad the backward writes per-point dx, dd; otherwise a
+    warp's grad is dM = M G, dt = M s from the kernel's pose sums.
+    ``counter`` names the launch counters ("", "stacked_" or "enc_")."""
 
     @staticmethod
-    def forward(ctx, counter, x, d, warp, mask_x, mask_d, n_blocks, pe, *weights):
+    def forward(ctx, counter, save, x, d, warp, mask_x, mask_d, n_blocks, pe, *weights):
         lib = _lib()
         K, n, width = x.shape[0], x.shape[1], weights[0].shape[-1]
         dev, bf = x.device, torch.bfloat16
-        kw = _kernel_weights(weights, n_blocks, transpose=False)
-        acts = [torch.empty((K, n, width), dtype=bf, device=dev) for _ in range(2 * n_blocks + 3)]
-        acts.append(torch.empty((K, n, width // 2), dtype=bf, device=dev))
+        kw = _kernel_weights(weights, n_blocks, transpose=False, in_rows=_in_rows(pe))
+        if save:
+            acts = [torch.empty((K, n, width), dtype=bf, device=dev)
+                    for _ in range(2 * n_blocks + 3)]
+            acts.append(torch.empty((K, n, width // 2), dtype=bf, device=dev))
+        else:  # nothing will read them: one buffer takes every activation's writes
+            acts = [torch.empty((K, n, width), dtype=bf, device=dev)] * (2 * n_blocks + 4)
         out = torch.empty((K, n, 4), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _call(lib.stx_fused_fwd, [x, d, warp, mask_x, mask_d, *kw, *acts, out],
-              [n, width, n_blocks, pe[0], pe[1], K], stream, "fused MLP forward")
+              _kernel_ints(x, d, width, n_blocks, pe), stream, "fused MLP forward")
         launches[counter + "fwd"] += 1
         ctx.counter, ctx.n_blocks, ctx.pe = counter, n_blocks, pe
-        ctx.save_for_backward(x, d, warp, mask_x, mask_d, *weights, *acts)
+        if save:
+            ctx.save_for_backward(x, d, warp, mask_x, mask_d, *weights, *acts)
         return out
 
     @staticmethod
@@ -329,30 +357,30 @@ class _FusedMLP(torch.autograd.Function):
         weights = saved[5:5 + n_w]
         acts = list(saved[5 + n_w:])
         K, n, width = x.shape[0], x.shape[1], weights[0].shape[-1]
-        w2 = width // 2
+        w2, in_rows = width // 2, _in_rows(pe)
         dev, bf, f32 = x.device, torch.bfloat16, torch.float32
         needs = ctx.needs_input_grad
-        in_grads = needs[1] or needs[2]
-        pose_grad = warp is not None and needs[3]
-        w_grads = any(needs[8:])
+        in_grads = needs[2] or needs[3]
+        pose_grad = warp is not None and needs[4]
+        w_grads = any(needs[9:])
         g = g.contiguous().to(f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
 
         def buf(cols, dtype=bf):
             return torch.empty((K, n, cols), dtype=dtype, device=dev)
 
-        kw = _kernel_weights(weights, n_blocks, transpose=True)
+        kw = _kernel_weights(weights, n_blocks, transpose=True, in_rows=in_rows)
         d_in = buf(width)
         d_blocks = [buf(width) for _ in range(2 * n_blocks)]
-        d_out, d_f, d_v, xe, de = buf(width), buf(width), buf(w2), buf(EW), buf(EW)
-        dx, dd = (buf(3, f32), buf(3, f32)) if in_grads else (None, None)
+        d_out, d_f, d_v, xe, de = buf(width), buf(width), buf(w2), buf(in_rows), buf(EW)
+        dx, dd = (buf(x.shape[2], f32), buf(d.shape[2], f32)) if in_grads else (None, None)
         off = _partial_offsets(width, n_blocks)
         n_tiles = math.ceil(n / lib.stx_tile_points())
         part = torch.empty((K, n_tiles, off["total"]), dtype=f32, device=dev)
         _call(lib.stx_fused_bwd,
               [x, d, warp, mask_x, mask_d, *kw, *acts, g, d_in, *d_blocks, d_out, d_f, d_v,
                xe, de, part, dx, dd],
-              [n, width, n_blocks, pe[0], pe[1], K], stream, "fused MLP backward")
+              _kernel_ints(x, d, width, n_blocks, pe), stream, "fused MLP backward")
         launches[ctx.counter + "bwd"] += 1
 
         grads = [None] * n_w
@@ -363,7 +391,7 @@ class _FusedMLP(torch.autograd.Function):
         if w_grads:
             # dW = X^T dY for every wide layer: (X, k_in, relu on X, dY, n_out)
             h_acts, h_last, ho, feat = acts[:2 * n_blocks], acts[-4], acts[-3], acts[-2]
-            jobs = [(xe, EW, 0, d_in, width)]
+            jobs = [(xe, in_rows, 0, d_in, width)]
             for b in range(n_blocks):
                 jobs += [(h_acts[2 * b], width, 1, d_blocks[2 * b], width),
                          (h_acts[2 * b + 1], width, 1, d_blocks[2 * b + 1], width)]
@@ -390,7 +418,7 @@ class _FusedMLP(torch.autograd.Function):
                 return ps[:, off[name] + at:off[name] + at + size]
 
             in_ch, view_ch = weights[0].shape[-2], weights[-4].shape[-2] - width
-            grads = [mat(0, EW, width)[:, :in_ch], vec("b_in", width)]
+            grads = [mat(0, in_rows, width)[:, :in_ch], vec("b_in", width)]
             for b in range(n_blocks):
                 at = 2 * width * b
                 grads += [mat(1 + 2 * b, width, width), vec("b_blocks", width, at),
@@ -414,28 +442,53 @@ class _FusedMLP(torch.autograd.Function):
             dM = M @ G
             dt = (M @ s[..., None])[..., 0]
             dwarp = torch.cat([dM.reshape(K, 9), dt, warp.new_zeros(K, 4)], 1)
-        return (None, dx if needs[1] else None, dd if needs[2] else None, dwarp, None, None, None,
-                None, *grads)
+        return (None, None, dx if needs[2] else None, dd if needs[3] else None, dwarp, None, None,
+                None, None, *grads)
+
+
+def _in_rows(pe) -> int:
+    """Rows of lin_in's weight on the card: the padded point encoding."""
+    return XW if pe is None else EW
+
+
+def _kernel_ints(x, d, width: int, n_blocks: int, pe):
+    """The kernels' int operands: n, width, n_blocks, then the multires of
+    points and directions (the encoded widths with pe=None), the fields, and
+    the pre-encoded flag."""
+    cols = (x.shape[2], d.shape[2]) if pe is None else tuple(pe)
+    return [x.shape[1], width, n_blocks, *cols, x.shape[0], int(pe is None)]
 
 
 def _check_cuda_inputs(x, d, weights, n_blocks, pe, warp, masks):
-    """Device, dtype, shape and contiguity of a stacked launch's operands."""
+    """Device, dtype, shape and contiguity of a stacked launch's operands.
+    With pe=None, x and d are one field's encoded features [1, N, in_ch],
+    [1, N, view_ch], without warp or masks."""
     dev = x.device
-    if x.dim() != 3:
-        raise ValueError(f"x must be [K, N, 3], got {list(x.shape)}")
+    if x.dim() != 3 or d.dim() != 3:
+        raise ValueError(f"x, d must be [K, N, C], got {list(x.shape)}, {list(d.shape)}")
     K, n = x.shape[0], x.shape[1]
-    for name, t in (("x", x), ("d", d)):
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (K, n, 3) \
+    if pe is None:
+        in_ch, view_ch = x.shape[2], d.shape[2]
+        if K != 1 or warp is not None or masks is not None:
+            raise ValueError("the pre-encoded mode takes one field, without a warp or masks")
+        if not (0 < in_ch <= XW and 0 < view_ch <= EW):
+            raise ValueError(f"fused MLP kernel pads encoded inputs to {XW} and {EW} columns, "
+                             f"got {in_ch}, {view_ch}")
+    else:
+        in_ch, view_ch = encoding_dim(3, pe[0]), encoding_dim(3, pe[1])
+        if in_ch > EW or view_ch > EW:
+            raise ValueError(f"fused MLP kernel pads encodings to {EW} columns, "
+                             f"got {in_ch}, {view_ch}")
+    for name, t, cols in (("x", x, x.shape[2] if pe is None else 3),
+                          ("d", d, d.shape[2] if pe is None else 3)):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (K, n, cols) \
                 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 [K, N, 3] tensor on {dev}")
+            raise ValueError(f"{name} must be a contiguous float32 [K, N, {cols}] tensor on {dev}")
     width = weights[0].shape[-1]
     if width % 128 != 0 or width > 256:
         raise ValueError(f"fused MLP kernel needs width 128 or 256, got {width}")
     if not 0 <= n_blocks <= MAX_BLOCKS:
         raise ValueError(f"fused MLP kernel takes at most {MAX_BLOCKS} blocks, got {n_blocks}")
-    in_ch, view_ch = encoding_dim(3, pe[0]), encoding_dim(3, pe[1])
-    if in_ch > EW or view_ch > EW:
-        raise ValueError(f"fused MLP kernel pads encodings to {EW} columns, got {in_ch}, {view_ch}")
     shapes = _param_shapes(width, n_blocks, in_ch, view_ch)
     if len(weights) != len(shapes):
         raise ValueError(f"fused MLP kernel: {len(weights)} params for {n_blocks} blocks")
@@ -453,15 +506,20 @@ def _check_cuda_inputs(x, d, weights, n_blocks, pe, warp, masks):
 def _launch(counter, x, d, warp, weights, n_blocks: int, pe, masks):
     _check_cuda_inputs(x, d, weights, n_blocks, pe, warp, masks)
     mx, md = masks if masks is not None else (None, None)
-    return _FusedMLP.apply(counter, x, d, warp, mx, md, n_blocks, tuple(pe), *weights)
+    save = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, d, warp, *weights))
+    return _FusedMLP.apply(counter, save, x, d, warp, mx, md, n_blocks,
+                           None if pe is None else tuple(pe), *weights)
 
 
-def fused_field_apply(params: Dict[str, Any], x, d, n_blocks: int, pe,
+def fused_field_apply(params: Dict[str, Any], x, d, n_blocks: int, pe=None,
                       pe_masks=None, warp=None):
-    """Fused field MLP on raw points x [N, 3] and directions d [N, 3] ->
-    (raw_alpha [N], raw_rgb [N, 3]), differentiable in the params, in x and
-    d, and in the packed [16] warp. pe = (multires, multires_views); pe_masks
-    = ([EW], [EW]) BARF column masks (see pe_mask_row) or None.
+    """Fused field MLP -> (raw_alpha [N], raw_rgb [N, 3]), differentiable in
+    the params, in x and d, and in the packed [16] warp. With pe =
+    (multires, multires_views), x [N, 3] and d [N, 3] are raw points and
+    directions; pe_masks = ([EW], [EW]) BARF column masks (see pe_mask_row)
+    or None. With pe=None, x [N, in_ch] and d [N, view_ch] are pre-encoded
+    features, and there is no warp or mask.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels (as
     one field of a stack)."""
@@ -470,9 +528,10 @@ def fused_field_apply(params: Dict[str, Any], x, d, n_blocks: int, pe,
         out = fused_mlp_plain(x, d, weights, n_blocks, pe, warp=warp, masks=pe_masks)
     elif x.device.type == "cuda":
         if x.dim() != 2:
-            raise ValueError(f"x must be [N, 3], got {list(x.shape)}")
-        out = _launch("", x[None], d[None], None if warp is None else warp[None],
-                      [w[None] for w in weights], n_blocks, pe, pe_masks)[0]
+            raise ValueError(f"x must be [N, C], got {list(x.shape)}")
+        out = _launch("enc_" if pe is None else "", x[None], d[None],
+                      None if warp is None else warp[None], [w[None] for w in weights], n_blocks,
+                      pe, pe_masks)[0]
     else:
         raise ValueError(f"fused MLP: unsupported device {x.device}")
     return out[:, 0], out[:, 1:4]
@@ -483,10 +542,14 @@ def fused_stacked_apply(params_stacked: Dict[str, Any], x, d, n_blocks: int, pe,
     """K stacked fields (leaves with a leading [K] axis) on per-field raw
     points x [K, N, 3] and directions d [K, N, 3] -> (raw_alpha [K, N],
     raw_rgb [K, N, 3]), differentiable in the params and in x and d. The BARF
-    masks, if any, are shared by the fields.
+    masks, if any, are shared by the fields. Raw points only: no path runs
+    K pre-encoded fields, so pe=None raises.
 
     CPU tensors take the plain version (fused_stacked_plain); CUDA tensors
     launch the kernels once for all K fields."""
+    if pe is None:
+        raise ValueError("the field-axis launch takes raw points (pe); pre-encoded features "
+                         "go through fused_field_apply, one field a launch")
     weights = flatten_params(params_stacked, n_blocks)
     if x.device.type == "cpu":
         out = fused_stacked_plain(x, d, weights, n_blocks, pe, masks=pe_masks)

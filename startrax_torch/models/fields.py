@@ -9,7 +9,9 @@ Dispatch: with ``use_fused`` (default: on for CUDA tensors) the field runs
 through the fused MLP kernels (kernels/fused_mlp.py), and a stack of fields
 through one launch of them; otherwise through their plain version,
 ``fused_mlp_plain``, in ``compute_dtype`` (bf16 operands with f32
-accumulation, rounded as the kernels round, or f32).
+accumulation, rounded as the kernels round, or f32). A time-conditioned
+field (``input_dims`` 4, nerf_time) appends the time to each point, encodes
+points and directions outside the kernels and runs their pre-encoded mode.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..device import resolve
 from ..kernels.fused_mlp import (
     flatten_params,
     fused_field_apply,
@@ -27,7 +30,7 @@ from ..kernels.fused_mlp import (
     fused_stacked_plain,
     pe_mask_row,
 )
-from ..ops.encoding import barf_weights, encoding_dim
+from ..ops.encoding import barf_weights, encoding_dim, positional_encoding
 from ..utils.tree import tree_map
 
 Params = Dict[str, Any]
@@ -80,7 +83,9 @@ def _linear(d_in, d_out, generator, device, init=_kaiming_normal):
 def init_field(cfg: FieldConfig, generator: Optional[torch.Generator] = None,
                device=None) -> Params:
     """He-normal trunk and heads, Xavier-uniform rgb, zero fc1 (so each
-    residual block starts as the identity)."""
+    residual block starts as the identity). device=None is the card
+    (device.resolve)."""
+    device = resolve(device)
     W = cfg.width
     params: Params = {
         "lin_in": _linear(cfg.input_ch, W, generator, device),
@@ -102,6 +107,7 @@ def init_field(cfg: FieldConfig, generator: Optional[torch.Generator] = None,
 
 def init_stacked_fields(cfg: FieldConfig, n: int, generator=None, device=None) -> Params:
     """n independently initialised fields, leaves stacked on axis 0."""
+    device = resolve(device)
     fields = [init_field(cfg, generator, device) for _ in range(n)]
 
     def stack(trees):
@@ -130,18 +136,29 @@ def barf_masks(cfg: FieldConfig, step, device):
     return pe_mask_row(wx, cfg.multires), pe_mask_row(wd, cfg.multires_views)
 
 
-def apply_field(params: Params, cfg: FieldConfig, pts, viewdirs, step=None, warp=None):
+def apply_field(params: Params, cfg: FieldConfig, pts, viewdirs, step=None, warp=None,
+                time=None):
     """Evaluate the field on pts [R, S, 3] with per-ray viewdirs [R, 3].
 
     warp: optional packed [16] SE(3) (M row-major at [0:9], t at [9:12])
-    applied to the inputs first, differentiably. Returns (raw_alpha [R, S],
+    applied to the inputs first, differentiably. time: a scalar (or one
+    value per point) appended to every point as a fourth coordinate, for a
+    field with input_dims 4; it takes no warp. Returns (raw_alpha [R, S],
     raw_rgb [R, S, 3]) in f32."""
     R, S = pts.shape[0], pts.shape[1]
     assert tuple(pts.shape) == (R, S, 3) and tuple(viewdirs.shape) == (R, 3)
-    if cfg.input_dims != 3:
-        raise NotImplementedError("time-conditioned (4-D input) fields are not ported yet")
+    if warp is not None and time is not None:
+        raise ValueError("warp is only supported for 3-d inputs")
     x = pts.reshape(-1, 3)
     dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
+    if time is not None:
+        t = torch.as_tensor(time, dtype=x.dtype, device=x.device).reshape(-1)
+        x = torch.cat([x, t.expand(x.shape[0])[:, None]], -1)
+    if x.shape[-1] != cfg.input_dims:
+        raise ValueError(f"the field takes {cfg.input_dims}-d inputs, got {x.shape[-1]}-d "
+                         "(a time-conditioned field needs time)")
+    if cfg.input_dims != 3:
+        return _apply_encoded(params, cfg, x, dirs, step, R, S)
 
     pe = (cfg.multires, cfg.multires_views)
     masks = barf_masks(cfg, step, pts.device)
@@ -151,6 +168,22 @@ def apply_field(params: Params, cfg: FieldConfig, pts, viewdirs, step=None, warp
     else:
         out = fused_mlp_plain(x, dirs, flatten_params(params, cfg.n_blocks), cfg.n_blocks, pe,
                               warp=warp, masks=masks, compute_dtype=cfg.compute_dtype)
+        raw_alpha, raw_rgb = out[:, 0], out[:, 1:4]
+    return raw_alpha.reshape(R, S), raw_rgb.reshape(R, S, 3)
+
+
+def _apply_encoded(params: Params, cfg: FieldConfig, x, dirs, step, R: int, S: int):
+    """The field on points x [N, input_dims] and directions [N, 3], encoded
+    outside the kernels (with the BARF schedule at ``step``) and run through
+    their pre-encoded mode or its plain version."""
+    emb = positional_encoding(x, cfg.multires, step=step, end_barf=cfg.end_barf)
+    emb_dirs = positional_encoding(dirs, cfg.multires_views, step=step, end_barf=cfg.end_barf)
+    if resolve_use_fused(cfg, x.device):
+        raw_alpha, raw_rgb = fused_field_apply(params, emb.contiguous(), emb_dirs.contiguous(),
+                                               cfg.n_blocks)
+    else:
+        out = fused_mlp_plain(emb, emb_dirs, flatten_params(params, cfg.n_blocks), cfg.n_blocks,
+                              compute_dtype=cfg.compute_dtype)
         raw_alpha, raw_rgb = out[:, 0], out[:, 1:4]
     return raw_alpha.reshape(R, S), raw_rgb.reshape(R, S, 3)
 

@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..device import resolve
 from ..ops import lie
 from ..ops.compositing import raw2outputs, raw2outputs_star
 from ..ops.sampling import hierarchical_z_vals, pts_from_z, stratified_z_vals
@@ -79,6 +80,9 @@ class StarConfig:
 
 def init_star(cfg: StarConfig, generator: Optional[torch.Generator] = None,
               device=None) -> Params:
+    """The static and K dynamic fields, coarse and fine; device=None is the
+    card (device.resolve)."""
+    device = resolve(device)
     params: Params = {
         "static_coarse": init_field(cfg.static_field(), generator, device),
         "dynamic_coarse": init_stacked_fields(cfg.dynamic_field(), cfg.num_vehicles,

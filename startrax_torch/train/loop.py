@@ -1,4 +1,5 @@
-"""Training steps for appearance init and online tracking (PyTorch).
+"""Training steps for appearance init, online tracking and the
+time-conditioned baseline (PyTorch).
 
 Counterpart of startrax/train/loop.py. A step renders the batch (coarse and
 fine, all fields), computes the losses, backpropagates and applies one
@@ -13,6 +14,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..device import resolve
+from ..models.nerf_time import render_nerf_time
 from ..models.star import StarConfig, init_star, render_star
 from ..ops import lie
 from ..ops.losses import depth_loss as depth_loss_fn
@@ -110,7 +113,9 @@ def init_online_params(star_cfg: StarConfig, num_frames: int,
                        generator: Optional[torch.Generator] = None, device=None,
                        init_poses=None):
     """{"nerf": field params, "poses": [F-1, K, 7]} as leaf tensors that
-    require grad; poses start at identity unless init_poses is given."""
+    require grad; poses start at identity unless init_poses is given.
+    device=None is the card (device.resolve)."""
+    device = resolve(device)
     nerf = init_star(star_cfg, generator, device)
     if init_poses is None:
         poses = lie.se3_identity(num_frames - 1, star_cfg.num_vehicles, device=device)
@@ -210,6 +215,28 @@ def make_appinit_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt):
         opt.zero_grad()
         result = render_star(params, star_cfg, batch["rays_o"], batch["rays_d"], pose=None,
                              train=True, u_strat=u_strat, u_pdf=u_pdf, generator=generator)
+        loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, online=False)
+        loss.backward()
+        opt.step()
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_nerf_time_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt, num_frames: int):
+    """The time-conditioned baseline's step (``step_fn`` of
+    startrax/apps/nerf_time.py): render the batch at its frame, the
+    photometric (+ depth/sigma) loss, one optimizer step; opt as
+    train.optim.make_appinit_optimizer builds it over the coarse and fine
+    fields. Returns step(params, batch, u_strat=None, u_pdf=None,
+    generator=None) -> (loss, metrics); batch["frame"] is the batch's
+    frame, an int or a 0-d tensor."""
+
+    def train_step(params, batch, u_strat=None, u_pdf=None, generator=None):
+        opt.zero_grad()
+        result = render_nerf_time(params, star_cfg, batch["rays_o"], batch["rays_d"],
+                                  batch["frame"], num_frames, train=True, u_strat=u_strat,
+                                  u_pdf=u_pdf, generator=generator)
         loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, online=False)
         loss.backward()
         opt.step()

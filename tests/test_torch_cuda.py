@@ -45,7 +45,7 @@ def card():
 def _setup(seed):
     cfg = tfields.FieldConfig(depth=4, width=256)
     g = torch.Generator().manual_seed(seed)
-    params = tfields.init_field(cfg, g)
+    params = tfields.init_field(cfg, g, device="cpu")
     for blk in params["blocks"]:  # nonzero fc1 so every block carries gradient
         blk["fc1"]["w"] = 0.02 * torch.randn(blk["fc1"]["w"].shape, generator=g)
     params = convert.params_from_numpy(convert.params_to_numpy(params), device="cuda",
@@ -73,7 +73,7 @@ def test_fused_kernels_match_plain(card, mode):
     tfused.reset_launch_counts()
     errs, _ = parity.compare(params, x, d, cfg.n_blocks, PE, pe_masks=masks, warp=warp,
                              pose=pose if warp is not None else None)
-    assert tfused.launches == {"fwd": 1, "bwd": 1, "stacked_fwd": 0, "stacked_bwd": 0}
+    assert tfused.launches == dict.fromkeys(tfused.launches, 0) | {"fwd": 1, "bwd": 1}
     assert ("pose" in errs) == (warp is not None)
     assert ("input" in errs) == (mode == "warped_input_grads")
     assert not parity.failures(errs), errs
@@ -82,7 +82,7 @@ def test_fused_kernels_match_plain(card, mode):
 def _stacked_setup(width, seed, n_rays=50, n_samples=60):
     cfg = tfields.FieldConfig(depth=4, width=width)
     g = torch.Generator().manual_seed(seed)
-    params = tfields.init_stacked_fields(cfg, 2, g)
+    params = tfields.init_stacked_fields(cfg, 2, g, device="cpu")
     for blk in params["blocks"]:  # nonzero fc1 so every block carries gradient
         blk["fc1"]["w"] = 0.02 * torch.randn(blk["fc1"]["w"].shape, generator=g)
     params = convert.params_from_numpy(convert.params_to_numpy(params), device="cuda",
@@ -110,7 +110,8 @@ def test_field_axis_kernels_match_plain(card, width, masked):
     tfused.reset_launch_counts()
     errs, _ = parity.compare(params, x, d, cfg.n_blocks, PE, pe_masks=masks, pose=pose,
                              stacked=True)
-    assert tfused.launches == {"fwd": 0, "bwd": 0, "stacked_fwd": 1, "stacked_bwd": 1}
+    assert tfused.launches == dict.fromkeys(tfused.launches, 0) | {"stacked_fwd": 1,
+                                                                    "stacked_bwd": 1}
     assert {"input", "input_rms", "ray_pose"} <= set(errs)
     assert not parity.failures(errs), errs
 
@@ -127,3 +128,34 @@ def test_field_axis_input_grads_without_weight_grads(card):
         grads.append(torch.autograd.grad(a.sum() + (r ** 2).sum(), pose, retain_graph=True))
     assert torch.equal(grads[0][0], grads[1][0])
     assert bool(grads[0][0].abs().sum() > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("in_ch", [84, 63])
+@pytest.mark.parametrize("input_grads", [False, True], ids=["weights", "input_grads"])
+def test_pre_encoded_kernels_match_plain(card, width, in_ch, input_grads):
+    """The pre-encoded mode (nerf_time's 84 = 4 x 21 point columns, or 63)
+    with 27 direction columns, on 3,000 ragged points: one launch of each
+    kernel, the "enc_" counters only, within parity.ENC_LIMITS."""
+    from startrax_torch.ops.encoding import positional_encoding
+
+    dims = in_ch // 21
+    cfg = tfields.FieldConfig(depth=4, width=width, input_dims=dims)
+    g = torch.Generator().manual_seed(9)
+    params = tfields.init_field(cfg, g, device="cpu")
+    for blk in params["blocks"]:  # nonzero fc1 so every block carries gradient
+        blk["fc1"]["w"] = 0.02 * torch.randn(blk["fc1"]["w"].shape, generator=g)
+    params = convert.params_from_numpy(convert.params_to_numpy(params), device="cuda",
+                                       requires_grad=True)
+    x = positional_encoding(torch.randn(N, dims, generator=g), PE[0]).cuda()
+    d = positional_encoding(torch.nn.functional.normalize(torch.randn(N, 3, generator=g), dim=-1),
+                            PE[1]).cuda()
+    assert x.shape == (N, in_ch) and d.shape == (N, 27)
+    x.requires_grad_(input_grads)
+    d.requires_grad_(input_grads)
+    tfused.reset_launch_counts()
+    errs, _ = parity.compare(params, x, d, cfg.n_blocks)
+    assert tfused.launches == dict.fromkeys(tfused.launches, 0) | {"enc_fwd": 1, "enc_bwd": 1}
+    assert errs["encoded"] and ("input" in errs) == input_grads
+    assert not parity.failures(errs), errs

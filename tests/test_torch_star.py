@@ -83,7 +83,7 @@ def test_render_star_matches_startrax(online):
         jax.tree.map(jnp.asarray, params_np), jnp.asarray(pose))
 
     tcfg = _tcfg(jcfg)
-    tp = convert.params_from_numpy(params_np, requires_grad=True)
+    tp = convert.params_from_numpy(params_np, device="cpu", requires_grad=True)
     tpose = torch.tensor(pose, requires_grad=True)
     u_strat, u_pdf = _jax_uniforms(key, jcfg)
     out_t = tstar.render_star(tp, tcfg, torch.tensor(rays_o), torch.tensor(rays_d),
@@ -128,7 +128,7 @@ def test_render_star_per_ray_pose_matches_startrax(barf):
         jax.value_and_grad(jrender, argnums=(0, 1), has_aux=True))(
         jax.tree.map(jnp.asarray, params_np), jnp.asarray(pose))
 
-    tp = convert.params_from_numpy(params_np, requires_grad=True)
+    tp = convert.params_from_numpy(params_np, device="cpu", requires_grad=True)
     tpose = torch.tensor(pose, requires_grad=True)
     u_strat, u_pdf = _jax_uniforms(key, jcfg)
     out_t = tstar.render_star(tp, _tcfg(jcfg), torch.tensor(rays_o), torch.tensor(rays_d),
@@ -150,7 +150,8 @@ def test_render_star_eval_is_deterministic_and_matches_startrax():
                                                             train=False))(
         jax.tree.map(jnp.asarray, params_np), jnp.asarray(rays_o), jnp.asarray(rays_d),
         jnp.asarray(pose))
-    out_t = tstar.render_star(convert.params_from_numpy(params_np), _tcfg(jcfg),
+    out_t = tstar.render_star(convert.params_from_numpy(params_np, device="cpu"),
+                              _tcfg(jcfg),
                               torch.tensor(rays_o), torch.tensor(rays_d),
                               pose=torch.tensor(pose), train=False)
     for k in ("rgb", "rgb0", "depth", "acc", "weights", "z_std"):

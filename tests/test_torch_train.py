@@ -73,7 +73,8 @@ def test_online_steps_match_startrax(variant):
     poses = np.asarray(jparams["poses"]).copy()
     poses[..., :3] = 0.05 * np.random.default_rng(1).normal(size=poses[..., :3].shape)
     jparams["poses"] = jnp.asarray(poses)
-    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), requires_grad=True)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu",
+                                        requires_grad=True)
 
     opt_kw = dict(lrate_static=LR, lrate_dynamic=LR, lrate_pose=LR, steps_per_epoch=100,
                   decay_milestones=[60], grad_clip=1.0)
@@ -104,7 +105,8 @@ def test_appinit_steps_match_startrax():
     from startrax.models.star import init_star
 
     jparams = init_star(jax.random.PRNGKey(4), jcfg)
-    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), requires_grad=True)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu",
+                                        requires_grad=True)
     jtx = joptim.make_appinit_optimizer(LR, params=jparams)
     jstate = jtx.init(jparams)
     jstep = jloop.make_appinit_train_step(jcfg, jloop.LossConfig(), jtx)
@@ -143,7 +145,7 @@ def test_fused_group_adam_matches_startrax():
     group = jnp.concatenate([jnp.zeros(12, jnp.int32), jnp.ones(5, jnp.int32)])
     jtx = joptim.fused_group_adam(p0, scheds, group, grad_clip=1.0)
     jp, js = jax.tree.map(jnp.asarray, p0), jtx.init(p0)
-    tp = convert.params_from_numpy(p0)
+    tp = convert.params_from_numpy(p0, device="cpu")
     topt = toptim.FusedGroupAdam(
         [tp["a"], tp["b"]], [0, 1],
         [toptim.make_schedule(1e-2, decay_milestones=[2]),
@@ -198,7 +200,7 @@ def _noisy_online_params(jcfg, seed):
     poses[..., :3] = 0.05 * np.random.default_rng(seed + 1).normal(size=poses[..., :3].shape)
     jparams["poses"] = jnp.asarray(poses)
     return jparams, convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
-                                              requires_grad=True)
+                                              device="cpu", requires_grad=True)
 
 
 @pytest.mark.parametrize("variant", ["joint", "freeze_rot_barf"])
@@ -316,7 +318,7 @@ def test_gradient_accumulation_matches_multisteps(kind):
     else:
         jtx = joptim.make_appinit_optimizer(1e-2, params=p0, **kw)
     jp, js = jax.tree.map(jnp.asarray, p0), jtx.init(p0)
-    tp = convert.params_from_numpy(p0, requires_grad=True)
+    tp = convert.params_from_numpy(p0, device="cpu", requires_grad=True)
     if kind == "star":
         topt = toptim.make_fused_star_optimizer(tp, 1e-2, 2e-2, 3e-2, **kw)
     else:
