@@ -20,12 +20,20 @@ Phases, each printing its numbers:
      warp_to_vehicle_frames, without and with the BARF mask (end_barf 12,
      step 5); one 4x256 case at 512,000 points per field; and the static
      8x128 field per-field at both passes' shapes; with times;
+  3c. the backward's further kernels: the weight-gradient GEMMs
+     (wgrad_kernel, one a wide layer) and the ordered partial sums
+     (sum_rows_kernel) against their plain versions within PART_TOL at one
+     online step's shapes, with times and library yardsticks (one torch.mm
+     a layer, one torch.sum a sum); and, checked, not timed, at the per-ray
+     step's stacked fine call (K = 2) and nerf_time's fine call (96-row
+     lin_in);
   4. the main path: StarConfig and LossConfig from
      startrax/configs/carla_star_online_multi.txt, random weights from a
      seed, app-init steps then online training steps on one fixed batch of
      1000 rays x (256 + 256) samples, through the kernels; the fused forward
      and backward launch counts must rise by 2 per app-init step and 6 per
-     online step, the stacked ones not at all, and the loss must be finite
+     online step, the stacked ones not at all, the GEMMs' and sums' by one
+     a wide layer and three a backward call, and the loss must be finite
      and fall; then the median step time of the kernel path and of the
      plain path; then the kernel path's render against the plain path's on
      a small batch;
@@ -39,10 +47,11 @@ Phases, each printing its numbers:
      change on every 4th step only, every frame in the batch get a pose
      grad, the gauge rotation stay identity, the gauge step leave the
      fields' and poses' grads alone, and the launches per step be those the
-     path makes (online: fwd, bwd, stacked_fwd, stacked_bwd +2 each; gauge:
-     fwd +2, bwd +0, stacked +2 each). Then the step times of the kernel and
-     plain paths, the gauge step's, peak memory, and the kernel path's
-     render against the plain path's on a small batch;
+     path makes (online: fwd, bwd, stacked_fwd, stacked_bwd +2 each, and
+     the backward's GEMMs and sums, one a wide layer and three a call;
+     gauge: fwd +2, bwd +0, stacked +2 each, no GEMM or sum). Then the step
+     times of the kernel and plain paths, the gauge step's, peak memory, and
+     the kernel path's render against the plain path's on a small batch;
   5. the time-conditioned baseline (nerf_time) at the full widths of
      startrax/configs/carla_nerf_time.txt (8x256 coarse and fine, 84 + 27
      encoded input columns, 1000 rays x (256 + 256) samples, bf16): (a) the
@@ -50,10 +59,10 @@ Phases, each printing its numbers:
      pass's 256,000 and the fine pass's 512,000 points, on 3,000 ragged
      points with input grads and on the coarse shape with input grads, with
      times; (b) 20 steps on one fixed batch at frame 3 of 16 through the
-     kernels, each adding exactly 2 "enc_fwd" and 2 "enc_bwd" launches and
-     none of another kind, the loss finite and falling, then 5 steps of the
-     plain path; (c) the tiled eval render of a 64x64 frame from get_rays,
-     kernel path against plain path;
+     kernels, each adding exactly 2 "enc_fwd" and 2 "enc_bwd" launches, their
+     GEMMs and sums, and none of another kind, the loss finite and falling,
+     then 5 steps of the plain path; (c) the tiled eval render of a 64x64
+     frame from get_rays, kernel path against plain path;
   6. one JSON line per kernel (with its bound: the larger of its FLOP over
      989 TFLOP/s dense bf16 and its bytes, each input read once and each
      output written once, over 3.35 TB/s), the card's line, and the result
@@ -94,9 +103,15 @@ N_NT = 20
 N_NT_PLAIN = 5
 RENDER_HW = 64
 SRC = "startrax_torch/kernels/csrc/fused_mlp.cu"
-# NVIDIA H100 SXM: dense bf16 tensor-core peak and memory rate (data sheet)
+# NVIDIA H100 SXM: dense bf16 tensor-core peak, float32 peak outside the
+# tensor cores, and memory rate (data sheet)
 PEAK_FLOPS = 989e12
+PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# phase 3c: largest error of wgrad_kernel and sum_rows_kernel against their
+# plain versions, scaled by the plain result's largest magnitude (both sum
+# exact products in f32, in another order)
+PART_TOL = {"wgrad": 1e-4, "sum_rows": 1e-5}
 
 
 def _require(ok, what):
@@ -111,6 +126,20 @@ def _counts(**nonzero):
     from startrax_torch.kernels import fused_mlp as fm
 
     return dict.fromkeys(fm.launches, 0) | nonzero
+
+
+def _part_counts(*fields):
+    """The launches of the backward's GEMMs and sums in one backward call
+    with weight grads for each field config given: one weight-gradient GEMM
+    a wide layer, three sums."""
+    from startrax_torch.kernels import fused_mlp as fm
+
+    return {"wgrad": sum(len(fm.wgrad_shapes(f.width, f.n_blocks, fm.EW)) for f in fields),
+            "sum_rows": 3 * len(fields)}
+
+
+def _deltas(counts, before):
+    return {k: counts[k] - before[k] for k in before}
 
 
 def _card_line():
@@ -191,10 +220,10 @@ def kernel_work(params, x, n_blocks, pe, input_grads, warped):
     return {"fwd": fwd, "bwd": bwd}
 
 
-def bound(flop, nbytes):
-    """(bound ms, "operations" or "bytes"): the larger of flop at the bf16
-    peak and bytes at the memory rate."""
-    t_op, t_b = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flop, nbytes, peak=PEAK_FLOPS):
+    """(bound ms, "operations" or "bytes"): the larger of flop at the peak
+    (bf16 tensor cores unless given) and bytes at the memory rate."""
+    t_op, t_b = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
 
@@ -314,6 +343,113 @@ def phase_kernels(star_cfg, n_rand):
     print("time of the six field calls of one online step: "
           + ", ".join(f"{k} {step_ms[k]:.3f} ms" for k in STEP_TIMES[:4]), flush=True)
     return worst, step_ms
+
+
+def backward_part_cases(star_cfg, n_rand, slice_cfg, slice_rays, nt_cfg, nt_rays):
+    """The backward calls whose GEMMs and sums phase 3c checks, as (name,
+    width, n_blocks, lin_in's rows, fields, points per field, calls per
+    online step): the field calls of one online step, then, checked and not
+    timed, the per-ray step's stacked fine call (K fields a launch) and the
+    nerf_time fine call (lin_in's 96 rows, wgrad_kernel's ragged-K
+    instance)."""
+    from startrax_torch.kernels.fused_mlp import EW, XW
+
+    out = [(name, f.width, f.n_blocks, EW, 1, n, calls)
+           for name, f, n, _, _, calls in kernel_cases(star_cfg, n_rand) if calls]
+    name, f, rays, samples, _, _ = stacked_cases(slice_cfg, slice_rays, star_cfg, n_rand)[1]
+    out.append((f"stacked {name} K={slice_cfg.num_vehicles}", f.width, f.n_blocks, EW,
+                slice_cfg.num_vehicles, rays * samples, 0))
+    name, f, n, _, _ = nerf_time_cases(nt_cfg, nt_rays)[1]
+    out.append((f"pre-encoded {name}", f.width, f.n_blocks, XW, 1, n, 0))
+    return out
+
+
+def phase_backward_parts(cases):
+    """The backward's weight-gradient GEMMs (wgrad_kernel) and partial sums
+    (sum_rows_kernel) of backward_part_cases' calls, each against its plain
+    version on random bf16 X and dY of every wide layer's shapes (the sums on
+    the GEMMs' partials and on random per-CTA partials). For the calls of one
+    online step, their times summed over the step's calls: kernel, plain
+    version and a library yardstick the port never calls: for the GEMMs one
+    torch.mm(X^T, dY) a layer in bf16 (it writes bf16 dW, not the f32 split
+    partials, and applies no relu to X), for the sums one torch.sum over the
+    rows a sum (the per-CTA partials' two levels in one, in another order).
+    Returns {"wgrad": ..., "sum_rows": ...}, each with its worst scaled and
+    absolute error, step times, flop and bytes."""
+    import torch
+
+    from startrax_torch.kernels import fused_mlp as fm
+
+    out = {k: {"err": 0.0, "abs": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0.0,
+               "bytes": 0.0} for k in PART_TOL}
+    g = torch.Generator(device="cuda").manual_seed(30)
+
+    def check(name, got, want):
+        a = float((got - want).abs().max())
+        e = a / float(want.abs().max())
+        print(f"{name}: max abs err {a:.3e}, scaled {e:.3e} (tol {PART_TOL[name]})", flush=True)
+        out[name]["abs"] = max(out[name]["abs"], a)
+        out[name]["err"] = max(out[name]["err"], e)
+        _require(e <= PART_TOL[name], f"{name} kernel vs plain: {e:.3e}")
+
+    for name, width, n_blocks, in_rows, K, n, calls in cases:
+        print(f"backward parts of {name} {width} wide, {n_blocks} blocks, lin_in {in_rows} rows, "
+              f"K={K}, N={n}/field", flush=True)
+        shapes = fm.wgrad_shapes(width, n_blocks, in_rows)
+        splits = fm.wgrad_splits(n)
+        xs = [torch.randn((K, n, k), generator=g, device="cuda").to(torch.bfloat16)
+              for k, _, _ in shapes]
+        dys = [torch.randn((K, n, m), generator=g, device="cuda").to(torch.bfloat16)
+               for _, _, m in shapes]
+        sizes = [k * m for k, _, m in shapes]
+        wpart = torch.empty((K, splits, sum(sizes)), device="cuda")
+        total = fm._partial_offsets(width, n_blocks)["total"]
+        part = torch.randn((K, -(-n // 64), total), generator=g, device="cuda")
+
+        def gemms():
+            start = 0
+            for X, dY, (_, relu, _), size in zip(xs, dys, shapes, sizes):
+                fm.wgrad(X, relu, dY, splits, out=wpart[..., start:start + size])
+                start += size
+
+        def gemms_plain():
+            return [fm.wgrad_plain(X, relu, dY, splits) for X, dY, (_, relu, _) in zip(xs, dys, shapes)]
+
+        def gemms_library():
+            return [torch.mm(X[0].t(), dY[0]) for X, dY in zip(xs, dys)]
+
+        def sums(f):  # the three sums of one backward call
+            mid = f(part, 128)
+            return f(mid, mid.shape[1]), f(wpart, splits)
+
+        def sums_library():
+            return part.sum(1), wpart.sum(1)
+
+        gemms()
+        check("wgrad", wpart, torch.cat(gemms_plain(), -1))
+        for got, want in zip(sums(fm.sum_rows), sums(fm.sum_rows_plain)):
+            check("sum_rows", got, want)
+        if calls:
+            t = {"wgrad": (_cuda_ms(gemms, 3), _cuda_ms(gemms_plain, 3), _cuda_ms(gemms_library, 3)),
+                 "sum_rows": (_cuda_ms(lambda: sums(fm.sum_rows), 3),
+                              _cuda_ms(lambda: sums(fm.sum_rows_plain), 3),
+                              _cuda_ms(sums_library, 3))}
+            mid = -(-part.shape[1] // 128) * total
+            sum_in, sum_out = part.numel() + mid + wpart.numel(), mid + total + sum(sizes)
+            work = {"wgrad": (sum(2.0 * n * s for s in sizes),
+                              sum(2.0 * n * (k + m) for k, _, m in shapes) + 4.0 * splits * sum(sizes)),
+                    "sum_rows": (float(sum_in), 4.0 * (sum_in + sum_out))}
+            for k, (ms, plain_ms, lib_ms) in t.items():
+                for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                               ("flop", work[k][0]), ("bytes", work[k][1])):
+                    out[k][key] += calls * v
+            print(f"time {name} backward parts: wgrad {t['wgrad'][0]:.3f} ms (plain "
+                  f"{t['wgrad'][1]:.3f}, torch.mm {t['wgrad'][2]:.3f}), sum_rows "
+                  f"{t['sum_rows'][0]:.3f} ms (plain {t['sum_rows'][1]:.3f}, torch.sum "
+                  f"{t['sum_rows'][2]:.3f})", flush=True)
+        del xs, dys, wpart, part
+        torch.cuda.empty_cache()
+    return out
 
 
 def stacked_cases(slice_cfg, n_rand, flagship_cfg, flagship_rays):
@@ -464,7 +600,7 @@ def phase_main_path(cfg, star_cfg, loss_cfg):
     app_losses, app_ms = _timed_steps(app_step, N_APPINIT, params["nerf"], batch, generator=gen)
     after_app = dict(fm.launches)
     losses, ms = _timed_steps(step, N_ONLINE, params, batch, epoch=0, generator=gen)
-    counts = dict(fm.launches)
+    counts, parts = dict(fm.launches), dict(fm.part_launches)
     print(f"app-init losses {app_losses}", flush=True)
     print(f"online losses {losses}", flush=True)
     print(f"launches after {N_APPINIT} app-init steps {after_app}, after {N_ONLINE} online "
@@ -474,6 +610,13 @@ def phase_main_path(cfg, star_cfg, loss_cfg):
              f"2 launches of each per-field kernel per app-init step, got {after_app}")
     _require(counts == _counts(fwd=n_all, bwd=n_all),
              f"6 launches of each per-field kernel per online step, none stacked, got {counts}")
+    cases = kernel_cases(star_cfg, cfg.N_rand)
+    app = _part_counts(*(c[1] for c in cases[:2]))
+    online = _part_counts(*(c[1] for c in cases for _ in range(c[5])))
+    want = {k: N_APPINIT * app[k] + N_ONLINE * online[k] for k in app}
+    print(f"backward parts' launches after {N_APPINIT} app-init and {N_ONLINE} online steps {parts}",
+          flush=True)
+    _require(parts == want, f"launches of the backward's GEMMs and sums {want}, got {parts}")
     _require(all(math.isfinite(v) for v in app_losses + losses), "finite losses")
     _require(statistics.mean(losses[-3:]) < statistics.mean(losses[:3]), "the loss falls")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -520,7 +663,7 @@ def phase_main_path(cfg, star_cfg, loss_cfg):
     _require(dict(fm.launches) == after, "the plain path launches no kernel")
     del params, opt, step
     torch.cuda.empty_cache()
-    return counts
+    return counts, parts
 
 
 def _per_ray_online(cfg, star_cfg, seed):
@@ -576,15 +719,21 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
                lambda: nerf["dynamic_fine"]["rgb"]["w"], lambda: params["poses"][..., :3]]
     online_launches = _counts(fwd=2, bwd=2, stacked_fwd=2, stacked_bwd=2)
     gauge_launches = _counts(fwd=2, stacked_fwd=2, stacked_bwd=2)
+    # every backward call of an online step forms weight grads; the gauge
+    # step's fields are detached and warp nothing, so it forms no partials
+    online_parts = _part_counts(star_cfg.static_field(), star_cfg.static_field(True),
+                                star_cfg.dynamic_field(), star_cfg.dynamic_field(True))
+    gauge_parts = _part_counts()
     mini_steps = [0]
 
-    def run(step, n, launches_per_step):
+    def run(step, n, launches_per_step, parts_per_step):
         """n calls of step() -> loss, each timed with CUDA events and held to
-        its launches; an online step also to the accumulation rhythm."""
+        its launches, the backward's GEMMs and sums included; an online step
+        also to the accumulation rhythm."""
         losses, ms = [], []
         for _ in range(n):
             before = [w().detach().clone() for w in watched]
-            counts0 = dict(fm.launches)
+            counts0, parts0 = dict(fm.launches), dict(fm.part_launches)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             loss = step()
@@ -592,9 +741,13 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
             torch.cuda.synchronize()
             ms.append(start.elapsed_time(end))
             losses.append(float(loss))
-            delta = {k: fm.launches[k] - counts0[k] for k in counts0}
+            delta = _deltas(fm.launches, counts0)
             _require(delta == launches_per_step,
                      f"launches per step {launches_per_step}, got {delta}")
+            delta = _deltas(fm.part_launches, parts0)
+            _require(delta == parts_per_step,
+                     f"launches of the backward's GEMMs and sums per step {parts_per_step}, "
+                     f"got {delta}")
             if launches_per_step is online_launches:
                 changed = any(not torch.equal(b, w().detach()) for b, w in zip(before, watched))
                 mini_steps[0] += 1
@@ -605,17 +758,17 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
 
     fm.reset_launch_counts()
     warm_losses, warm_ms = run(lambda: warmup(params, batch, epoch=BARF_STEP, generator=gen)[0],
-                               N_WARMUP, online_launches)
+                               N_WARMUP, online_launches, online_parts)
 
     def joint_step():
         return joint(params, batch, epoch=cfg.end_barf, generator=gen)[0]
 
-    joint_losses, joint_ms = run(joint_step, 1, online_launches)
+    joint_losses, joint_ms = run(joint_step, 1, online_launches, online_parts)
     grad = params["poses"].grad
     for f in sorted(set(batch["frame"].tolist()) - {0}):
         _require(bool((grad[f - 1].abs().amax(-1) > 0).all()),
                  f"frame {f}: a non-zero pose grad for every vehicle after one joint step")
-    more_losses, more_ms = run(joint_step, N_JOINT - 1, online_launches)
+    more_losses, more_ms = run(joint_step, N_JOINT - 1, online_launches, online_parts)
     joint_losses, joint_ms = joint_losses + more_losses, joint_ms + more_ms
 
     grads_before = [(leaf, leaf.grad, leaf.grad.clone()) for leaf in tree_leaves(params)]
@@ -626,7 +779,7 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
     batch0 = dict(batch, frame=torch.zeros_like(batch["frame"]))  # frame-0 rays
     gauge_losses, gauge_ms = run(
         lambda: gauge_step(gauge, nerf, params["poses"], batch0, generator=gen), N_GAUGE,
-        gauge_launches)
+        gauge_launches, gauge_parts)
     counts = dict(fm.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"per-ray path: BARF warmup losses {warm_losses}", flush=True)
@@ -775,14 +928,18 @@ def phase_nerf_time(cfg, star_cfg, loss_cfg):
     params, step = setup(star_cfg)
     fm.reset_launch_counts()
     losses, ms = [], []
+    step_parts = _part_counts(*(c[1] for c in nerf_time_cases(star_cfg, cfg.N_rand)[:2]))
     for _ in range(N_NT):
-        before = dict(fm.launches)
+        before, parts0 = dict(fm.launches), dict(fm.part_launches)
         (loss,), (t,) = _timed_steps(step, 1, params, batch, generator=gen)
         losses.append(loss)
         ms.append(t)
-        delta = {k: fm.launches[k] - before[k] for k in before}
+        delta = _deltas(fm.launches, before)
         _require(delta == _counts(enc_fwd=2, enc_bwd=2),
                  f"2 launches of each pre-encoded kernel per nerf_time step, none other, got {delta}")
+        delta = _deltas(fm.part_launches, parts0)
+        _require(delta == step_parts, f"launches of the backward's GEMMs and sums per nerf_time "
+                 f"step {step_parts}, got {delta}")
     counts = dict(fm.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"nerf_time losses {losses}", flush=True)
@@ -806,11 +963,12 @@ def phase_nerf_time(cfg, star_cfg, loss_cfg):
     c2w[:3, 3] = [0.0, 0.0, 0.5 * (star_cfg.near + star_cfg.far)]
     rays_o, rays_d = get_rays(RENDER_HW, RENDER_HW, K, c2w, device="cuda")
     plain_cfg = dataclasses.replace(star_cfg, use_fused=False)
-    before = dict(fm.launches)
+    before, parts0 = dict(fm.launches), dict(fm.part_launches)
     outs = [render_image_nerf_time(params, c, rays_o, rays_d, FRAME, cfg.num_frames,
                                    device="cuda") for c in (star_cfg, plain_cfg)]
-    delta = {k: fm.launches[k] - before[k] for k in before}
-    _require(delta == _counts(enc_fwd=2), f"the render's launches: 2 pre-encoded forward, got {delta}")
+    delta = _deltas(fm.launches, before) | _deltas(fm.part_launches, parts0)
+    _require(delta == _counts(enc_fwd=2) | _part_counts(),
+             f"the render's launches: 2 pre-encoded forward, got {delta}")
     for k in ("rgb0", "rgb"):
         _require(outs[0][k].shape == (RENDER_HW, RENDER_HW, 3) and np.isfinite(outs[0][k]).all(),
                  f"nerf_time render {k}: finite [{RENDER_HW}, {RENDER_HW}, 3]")
@@ -834,11 +992,13 @@ def phase_nerf_time(cfg, star_cfg, loss_cfg):
     return worst, step_ms, counts
 
 
-def _rows(per_field, stacked, encoded):
+def _rows(per_field, stacked, encoded, bwd_parts, part_launches):
     """The JSON kernel rows. per_field, stacked and encoded are (worst,
     step_ms, launches) of the per-field kernel (the flagship step's times),
     the field-axis kernel (the per-ray step's times) and the pre-encoded
-    mode (the nerf_time step's times)."""
+    mode (the nerf_time step's times); bwd_parts and part_launches are
+    phase 3c's readings and the flagship path's launches of the backward's
+    GEMMs and sums."""
     from startrax_torch.kernels import parity
 
     rows = []
@@ -874,6 +1034,26 @@ def _rows(per_field, stacked, encoded):
                    "when the inputs need a grad",
                    max_input_rel_err=encoded[0]["input"], tol_input=lim["input"],
                    rms_input_err=encoded[0]["input_rms"], tol_input_rms=lim["input_rms"])
+    parts_ms = sum(bwd_parts[k]["ms"] for k in bwd_parts)
+    rows[1].update(note="ms, plain_ms and bound: the whole backward call (per-tile bwd_kernel, "
+                   "then fused_mlp_wgrad and fused_mlp_sum_rows); per_tile_ms subtracts phase "
+                   "3c's times of those two", per_tile_ms=per_field[1]["bwd"] - parts_ms)
+    for name, peak, note in (
+            ("wgrad", PEAK_FLOPS, "dW = X^T dY of every wide layer as split f32 partials: the "
+             "weight-grad accumulation of _bwd_kernel (dw_ref[...] += dw, :520); library_ms is one "
+             "torch.mm(X^T, dY) a layer "
+             "in bf16, which writes bf16 dW, not f32 partials, and applies no relu to X"),
+            ("sum_rows", PEAK_F32, "the ordered sums of the per-CTA and per-split partials: the "
+             "grid-order accumulation of _bwd_kernel; library_ms is one torch.sum over the rows "
+             "a sum (the per-CTA partials' two levels in one call), in another order")):
+        r = bwd_parts[name]
+        bound_ms, bound_by = bound(r["flop"], r["bytes"], peak)
+        rows.append({"name": f"fused_mlp_{name}", "route": "cuda", "source": SRC,
+                     "replaces": "startrax/kernels/fused_mlp.py:343",
+                     "launches": part_launches[name], "max_abs_err": r["abs"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": r["library_ms"],
+                     "max_scaled_err": r["err"], "tol": PART_TOL[name], "note": note})
     return rows
 
 
@@ -923,13 +1103,16 @@ def main():
     nt_cfg, nt_star, nt_loss = load(NT_CONFIG)
 
     worst, step_ms = phase_kernels(star_cfg, cfg.N_rand)
+    bwd_parts = phase_backward_parts(backward_part_cases(star_cfg, cfg.N_rand, slice_star,
+                                                         slice_cfg.N_rand, nt_star, nt_cfg.N_rand))
     worst_s, ms_s, worst_f, _ = phase_field_axis(slice_star_barf, slice_cfg.N_rand, star_cfg,
                                                  cfg.N_rand)
     worst = {k: max(worst[k], worst_f[k]) for k in worst}
-    counts = phase_main_path(cfg, star_cfg, loss_cfg)
+    counts, part_counts = phase_main_path(cfg, star_cfg, loss_cfg)
     counts_s = phase_per_ray_path(slice_cfg, slice_star, slice_star_barf, slice_loss)
     worst_e, ms_e, counts_e = phase_nerf_time(nt_cfg, nt_star, nt_loss)
-    rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s), (worst_e, ms_e, counts_e))
+    rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s), (worst_e, ms_e, counts_e),
+                 bwd_parts, part_counts)
     print(f"total: {time.perf_counter() - t0:.1f} s, the build included", flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

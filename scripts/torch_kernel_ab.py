@@ -24,7 +24,15 @@ checkouts of the repository, for example the parent commit unpacked with
    points per field). The forward runs with grad on, saving its
    activations as a training step does; the backward is one
    ``torch.autograd.grad`` of the parity cotangent. CUDA events over 10
-   launches after one warm-up.
+   launches after one warm-up; and the device time of the same calls, the
+   sum of their kernels' times in a torch.profiler trace of 3 launches
+   (``fwd_device``, ``bwd_device``), which host gaps between launches do
+   not reach: a backward whose kernels finish before the host has queued
+   the next ones reads the host's pace on the events, not the card's;
+4. in the same processes, chip_smoke's three training steps (``step_times``:
+   shared-pose, per-ray joint, nerf_time), each the median of event-timed
+   steps and one step's device time, so that a step's change is read
+   against the parent on one machine, its host included.
 
 It prints one line per process and, with ``--json PATH``, writes every
 reading to PATH. Needs one CUDA card and nvcc.
@@ -41,6 +49,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join("startrax_torch", "kernels", "csrc", "fused_mlp.cu")
 CUBIN_DIR = os.path.join(HERE, "runs", "ptxas")
 REPS = 10
+STEPS, STEP_WARMUP = 14, 4
 ORDER = ("parent", "change", "change", "parent") * 2
 
 
@@ -112,6 +121,21 @@ def sass(cubin):
     return funcs
 
 
+def device_ms(fn, reps=3):
+    """Mean device time of fn's kernels, from a torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return us / 1e3 / reps
+
+
 def once(root):
     """Times one tree's kernels (run in a process of its own)."""
     import importlib.util
@@ -125,13 +149,9 @@ def once(root):
     from startrax_torch.kernels import fused_mlp as fm, parity
     from startrax_torch.utils import config as port_config
 
-    if hasattr(port_config, "parse_config_file"):
-        Config, parse = port_config.Config, port_config.parse_config_file
-    else:  # a tree whose port read the configs through the JAX package's parser
-        from startrax.utils.config import Config, parse_config_file as parse
-
     def star(name):
-        cfg = Config(**parse(os.path.join(root, "startrax", "configs", name)))
+        cfg = port_config.Config(**port_config.parse_config_file(
+            os.path.join(root, "startrax", "configs", name)))
         return cfg, port_config.star_config_from(cfg)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -164,10 +184,58 @@ def once(root):
         def bwd():
             return torch.autograd.grad(run["out_k"], run["leaves"], run["cot"], retain_graph=True)
 
-        times[label] = {"fwd": cs._cuda_ms(fwd, REPS), "bwd": cs._cuda_ms(bwd, REPS)}
+        times[label] = {"fwd": cs._cuda_ms(fwd, REPS), "bwd": cs._cuda_ms(bwd, REPS),
+                        "fwd_device": device_ms(fwd), "bwd_device": device_ms(bwd)}
         del run
         torch.cuda.empty_cache()
-    print(json.dumps({"root": root, "times": times}), flush=True)
+    nt_cfg, nt_star = star("carla_nerf_time.txt")
+    steps = step_times(cs, (flag_cfg, flag), (slice_cfg, slice_star), (nt_cfg, nt_star))
+    print(json.dumps({"root": root, "times": times, "steps": steps}), flush=True)
+
+
+def step_times(cs, flag, per_ray, nerf_time):
+    """chip_smoke's three training steps on their fixed batches, each
+    (Config, StarConfig): the shared-pose online step (phase 4), the per-ray
+    joint step (phase 4b, accumulation as configured) and the nerf_time step
+    (phase 5). For each, the median of STEPS event-timed steps after
+    STEP_WARMUP, and the device time of one more step (device_ms), whose gap
+    to the median is host time the card waits for."""
+    import torch
+
+    from startrax_torch.models.nerf_time import init_nerf_time
+    from startrax_torch.train import loop, optim
+    from startrax_torch.utils.config import loss_config_from
+    from startrax_torch.utils.tree import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+
+    def timed(name, step, *args, **kw):
+        _, ms = cs._timed_steps(step, STEPS, *args, **kw)
+        out[name] = {"step": statistics.median(ms[STEP_WARMUP:]),
+                     "step_device": device_ms(lambda: step(*args, **kw), 1)}
+        torch.cuda.empty_cache()
+
+    cfg, star = flag
+    params, _, step = cs._online(star, loss_config_from(cfg), cfg, seed=0)
+    timed("shared-pose step", step, params, cs._batch(cfg.N_rand), epoch=0, generator=gen)
+    cfg, star = per_ray
+    params, opt = cs._per_ray_online(cfg, star, seed=4)
+    timed("per-ray joint step", loop.make_online_train_step(star, loss_config_from(cfg), opt),
+          params, cs._batch(cfg.N_rand, cfg.num_frames, star.near, star.far), epoch=cfg.end_barf,
+          generator=gen)
+    cfg, star = nerf_time
+    params = init_nerf_time(star, generator=torch.Generator(device="cuda").manual_seed(5),
+                            device="cuda")
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    opt = optim.make_appinit_optimizer(params, cfg.lrate, steps_per_epoch=cfg.steps_per_epoch,
+                                       decay_rate=cfg.lrate_decay_rate, decay_epochs=cfg.lrate_decay,
+                                       decay_milestones=cfg.lrate_decay_steps)
+    timed("nerf_time step", loop.make_nerf_time_train_step(star, loss_config_from(cfg), opt,
+                                                            cfg.num_frames),
+          params, cs._batch(cfg.N_rand), generator=gen)
+    return out
 
 
 def main():
@@ -210,16 +278,21 @@ def main():
         if out.returncode != 0:
             raise RuntimeError(f"{tree} run failed:\n{out.stdout}\n{out.stderr}")
         line = json.loads(out.stdout.strip().splitlines()[-1])
-        runs.append({"tree": tree, "times": line["times"]})
-        print(f"{tree}: " + "; ".join(f"{k} fwd {v['fwd']:.3f} bwd {v['bwd']:.3f} ms"
-                                      for k, v in line["times"].items()), flush=True)
+        runs.append({"tree": tree, "times": line["times"], "steps": line["steps"]})
+        print(f"{tree}: " + "; ".join(f"{k} fwd {v['fwd']:.3f} bwd {v['bwd']:.3f} ms (device "
+                                      f"{v['fwd_device']:.3f}, {v['bwd_device']:.3f})"
+                                      for k, v in line["times"].items())
+              + "; " + "; ".join(f"{k} {v['step']:.3f} ms (device {v['step_device']:.3f})"
+                                 for k, v in line["steps"].items()), flush=True)
     report["runs"] = runs
-    for label in runs[0]["times"]:
-        for side in ("fwd", "bwd"):
-            p = statistics.mean(r["times"][label][side] for r in runs if r["tree"] == "parent")
-            c = statistics.mean(r["times"][label][side] for r in runs if r["tree"] == "change")
-            print(f"{label} {side}: parent {p:.3f} ms, change {c:.3f} ms ({100 * (c / p - 1):+.2f}%)",
-                  flush=True)
+    for key, sides in (("times", ("fwd", "bwd", "fwd_device", "bwd_device")),
+                       ("steps", ("step", "step_device"))):
+        for label in runs[0][key]:
+            for side in sides:
+                p, c = (statistics.mean(r[key][label][side] for r in runs if r["tree"] == tree)
+                        for tree in ("parent", "change"))
+                print(f"{label} {side}: parent {p:.3f} ms, change {c:.3f} ms "
+                      f"({100 * (c / p - 1):+.2f}%)", flush=True)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)
         with open(json_path, "w") as fp:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Planted faults in the fused-MLP kernels' pre-encoded mode, read through
-startrax_torch.kernels.parity: the readings that set ``parity.ENC_LIMITS``.
+"""Planted faults in the fused-MLP kernels' pre-encoded mode and in their
+GEMM core's weight ring, read through startrax_torch.kernels.parity: the
+readings that set ``parity.ENC_LIMITS``.
 
     python3 scripts/torch_planted_faults.py [--json PATH]
 
@@ -12,13 +13,15 @@ library's nvcc flags. Each build is then loaded, in a process of its own,
 in place of the library and run through ``parity.compare`` on the
 pre-encoded cases of chip_smoke.py phase 5 (carla_nerf_time.txt's 8x256
 fields) and on 3,000 ragged points at widths 128 and 256 with in_ch 84 and
-63, with and without input grads. For every build the script prints the
+63, with and without input grads (the ring's faults break every mode
+alike, so the same cases read them). For every build the script prints the
 largest reading of each measure and the cases that fail ``ENC_LIMITS``
-and, with ``--json PATH``, writes them to PATH. Needs one CUDA card and
-nvcc.
+and, with ``--json PATH``, writes them to PATH. A build whose run fails
+(the ring's cursor guard traps a cursor that runs past the stream) is
+reported with its error: caught before parity reads it. The copies are made
+and loaded by ``torch_cu_copies.py``. Needs one CUDA card and nvcc.
 """
 
-import ctypes
 import importlib.util
 import json
 import os
@@ -26,26 +29,36 @@ import subprocess
 import sys
 import tempfile
 
+import torch_cu_copies as cu_copies
+
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-# name -> (text to find, its replacement, how many times it occurs)
+# name -> [(text to find, its replacement, how many times it occurs), ...]
 FAULTS = {
-    "lin_in reads 64 rows (drops columns 64-83)": (
-        "gemm1(as, LDA, w.w_in, in_rows<ENC>(), W, bs, hs, LDF);",
-        "gemm1(as, LDA, w.w_in, EW, W, bs, hs, LDF);", 1),
-    "pad columns left unzeroed": (
-        "    if (skip_tail && p >= n) continue;",
-        "    if ((skip_tail && p >= n) || j >= cols) continue;", 1),
-    "dd_emb left at zero": (
-        "gr.dd[(row0 + t) * in.fd + c] = dhs[t * LDF + c];",
-        "gr.dd[(row0 + t) * in.fd + c] = 0.f;", 1),
-    "xe written at stride 64": (
-        "stage_encoded(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * XW, XW, true);",
-        "stage_encoded(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * EW, EW, true);", 1),
-    "the last ragged tile runs past n": (
-        "const int nrow = (int)min((long)T, (long)in.n - row0);",
-        "const int nrow = T;", 2),
+    "lin_in reads 64 rows (drops columns 64-83)": [
+        ("gemm1(as, LDA, in_rows<ENC>(), W, feed, hs, LDF);",
+         "gemm1(as, LDA, EW, W, feed, hs, LDF);", 1),
+        ("ring_add(ring, w.w_in, in_rows<ENC>(), W);", "ring_add(ring, w.w_in, EW, W);", 1)],
+    "pad columns left unzeroed": [
+        ("    if (skip_tail && p >= n) continue;",
+         "    if ((skip_tail && p >= n) || j >= cols) continue;", 1)],
+    "dd_emb left at zero": [
+        ("gr.dd[(row0 + t) * in.fd + c] = dhs[t * LDF + c];",
+         "gr.dd[(row0 + t) * in.fd + c] = 0.f;", 1)],
+    "xe written at stride 64": [
+        ("stage_encoded(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * XW, XW, true);",
+         "stage_encoded(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * EW, EW, true);", 1)],
+    "the last ragged tile runs past n": [
+        ("const int nrow = (int)min((long)T, (long)in.n - row0);",
+         "const int nrow = T;", 2)],
+    "ring: the filler skips the empty wait and refills a chunk's slot as it starts the chunk": [
+        ("      mbar_wait(&r->full[slot], (g / NSLOT) & 1);\n",
+         "      mbar_wait(&r->full[slot], (g / NSLOT) & 1);\n"
+         "      if (threadIdx.x == 0 && g + NSLOT < r->total) ring_issue(r);\n      __syncwarp();\n", 1),
+        ("    mbar_wait(&r->empty[slot], (g / NSLOT) & 1);\n    ring_issue(r);", "", 1)],
+    "ring: the stream cursor skips one chunk at each GEMM boundary": [
+        ("    r->c = 0;\n    ++r->m;", "    r->c = 1;\n    ++r->m;", 1)],
 }
 MEASURES = ("fwd", "fwd_rms", "w", "input", "input_rms")
 
@@ -53,30 +66,12 @@ MEASURES = ("fwd", "fwd_rms", "w", "input", "input_rms")
 def build_all(src_path, out_dir):
     """The sound source and every faulty copy, built in out_dir -> {name:
     shared library}."""
-    from startrax_torch.kernels.build import NVCC_FLAGS, _nvcc
-
     with open(src_path) as fp:
         src = fp.read()
     texts = {"sound": src}
-    for name, (old, new, count) in FAULTS.items():
-        if src.count(old) != count:
-            raise RuntimeError(f"fault {name!r}: {old!r} occurs {src.count(old)} times")
-        texts[name] = src.replace(old, new)
-    procs = {}
-    for i, (name, text) in enumerate(texts.items()):
-        cu, so = os.path.join(out_dir, f"f{i}.cu"), os.path.join(out_dir, f"libf{i}.so")
-        with open(cu, "w") as fp:
-            fp.write(text)
-        procs[name] = (so, subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", so, cu],
-                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                            text=True))
-    libs = {}
-    for name, (so, p) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name!r}:\n{out}")
-        libs[name] = so
-    return libs
+    texts.update((name, cu_copies.substitute(src, edits, f"fault {name!r}"))
+                 for name, edits in FAULTS.items())
+    return cu_copies.build(texts, out_dir)
 
 
 def cases(cs):
@@ -123,12 +118,10 @@ def one(name, so):
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from startrax_torch.kernels import build, fused_mlp as fm, parity
+    from startrax_torch.kernels import parity
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    build._libs["fused_mlp"] = ctypes.CDLL(so)
-    fm._lib_handle = None
-    fm._partial_offsets.cache_clear()
+    cu_copies.load_in_place(so)
     all_cases = cases(cs)
     worst, failing = dict.fromkeys(MEASURES, 0.0), []
     for label, inp in all_cases:

@@ -48,14 +48,23 @@
 // What bounds it on the card: the fields do ~1.23e12 multiply-adds per
 // training step forward (about 3x that with the backward) against ~6 KB of
 // saved bf16 activations a point, so the arithmetic intensity is far above the
-// card's balance point and bytes are not the bound. The measured rate is
-// about 5% of the bf16 tensor-core peak; the working hypothesis, not yet
-// backed by a trace, is latency at the weight-chunk barriers with one CTA of
-// 8 warps per SM. This first version uses warp-level bf16 mma (WMMA 16x16x16)
-// from shared memory, a tile of T = 64 points per CTA, and one CTA per SM
-// (~210 KB of shared memory); weight chunks are double-buffered with
-// cp.async so that a chunk's copy overlaps the previous chunk's matmuls. It
-// is not tuned further (no wgmma, no TMA).
+// card's balance point and device-memory bytes are not the bound. A tile of
+// T = 64 points per CTA, one CTA of 8 warps per SM (~227 KB of shared
+// memory), keeps its activations in shared memory and streams every layer's
+// weights from L2 in KC-row chunks: 16 KB a chunk at W = 256, about 1.5 MB of
+// weights a tile for 8x256. The GEMM core (tile_gemm) multiplies with wgmma:
+// the two warpgroups split the output columns, A comes from the bf16 tile by
+// ldmatrix, B straight from a slot of a three-slot weight ring that thread 0
+// fills with one bulk copy (cp.async.bulk, no tensor map) per chunk, from a
+// copy the host packed in the order the wgmma descriptor reads. The ring
+// runs ahead across GEMMs: the sequence of chunks a kernel consumes is fixed
+// at its start (Ring), so the next layer's first chunks load while an
+// epilogue runs. Consumers wait on a slot's "full" mbarrier; each warp
+// releases the slot on its "empty" mbarrier once wgmma.wait_group has retired
+// the chunk. With the matrix loop at wgmma speed, what bounds a CTA is the L2
+// rate of the weight chunks (all SMs pull every chunk of every layer, per 64
+// points) and the elementwise epilogues between the GEMMs, which run on the
+// f32 tile in shared memory (PERF.md has the stamps).
 //
 // Design against what differs from the TPU:
 // - Weights do not fit in shared memory (1.5 MB bf16 for 8x256). The point
@@ -90,7 +99,7 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int T = 64;      // points per CTA
-constexpr int NT = 256;    // threads per CTA (8 warps: 4 row strips x 2 column groups)
+constexpr int NT = 256;    // threads per CTA (two warpgroups of 4 warps: 16-row strips, half the columns each)
 constexpr int KC = 32;     // weight rows streamed through shared memory per chunk
 constexpr int EW = 64;     // padded encoding width (63 point columns, 27 direction columns)
 constexpr int XW = 3 * KC; // padded width of pre-encoded point features (nerf_time: 84 columns)
@@ -292,84 +301,291 @@ __device__ __forceinline__ float pe_dval(const float* v, int j, int F, int* dim)
   return rem < 3 ? cosf(val) * s : -sinf(val) * s;
 }
 
-struct Seg { const bf16* a; int lda; const bf16* b; int k; };
+// ---------------------------------------------------------------------------
+// The GEMM core: wgmma on a three-slot weight ring.
+//
+// Every weight matrix a kernel multiplies by is a B [k][nout] (the forward's
+// [in, out], the backward's transposes) that the host packs chunk by chunk:
+// chunk c holds rows [KC c, KC c + KC) as wgmma's K-major core matrices of
+// 8 columns x 8 rows (128 contiguous bytes: column n % 8 at 16 bytes, row
+// k % 8 at 2), core (n / 8, (k % KC) / 8) at (n / 8) SBO + ((k % KC) / 8) LBO
+// bytes (fused_mlp.py, pack_offset). So one chunk is one contiguous run
+// of KC * nout * 2 bytes, which one bulk copy moves into a ring slot.
+//
+// The chunks a kernel consumes form a fixed sequence, known at its start:
+// the stream (Ring::mats). Thread 0 starts the first NSLOT copies at the
+// kernel's start; after thread 0 has consumed chunk g, it waits for every
+// warp to release g's slot ("empty") and starts chunk g + NSLOT there, which
+// may belong to the next GEMM. So the next layer's first chunks load while
+// the current epilogue runs. Consumers wait on a slot's "full" barrier.
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+constexpr int NSLOT = 3;              // ring slots of KC x W bf16
+constexpr int LBO = 128;              // bytes from a core matrix of B to the next along K
+constexpr int SBO = (KC / 8) * 128;   // and along N (fused_mlp.py, DESC_LBO / DESC_SBO)
+constexpr int MAXM = 2 * MAXB + 6;    // most matrices in a kernel's stream
+
+struct Mat { const bf16* p; int chunks, bytes; };  // bytes: one chunk's
+
+// The ring's state in shared memory. The stream and the cursor are thread
+// 0's; the barriers everyone's.
+struct Ring {
+  unsigned long long full[NSLOT], empty[NSLOT];
+  Mat mats[MAXM];
+  bf16* slots;            // NSLOT slots of slot_elems
+  int slot_elems, n_mats;
+  int m, c;               // the next chunk to copy: chunk c of mats[m]
+  unsigned total, head;   // chunks in the stream; chunks copied so far
+};
+
+// One thread's view of the ring: the ring, and the chunks it has consumed.
+struct Feed { Ring* r; unsigned g; };
+
+struct Seg { const bf16* a; int lda; int k; };  // A [T][k] (bf16, shared), row stride lda
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// Starts copying rows [k0, k0 + KC) of B [k][nout] into buf (row stride nout + 8).
-__device__ __forceinline__ void load_chunk(const bf16* b, int k0, int nout, bf16* buf) {
-  const int vec_per_row = nout >> 3, ldb = nout + 8;
-  for (int i = threadIdx.x; i < KC * vec_per_row; i += NT) {
-    const int r = i / vec_per_row, cc = (i - r * vec_per_row) << 3;
-    cp_async16(buf + r * ldb + cc, b + (size_t)(k0 + r) * nout + cc);
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// Waits for the completion of the barrier's phase of this parity. A ring
+// that never fills traps after about ten seconds rather than hang the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(a, parity))
+    if (clock64() - t0 > (1LL << 34)) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Starts copying chunk `head` of the stream into its slot (thread 0). A cursor
+// that has lost count and run past the stream traps.
+__device__ void ring_issue(Ring* r) {
+  if (r->m >= r->n_mats) __trap();
+  const Mat mt = r->mats[r->m];
+  const int slot = r->head % NSLOT;
+  const uint32_t bar = smem_u32(&r->full[slot]);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(mt.bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(r->slots + slot * r->slot_elems)), "l"(mt.p + (size_t)r->c * (mt.bytes / 2)),
+        "r"(mt.bytes), "r"(bar)
+      : "memory");
+  ++r->head;
+  if (++r->c == mt.chunks) {
+    r->c = 0;
+    ++r->m;
   }
-  cp_commit();
+}
+
+// Appends B [k][nout] (packed) to the stream (thread 0, at the kernel's start).
+__device__ __forceinline__ void ring_add(Ring* r, const bf16* p, int k, int nout) {
+  r->mats[r->n_mats++] = {p, k / KC, KC * nout * (int)sizeof(bf16)};
+  r->total += k / KC;
+}
+
+__device__ __forceinline__ void ring_init(Ring* r, bf16* slots, int slot_elems) {
+  for (int s = 0; s < NSLOT; ++s) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&r->full[s])) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(&r->empty[s])), "n"(NT / 32)
+                 : "memory");
+  }
+  r->slots = slots; r->slot_elems = slot_elems;
+  r->n_mats = 0; r->m = 0; r->c = 0; r->total = 0; r->head = 0;
+}
+
+// After the stream is complete (thread 0): the first NSLOT copies.
+__device__ __forceinline__ void ring_start(Ring* r) {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  while (r->head < min(r->total, (unsigned)NSLOT)) ring_issue(r);
+}
+
+// At the kernel's end (thread 0): waits for any copy still in flight, so
+// that none lands in the shared memory of a finished CTA.
+__device__ __forceinline__ void ring_drain(Ring* r, unsigned consumed) {
+  for (unsigned h = consumed; h < r->head; ++h) mbar_wait(&r->full[h % NSLOT], (h / NSLOT) & 1);
+}
+
+// wgmma m64nNk16, D (f32, registers) += A (bf16, registers) B (bf16, shared
+// memory through desc), for the N that the GEMMs use.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Shared-memory descriptor of B at p: K-major core matrices without swizzle,
+// the next core along K at LBO bytes, along N at SBO bytes.
+__device__ __forceinline__ uint64_t b_desc(const bf16* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(LBO >> 4) << 16) |
+         ((uint64_t)(SBO >> 4) << 32);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float* acc) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// Releases chunk g's slot: each warp arrives on its "empty" barrier once its
+// wgmma.wait_group has retired the chunk; thread 0 waits for all of them and
+// refills the slot with chunk g + NSLOT.
+__device__ __forceinline__ void release(Ring* r, unsigned g) {
+  const int slot = g % NSLOT;
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&r->empty[slot]);
+  if (threadIdx.x == 0 && g + NSLOT < r->total) {
+    mbar_wait(&r->empty[slot], (g / NSLOT) & 1);
+    ring_issue(r);
+  }
+  __syncwarp();
+}
+
+// C [T][2N] = the segments' A @ B, each warpgroup computing the columns
+// [N wg, N wg + N) with the tile's 64 rows (warp w % 4 holds rows 16 (w % 4)
+// .. + 15 of A and of D). Per chunk: A from ldmatrix, the slot's "full"
+// wait, two wgmma k16 steps, wait_group 0, then the slot's release. (Keeping
+// one chunk's wgmma in flight while the next is issued measured slower: the
+// second A register set pushed the backward to 255 registers and spills.)
+template <int N>
+__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, float* c, int ldc) {
+  Ring* r = f.r;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wr = warp & 3;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  unsigned g = f.g;
+  for (int s = 0; s < nseg; ++s) {
+    const Seg sg = segs[s];
+    const bf16* arow = sg.a + (16 * wr + (lane & 15)) * sg.lda + (lane >> 4) * 8;
+    for (int k0 = 0; k0 < sg.k; k0 += KC, ++g) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(a[h][0]), "=r"(a[h][1]), "=r"(a[h][2]), "=r"(a[h][3])
+                     : "r"(smem_u32(arow + k0 + 16 * h)));
+      const int slot = g % NSLOT;
+      mbar_wait(&r->full[slot], (g / NSLOT) & 1);
+      // this warpgroup's N / 8 cores along N; the second k16 step 2 cores along K on
+      const bf16* b = r->slots + slot * r->slot_elems + wg * (N / 8) * (SBO / 2);
+      fence_acc<N>(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_rs<N>(acc, a[0], b_desc(b));
+      wgmma_rs<N>(acc, a[1], b_desc(b + 2 * (LBO / 2)));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc<N>(acc);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)  // the A registers live until the wgmma retired
+        asm volatile("" ::"r"(a[h][0]), "r"(a[h][1]), "r"(a[h][2]), "r"(a[h][3]) : "memory");
+      release(r, g);
+    }
+  }
+  f.g = g;
+  const int row = 16 * wr + (lane >> 2), col = wg * N + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    *reinterpret_cast<float2*>(c + row * ldc + col + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(c + (row + 8) * ldc + col + 8 * j) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
 }
 
 // C[T][nout] (f32, shared) = sum over segments of A[T][k] (bf16, shared) @
-// B[k][nout] (bf16, global, row-major). B streams through two KC-row
-// buffers in `bs` (2 * KC * (nout + 8) elements): the copy of the next chunk
-// (cp.async) overlaps the matmuls on the current one. Warp w owns row strip
-// w % 4 and the column tiles w / 4 + 2j. Requires nout % 32 == 0,
-// nout <= 256, k % KC == 0. Ends synchronised.
-__device__ void tile_gemm(const Seg* segs, int nseg, int nout, bf16* bs, float* c, int ldc) {
-  const int warp = threadIdx.x >> 5;
-  const int rt = warp & 3, cg = warp >> 2;
-  const int nct = nout >> 5;
-  const int ldb = nout + 8;
-  bf16* bufs[2] = {bs, bs + KC * ldb};
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.f);
-  int total = 0;
-  for (int s = 0; s < nseg; ++s) total += segs[s].k / KC;
-  load_chunk(segs[0].b, 0, nout, bufs[0]);
-  int s = 0, k0 = 0;   // segment and row of the chunk being multiplied
-  for (int ci = 0; ci < total; ++ci) {
-    const Seg sg = segs[s];
-    if (ci + 1 < total) {  // start the next chunk, then wait for this one
-      const bool next_seg = k0 + KC >= sg.k;
-      load_chunk(next_seg ? segs[s + 1].b : sg.b, next_seg ? 0 : k0 + KC, nout, bufs[(ci + 1) & 1]);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* buf = bufs[ci & 1];
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, sg.a + rt * 16 * sg.lda + k0 + kk, sg.lda);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j < nct) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, buf + kk * ldb + (cg + 2 * j) * 16, ldb);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-    }
-    __syncthreads();  // this buffer is refilled two chunks from now
-    k0 += KC;
-    if (k0 >= sg.k) { ++s; k0 = 0; }
+// the stream's next sum(k) / KC chunks, B [k][nout]. All NT threads call it
+// with the same arguments; nout is 256, 128, 96 or 64 and each k a multiple
+// of KC. Starts and ends synchronised.
+__device__ void tile_gemm(const Seg* segs, int nseg, int nout, Feed& f, float* c, int ldc) {
+  __syncthreads();  // A written, C free
+  switch (nout) {
+    case 256: gemm_core<128>(segs, nseg, f, c, ldc); break;
+    case 128: gemm_core<64>(segs, nseg, f, c, ldc); break;
+    case 96: gemm_core<48>(segs, nseg, f, c, ldc); break;
+    default: gemm_core<32>(segs, nseg, f, c, ldc); break;
   }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (j < nct)
-      wmma::store_matrix_sync(c + rt * 16 * ldc + (cg + 2 * j) * 16, acc[j], ldc, wmma::mem_row_major);
   __syncthreads();
 }
 
-__device__ __forceinline__ void gemm1(const bf16* a, int lda, const bf16* b, int k, int nout,
-                                      bf16* bs, float* c, int ldc) {
-  Seg s = {a, lda, b, k};
-  tile_gemm(&s, 1, nout, bs, c, ldc);
+__device__ __forceinline__ void gemm1(const bf16* a, int lda, int k, int nout, Feed& f, float* c,
+                                      int ldc) {
+  Seg s = {a, lda, k};
+  tile_gemm(&s, 1, nout, f, c, ldc);
 }
 
 // Sum of rows [0, T) of column c of buf, for c < ncols, into out[c].
@@ -403,14 +619,16 @@ __device__ __forceinline__ void pe_bwd(const float* g, int ld, const float* v, c
   }
 }
 
+// Shared memory of the kernels at width W; every region's size is a
+// multiple of 16 bytes, so the Ring at the end is aligned.
 size_t fwd_smem(int W) {
-  return sizeof(float) * 2 * T * (W + 4) + sizeof(bf16) * (T * (W + 8) + T * LDE + 2 * KC * (W + 8)) +
-         sizeof(float) * (T * 6 + T);
+  return sizeof(float) * 2 * T * (W + 4) + sizeof(bf16) * (T * (W + 8) + T * LDE + NSLOT * KC * W) +
+         sizeof(float) * (T * 6 + T) + sizeof(Ring);
 }
 
 size_t bwd_smem(int W) {
-  return sizeof(float) * 2 * T * (W + 4) + sizeof(bf16) * (T * (W + 8) + 2 * KC * (W + 8)) +
-         sizeof(float) * (T * 6 * 2 + T * 4 + T * 3 + T * 12);
+  return sizeof(float) * 2 * T * (W + 4) + sizeof(bf16) * (T * (W + 8) + NSLOT * KC * W) +
+         sizeof(float) * (T * 6 * 2 + T * 4 + T * 3 + T * 12) + sizeof(Ring);
 }
 
 // Loads a point tile's raw and warped inputs: raw[t*6 + 0..5] = (x, d),
@@ -523,12 +741,27 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
   float* cs = hs + T * LDF;                              // [T][LDF] matmul result
   bf16* as = reinterpret_cast<bf16*>(cs + T * LDF);      // [T][LDA] bf16 operand
   bf16* es = as + T * LDA;                               // [T][LDE] direction encoding
-  bf16* bs = es + T * LDE;                               // [2][KC][LDA] weight chunks
-  float* ps = reinterpret_cast<float*>(bs + 2 * KC * LDA);  // [T][6] warped x, d
+  bf16* bs = es + T * LDE;                               // [NSLOT][KC * W] weight ring
+  float* ps = reinterpret_cast<float*>(bs + NSLOT * KC * W);  // [T][6] warped x, d
   float* al = ps + T * 6;                                // [T] alpha
+  Ring* ring = reinterpret_cast<Ring*>(al + T);
   const int tid = threadIdx.x;
   const long row0 = (long)blockIdx.x * T;
   const int nrow = (int)min((long)T, (long)in.n - row0);
+  if (tid == 0) {  // the stream, in the order of the GEMMs below
+    ring_init(ring, bs, KC * W);
+    ring_add(ring, w.w_in, in_rows<ENC>(), W);
+    for (int b = 0; b < in.n_blocks; ++b) {
+      ring_add(ring, net.w0[b] + f.ww, W, W);
+      ring_add(ring, net.w1[b] + f.ww, W, W);
+    }
+    ring_add(ring, w.w_out, W, W);
+    ring_add(ring, w.w_f, W, W);
+    ring_add(ring, w.wv_top, W, W2);
+    ring_add(ring, w.wv_bot, EW, W2);
+    ring_start(ring);
+  }
+  Feed feed = {ring, 0};
 
   if constexpr (ENC) {
     stage_encoded(in.x, in.fx, XW, in.n, row0, as, LDA, false);
@@ -550,7 +783,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
   // the tile (16-byte stores of the saved bf16 activations), so a pass may
   // read what the previous W-wide pass wrote without a barrier.
   const int V = W / 8, V2 = W2 / 8;
-  gemm1(as, LDA, w.w_in, in_rows<ENC>(), W, bs, hs, LDF);
+  gemm1(as, LDA, in_rows<ENC>(), W, feed, hs, LDF);
   for (int b = 0; b < in.n_blocks; ++b) {
     for (int i = tid; i < T * V; i += NT) {
       const int t = i / V, c = (i - t * V) * 8;
@@ -564,7 +797,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
       relu8(h, r);
       st_bf8(r, as + t * LDA + c, nullptr);
     }
-    gemm1(as, LDA, net.w0[b] + f.ww, W, W, bs, cs, LDF);
+    gemm1(as, LDA, W, W, feed, cs, LDF);
     for (int i = tid; i < T * V; i += NT) {
       const int t = i / V, c = (i - t * V) * 8;
       float v[8], r[8];
@@ -574,7 +807,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
       relu8(v, r);
       st_bf8(r, as + t * LDA + c, nullptr);
     }
-    gemm1(as, LDA, net.w1[b] + f.ww, W, W, bs, cs, LDF);
+    gemm1(as, LDA, W, W, feed, cs, LDF);
     for (int i = tid; i < T * V; i += NT) {  // h = h + (fc1 + b1)
       const int t = i / V, c = (i - t * V) * 8;
       float v[8], h[8];
@@ -594,7 +827,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
     relu8(h, r);
     st_bf8(r, as + t * LDA + c, nullptr);
   }
-  gemm1(as, LDA, w.w_out, W, W, bs, cs, LDF);
+  gemm1(as, LDA, W, W, feed, cs, LDF);
   for (int i = tid; i < T * V; i += NT) {
     const int t = i / V, c = (i - t * V) * 8;
     float v[8];
@@ -613,7 +846,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
       if (lane == 0) al[t] = s + w.b_a[0];
     }
   }
-  gemm1(as, LDA, w.w_f, W, W, bs, cs, LDF);
+  gemm1(as, LDA, W, W, feed, cs, LDF);
   for (int i = tid; i < T * V; i += NT) {
     const int t = i / V, c = (i - t * V) * 8;
     float v[8];
@@ -622,8 +855,8 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
     st_bf8(v, as + t * LDA + c, t < nrow ? act.feat + (row0 + t) * W + c : nullptr);
   }
   {
-    Seg s[2] = {{as, LDA, w.wv_top, W}, {es, LDE, w.wv_bot, EW}};
-    tile_gemm(s, 2, W2, bs, cs, LDF);
+    Seg s[2] = {{as, LDA, W}, {es, LDE, EW}};
+    tile_gemm(s, 2, W2, feed, cs, LDF);
   }
   for (int i = tid; i < T * V2; i += NT) {
     const int t = i / V2, c = (i - t * V2) * 8;
@@ -644,6 +877,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
       if (j == 0) out[(row0 + t) * 4] = al[t];
     }
   }
+  if (tid == 0) ring_drain(ring, feed.g);
 }
 
 template <bool STACKED, bool ENC>  // as fwd_kernel
@@ -667,18 +901,33 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   float* dhs = reinterpret_cast<float*>(smem);           // [T][LDF] residual grad dh (f32)
   float* cs = dhs + T * LDF;                             // [T][LDF] matmul result
   bf16* as = reinterpret_cast<bf16*>(cs + T * LDF);      // [T][LDA] bf16 operand
-  bf16* bs = as + T * LDA;                               // [2][KC][LDA] weight chunks
-  float* raw = reinterpret_cast<float*>(bs + 2 * KC * LDA);  // [T][6] world x, d
+  bf16* bs = as + T * LDA;                               // [NSLOT][KC * W] weight ring
+  float* raw = reinterpret_cast<float*>(bs + NSLOT * KC * W);  // [T][6] world x, d
   float* ps = raw + T * 6;                               // [T][6] warped x, d
   float* gs = ps + T * 6;                                // [T][4] cotangent
   float* pd = gs + T * 4;                                // [T][3] world-frame d grads
   float* pose = pd + T * 3;                              // [T][12] per-point pose terms
+  Ring* ring = reinterpret_cast<Ring*>(pose + T * 12);
   const int tid = threadIdx.x;
   const long row0 = (long)blockIdx.x * T;
   const int nrow = (int)min((long)T, (long)in.n - row0);
   const bool warped = in.warp != nullptr;
   const bool in_grads = gr.dx != nullptr;  // else the pose sums, when warped
   float* part = gr.part + (size_t)blockIdx.x * o.total;
+  if (tid == 0) {  // the stream: the transposes, in the order of the GEMMs below
+    ring_init(ring, bs, KC * W);
+    if (warped || in_grads) ring_add(ring, w.wv_bot, W2, EW);
+    ring_add(ring, w.wv_top, W2, W);
+    ring_add(ring, w.w_f, W, W);
+    ring_add(ring, w.w_out, W, W);
+    for (int b = nb - 1; b >= 0; --b) {
+      ring_add(ring, net.w1[b] + f.ww, W, W);
+      ring_add(ring, net.w0[b] + f.ww, W, W);
+    }
+    if (warped || in_grads) ring_add(ring, w.w_in, W, in_rows<ENC>());
+    ring_start(ring);
+  }
+  Feed feed = {ring, 0};
 
   if constexpr (!ENC) load_points(in.x, in.d, in.warp, in.n, row0, raw, ps);
   if (tid < T)
@@ -740,7 +989,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   }
 
   if (warped || in_grads) {  // dd_emb = dhv_in @ Wv_bot^T -> mask -> encoding backward -> M^T
-    gemm1(as, LDA, w.wv_bot, W2, EW, bs, dhs, LDF);
+    gemm1(as, LDA, W2, EW, feed, dhs, LDF);
     if constexpr (ENC) {  // dd_emb is the input grad
       for (int i = tid; i < T * in.fd; i += NT) {
         const int t = i / in.fd, c = i - t * in.fd;
@@ -759,7 +1008,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   }
 
   // dfeat = dhv_in @ Wv_top^T
-  gemm1(as, LDA, w.wv_top, W2, W, bs, cs, LDF);
+  gemm1(as, LDA, W2, W, feed, cs, LDF);
   for (int i = tid; i < T * V; i += NT) {
     const int t = i / V, c = (i - t * V) * 8;
     float v[8];
@@ -770,7 +1019,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   colsum(cs, LDF, W, part + o.b_f);
 
   // dho = dfeat @ W_f^T + dalpha W_a^T
-  gemm1(as, LDA, w.w_f, W, W, bs, cs, LDF);
+  gemm1(as, LDA, W, W, feed, cs, LDF);
   for (int i = tid; i < T * V; i += NT) {
     const int t = i / V, c = (i - t * V) * 8;
     float v[8];
@@ -797,7 +1046,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   colsum(cs, LDF, W, part + o.w_a);
 
   // dr = dho @ W_out^T, dh = dr * (h_last > 0)
-  gemm1(as, LDA, w.w_out, W, W, bs, cs, LDF);
+  gemm1(as, LDA, W, W, feed, cs, LDF);
   for (int i = tid; i < T * V; i += NT) {
     const int t = i / V, c = (i - t * V) * 8;
     float a[8], v[8];
@@ -816,7 +1065,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
     }
     __syncthreads();
     colsum(dhs, LDF, W, part + o.b_blocks + 2 * W * b + W);
-    gemm1(as, LDA, net.w1[b] + f.ww, W, W, bs, cs, LDF);
+    gemm1(as, LDA, W, W, feed, cs, LDF);
     for (int i = tid; i < T * V; i += NT) {  // dn = da1 * (n > 0)
       const int t = i / V, c = (i - t * V) * 8;
       float a[8], v[8];
@@ -829,7 +1078,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
     }
     __syncthreads();
     colsum(cs, LDF, W, part + o.b_blocks + 2 * W * b);
-    gemm1(as, LDA, net.w0[b] + f.ww, W, W, bs, cs, LDF);
+    gemm1(as, LDA, W, W, feed, cs, LDF);
     for (int i = tid; i < T * V; i += NT) {  // dh += da0 * (h_in > 0)
       const int t = i / V, c = (i - t * V) * 8;
       float a[8], v[8], dh[8];
@@ -853,7 +1102,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   // dx_emb = dh @ W_in^T -> mask -> encoding backward -> M^T -> dx, or the pose sums
   const bool pose_sums = warped && !in_grads;
   if (warped || in_grads) {
-    gemm1(as, LDA, w.w_in, W, in_rows<ENC>(), bs, cs, LDF);
+    gemm1(as, LDA, W, in_rows<ENC>(), feed, cs, LDF);
     if constexpr (ENC) {  // dx_emb is the input grad
       for (int i = tid; i < T * in.fx; i += NT) {
         const int t = i / in.fx, c = i - t * in.fx;
@@ -886,6 +1135,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
       for (int t = 0; t < T; ++t) s += pose[t * 12 + tid];
     part[o.pose + tid] = s;
   }
+  if (tid == 0) ring_drain(ring, feed.g);
 }
 
 // part[field][split][tm*64 + i][tn*64 + j] = sum over this split's points p

@@ -21,7 +21,12 @@ what bounds the kernels on the card and how the design answers it.
   pre-encoded features, "stacked_fwd" and "stacked_bwd" for
   ``fused_stacked_apply``; once per forward call and once per backward call
   (one backward call launches the per-tile backward and, when a weight
-  needs a grad, the weight-gradient GEMMs and the partial sums).
+  needs a grad, the weight-gradient GEMMs and the partial sums, which
+  ``wgrad`` and ``sum_rows`` count in ``part_launches``, each with its
+  plain version).
+- Every wide weight matrix reaches the kernels packed for their weight
+  ring (``pack_chunks``, ``pack_offset``): KC-row chunks of wgmma core
+  matrices, one contiguous bulk copy each.
 
 The backward runs in one of two modes. When the points or directions need a
 grad (the per-ray-pose path, where they come from warp_to_vehicle_frames), it
@@ -58,14 +63,18 @@ from ..ops.encoding import encoding_dim, positional_encoding
 
 EW = 64  # padded encoding width on the card: 63 point and 27 direction columns
 XW = 96  # padded width of pre-encoded point features (nerf_time: 84 columns)
+KC = 32  # weight rows per chunk of the kernels' weight ring
 MAX_BLOCKS = 8
 
 launches = {"fwd": 0, "bwd": 0, "stacked_fwd": 0, "stacked_bwd": 0, "enc_fwd": 0, "enc_bwd": 0}
+# launches of the backward's two further kernels, by wgrad() and sum_rows()
+part_launches = {"wgrad": 0, "sum_rows": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, part_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def flatten_params(params: Dict[str, Any], n_blocks: int):
@@ -255,35 +264,138 @@ def _call(fn, tensors, ints, stream, what):
     _check(fn(ptrs, iv, stream), what)
 
 
-def _sum_rows(lib, src, rows: int, cols: int, rows_per_chunk: int, stream):
-    """src [K, rows, cols] f32 -> [K, ceil(rows / rows_per_chunk), cols], each
-    chunk summed in row order."""
-    K = src.shape[0]
+def sum_rows_plain(src, rows_per_chunk: int):
+    """Plain version of sum_rows."""
+    K, rows, cols = src.shape
+    chunks = math.ceil(rows / rows_per_chunk)
+    pad = src.new_zeros((K, chunks * rows_per_chunk - rows, cols))
+    return torch.cat([src, pad], 1).reshape(K, chunks, rows_per_chunk, cols).sum(2)
+
+
+def sum_rows(src, rows_per_chunk: int):
+    """src [K, rows, cols] f32 (cols contiguous, rows at stride cols) -> [K,
+    ceil(rows / rows_per_chunk), cols]: each chunk of rows summed, in row
+    order on the card (sum_rows_kernel). A CPU tensor takes sum_rows_plain."""
+    if src.device.type == "cpu":
+        return sum_rows_plain(src, rows_per_chunk)
+    K, rows, cols = src.shape
+    if src.dtype != torch.float32 or not src.is_contiguous():
+        raise ValueError("sum_rows takes a contiguous float32 [K, rows, cols] tensor")
     out = torch.empty((K, math.ceil(rows / rows_per_chunk), cols), dtype=torch.float32,
                       device=src.device)
-    _check(lib.stx_sum_rows(src.data_ptr(), rows, cols, rows_per_chunk, K, out.data_ptr(),
-                            stream), "fused MLP partial sums")
+    _check(_lib().stx_sum_rows(src.data_ptr(), rows, cols, rows_per_chunk, K, out.data_ptr(),
+                               torch.cuda.current_stream(src.device).cuda_stream),
+           "fused MLP partial sums")
+    part_launches["sum_rows"] += 1
     return out
+
+
+def wgrad_plain(X, relu_x: bool, dY, splits: int):
+    """Plain version of wgrad: [K, splits, k_in * n_out] f32 partials."""
+    K, n, k_in = X.shape
+    per = math.ceil(n / splits)
+    x = X.float().clamp(min=0) if relu_x else X.float()
+    parts = [x[:, i * per:(i + 1) * per].transpose(1, 2) @ dY[:, i * per:(i + 1) * per].float()
+             for i in range(splits)]
+    return torch.stack(parts, 1).reshape(K, splits, -1)
+
+
+def wgrad(X, relu_x: bool, dY, splits: int, out=None):
+    """dW = X^T dY of one wide layer per field, as splits partials: X [K, n,
+    k_in] and dY [K, n, n_out] bf16 (relu applied to X when relu_x) -> [K,
+    splits, k_in * n_out] f32, partial i the sum over points [i per, (i + 1)
+    per), per = ceil(n / splits) (wgrad_kernel). ``out``, a [K, splits, >=
+    k_in * n_out] float32 view with unit column stride, receives it (the
+    backward packs every layer's partials side by side). A CPU tensor takes
+    wgrad_plain."""
+    K, n, k_in = X.shape
+    if X.device.type == "cpu":
+        res = wgrad_plain(X, relu_x, dY, splits)
+        if out is None:
+            return res
+        out[..., :res.shape[2]] = res
+        return out[..., :res.shape[2]]
+    n_out = dY.shape[2]
+    if out is None:
+        out = torch.empty((K, splits, k_in * n_out), dtype=torch.float32, device=X.device)
+    if (X.dtype != torch.bfloat16 or dY.dtype != torch.bfloat16 or not X.is_contiguous()
+            or not dY.is_contiguous() or tuple(dY.shape[:2]) != (K, n) or out.dtype != torch.float32
+            or out.shape[:2] != (K, splits) or out.shape[2] < k_in * n_out or out.stride(2) != 1
+            or out.stride(0) != splits * out.stride(1)):
+        raise ValueError("wgrad takes contiguous bf16 X [K, n, k_in], dY [K, n, n_out] and a "
+                         "float32 out [K, splits, >= k_in * n_out] with unit column stride")
+    _check(_lib().stx_wgrad(X.data_ptr(), k_in, int(relu_x), dY.data_ptr(), n_out, n, splits, K,
+                            out.data_ptr(), out.stride(1),
+                            torch.cuda.current_stream(X.device).cuda_stream),
+           "fused MLP weight-gradient GEMM")
+    part_launches["wgrad"] += 1
+    return out[..., :k_in * n_out]
+
+
+def wgrad_shapes(width: int, n_blocks: int, in_rows: int):
+    """(k_in, relu on X, n_out) of every wide layer's dW = X^T dY, in the
+    backward's order: lin_in, the blocks' fc0 and fc1, lin_out, feature,
+    views top and bottom."""
+    w2 = width // 2
+    return ([(in_rows, False, width)] + [(width, True, width)] * (2 * n_blocks)
+            + [(width, True, width), (width, False, width), (width, False, w2), (EW, False, w2)])
 
 
 def _pad_rows(w, n_rows: int):
     return F.pad(w, (0, 0, 0, n_rows - w.shape[-2]))
 
 
+# The wgmma descriptor's strides in csrc/fused_mlp.cu (LBO, SBO): bytes from a
+# core matrix of a packed chunk to the next along K, and along N.
+DESC_LBO, DESC_SBO = 128, (KC // 8) * 128
+
+
+def pack_offset(k, n, nout: int):
+    """Where element (k, n) of a streamed matrix B [rows, nout] sits in its
+    packed copy, in elements: chunk k // KC (KC * nout elements each), then
+    wgmma's K-major core matrices of 8 columns x 8 rows (64 elements) at
+    ((n // 8) * 4 + (k % KC) // 8) * 64, column n % 8 at 8 elements, row
+    k % 8 at 1. Works on ints and on integer tensors."""
+    return (k // KC) * KC * nout + ((n // 8) * 4 + (k % KC) // 8) * 64 + (n % 8) * 8 + k % 8
+
+
+def desc_offset(k, n, nout: int):
+    """Byte offset of B's element (k, n) from its packed copy's start as the
+    kernels read it: the chunk's slot holds KC * nout bf16; the descriptor
+    steps DESC_SBO bytes per 8 columns and DESC_LBO per 8 rows, and a core
+    matrix's column n % 8 is 16 bytes, its row k % 8 is 2 (tests hold it
+    equal to 2 * pack_offset)."""
+    return ((k // KC) * KC * nout * 2 + (n // 8) * DESC_SBO + (k % KC) // 8 * DESC_LBO
+            + (n % 8) * 16 + (k % 8) * 2)
+
+
+def pack_chunks(b, dtype=None):
+    """B [..., rows, nout] (rows a multiple of KC, nout of 8; any strides) ->
+    its packed copy in the kernels' weight-ring order (pack_offset), as a
+    contiguous tensor of the same shape in dtype (b's by default): one copy,
+    the cast included."""
+    *lead, rows, nout = b.shape
+    d = len(lead)
+    src = (b.reshape(*lead, rows // KC, KC // 8, 8, nout // 8, 8)
+           .permute(*range(d), d, d + 3, d + 1, d + 4, d + 2))
+    out = torch.empty(src.shape, dtype=dtype or b.dtype, device=b.device)
+    return out.copy_(src).view(*lead, rows, nout)
+
+
 def _kernel_weights(weights, n_blocks: int, transpose: bool, in_rows: int):
     """Flat f32 stacked params ([K, ...] leaves) -> the kernels' operand list,
-    each a contiguous stack over the fields: bf16 matrices (lin_in
-    zero-padded to in_rows rows, Wv_bot to EW, views split into top and
-    bottom), f32 biases. transpose=True gives the backward's [K, out, in]
-    matrices; the narrow heads (alpha, rgb) stay as they are."""
+    each a contiguous stack over the fields: bf16 matrices packed for the
+    weight ring (pack_chunks; lin_in zero-padded to in_rows rows, Wv_bot to
+    EW, views split into top and bottom), f32 biases. transpose=True packs
+    the backward's [K, out, in] matrices; the narrow heads (alpha, rgb) stay
+    row-major [in, out]."""
     bf = torch.bfloat16
     it = iter(weights)
     W_in, b_in = next(it), next(it)
     width = W_in.shape[-1]
 
     def mat(w):
-        w = w.to(bf)
-        return (w.transpose(-1, -2) if transpose else w).contiguous()
+        return pack_chunks(w.transpose(-1, -2) if transpose else w, bf)
 
     out = [mat(_pad_rows(W_in, in_rows)), b_in.contiguous()]
     for _ in range(n_blocks):
@@ -310,7 +422,8 @@ def _param_shapes(width: int, n_blocks: int, in_ch: int, view_ch: int):
     return shapes
 
 
-def _wgrad_splits(n: int) -> int:
+def wgrad_splits(n: int) -> int:
+    """The backward's split count of the weight-gradient GEMMs for n points."""
     return max(1, min(64, n // 2048))
 
 
@@ -385,29 +498,22 @@ class _FusedMLP(torch.autograd.Function):
 
         grads = [None] * n_w
         if w_grads or (pose_grad and not in_grads):
-            chunk = 128
-            mid = _sum_rows(lib, part, n_tiles, off["total"], chunk, stream)
-            ps = _sum_rows(lib, mid, mid.shape[1], off["total"], mid.shape[1], stream)[:, 0]
+            mid = sum_rows(part, 128)
+            ps = sum_rows(mid, mid.shape[1])[:, 0]
         if w_grads:
-            # dW = X^T dY for every wide layer: (X, k_in, relu on X, dY, n_out)
+            # dW = X^T dY for every wide layer, the X and dY of wgrad_shapes
             h_acts, h_last, ho, feat = acts[:2 * n_blocks], acts[-4], acts[-3], acts[-2]
-            jobs = [(xe, in_rows, 0, d_in, width)]
-            for b in range(n_blocks):
-                jobs += [(h_acts[2 * b], width, 1, d_blocks[2 * b], width),
-                         (h_acts[2 * b + 1], width, 1, d_blocks[2 * b + 1], width)]
-            jobs += [(h_last, width, 1, d_out, width), (ho, width, 0, d_f, width),
-                     (feat, width, 0, d_v, w2), (de, EW, 0, d_v, w2)]
-            sizes = [k * m for _, k, _, _, m in jobs]
-            total = sum(sizes)
-            splits = _wgrad_splits(n)
-            wpart = torch.empty((K, splits, total), dtype=f32, device=dev)
+            xs = [xe, *h_acts, h_last, ho, feat, de]
+            dys = [d_in, *d_blocks, d_out, d_f, d_v, d_v]
+            sizes = [k * m for k, _, m in wgrad_shapes(width, n_blocks, in_rows)]
+            splits = wgrad_splits(n)
+            wpart = torch.empty((K, splits, sum(sizes)), dtype=f32, device=dev)
             start = 0
-            for (X, k_in, relu, dY, n_out), size in zip(jobs, sizes):
-                _check(lib.stx_wgrad(X.data_ptr(), k_in, relu, dY.data_ptr(), n_out, n, splits, K,
-                                     wpart.data_ptr() + 4 * start, total, stream),
-                       "fused MLP weight-gradient GEMM")
+            for X, dY, (_, relu, _), size in zip(xs, dys, wgrad_shapes(width, n_blocks, in_rows),
+                                                 sizes):
+                wgrad(X, relu, dY, splits, out=wpart[..., start:start + size])
                 start += size
-            dw = _sum_rows(lib, wpart, splits, total, splits, stream)[:, 0]
+            dw = sum_rows(wpart, splits)[:, 0]
 
             mats = torch.split(dw, sizes, dim=1)
 

@@ -159,3 +159,26 @@ def test_pre_encoded_kernels_match_plain(card, width, in_ch, input_grads):
     assert tfused.launches == dict.fromkeys(tfused.launches, 0) | {"enc_fwd": 1, "enc_bwd": 1}
     assert errs["encoded"] and ("input" in errs) == input_grads
     assert not parity.failures(errs), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_in", [96, 256], ids=["ktail", "wide"])
+def test_weight_gradient_gemm_and_sums_match_plain(card, k_in):
+    """wgrad_kernel on K = 2 fields of 3,000 ragged points in 3 splits (the
+    96-row lin_in tail, and a relu'd 256-wide layer), then sum_rows_kernel
+    over the splits, each against its plain version: f32 sums of exact
+    bf16 products in another order, within 1e-4 and 1e-5 of the largest
+    magnitude (chip_smoke.PART_TOL)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    X = torch.randn((2, N, k_in), generator=g, device="cuda").to(torch.bfloat16)
+    dY = torch.randn((2, N, 128), generator=g, device="cuda").to(torch.bfloat16)
+    relu = k_in == 256
+    tfused.reset_launch_counts()
+    got = tfused.wgrad(X, relu, dY, 3)
+    want = tfused.wgrad_plain(X, relu, dY, 3)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    sums = tfused.sum_rows(got.contiguous(), 2)
+    want_sums = tfused.sum_rows_plain(got.contiguous(), 2)
+    assert sums.shape == (2, 2, k_in * 128)
+    assert float((sums - want_sums).abs().max()) <= 1e-5 * float(want_sums.abs().max())
+    assert tfused.part_launches == {"wgrad": 1, "sum_rows": 1}
