@@ -20,20 +20,21 @@ Phases, each printing its numbers:
      warp_to_vehicle_frames, without and with the BARF mask (end_barf 12,
      step 5); one 4x256 case at 512,000 points per field; and the static
      8x128 field per-field at both passes' shapes; with times;
-  3c. the backward's further kernels: the weight-gradient GEMMs
-     (wgrad_kernel, one a wide layer) and the ordered partial sums
-     (sum_rows_kernel) against their plain versions within PART_TOL at one
-     online step's shapes, with times and library yardsticks (one torch.mm
-     a layer, one torch.sum a sum); and, checked, not timed, at the per-ray
-     step's stacked fine call (K = 2) and nerf_time's fine call (96-row
-     lin_in);
+  3c. the backward's further kernels: the weight-gradient GEMM
+     (wgrad_kernel, one launch over every wide layer of a backward call)
+     and the ordered partial sums (sum_rows_kernel, one launch a sum)
+     against their plain versions within PART_TOL, with times (CUDA events
+     and profiler device time) beside library yardsticks (one torch.mm a
+     layer and field, one torch.sum a sum) and their bounds: at one online
+     step's shapes, at the per-ray step's stacked fine call (K = 2) and at
+     nerf_time's fine call (96-row lin_in);
   4. the main path: StarConfig and LossConfig from
      startrax/configs/carla_star_online_multi.txt, random weights from a
      seed, app-init steps then online training steps on one fixed batch of
      1000 rays x (256 + 256) samples, through the kernels; the fused forward
      and backward launch counts must rise by 2 per app-init step and 6 per
-     online step, the stacked ones not at all, the GEMMs' and sums' by one
-     a wide layer and three a backward call, and the loss must be finite
+     online step, the stacked ones not at all, the GEMM's by one and the
+     sums' by two a backward call, and the loss must be finite
      and fall; then the median step time of the kernel path and of the
      plain path; then the kernel path's render against the plain path's on
      a small batch;
@@ -48,7 +49,7 @@ Phases, each printing its numbers:
      grad, the gauge rotation stay identity, the gauge step leave the
      fields' and poses' grads alone, and the launches per step be those the
      path makes (online: fwd, bwd, stacked_fwd, stacked_bwd +2 each, and
-     the backward's GEMMs and sums, one a wide layer and three a call;
+     the backward's GEMM and sums, one and two a call;
      gauge: fwd +2, bwd +0, stacked +2 each, no GEMM or sum). Then the step
      times of the kernel and plain paths, the gauge step's, peak memory, and
      the kernel path's render against the plain path's on a small batch;
@@ -60,13 +61,14 @@ Phases, each printing its numbers:
      points with input grads and on the coarse shape with input grads, with
      times; (b) 20 steps on one fixed batch at frame 3 of 16 through the
      kernels, each adding exactly 2 "enc_fwd" and 2 "enc_bwd" launches, their
-     GEMMs and sums, and none of another kind, the loss finite and falling,
+     GEMM and sums, and none of another kind, the loss finite and falling,
      then 5 steps of the plain path; (c) the tiled eval render of a 64x64
      frame from get_rays, kernel path against plain path;
   6. one JSON line per kernel (with its bound: the larger of its FLOP over
-     989 TFLOP/s dense bf16 and its bytes, each input read once and each
-     output written once, over 3.35 TB/s), the card's line, and the result
-     line {"ok": true, "device": {...}} last.
+     989 TFLOP/s dense bf16, 67 TFLOP/s f32 for the sums, and its bytes,
+     each input read once and each output written once, over 3.35 TB/s),
+     the card's line, and the result line {"ok": true, "device": {...}}
+     last.
 
 Exits non-zero, printing no result, without a CUDA device or when any phase
 fails. Imports nothing of JAX or of the JAX package: only torch, numpy and
@@ -129,13 +131,11 @@ def _counts(**nonzero):
 
 
 def _part_counts(*fields):
-    """The launches of the backward's GEMMs and sums in one backward call
+    """The launches of the backward's GEMM and sums in one backward call
     with weight grads for each field config given: one weight-gradient GEMM
-    a wide layer, three sums."""
-    from startrax_torch.kernels import fused_mlp as fm
-
-    return {"wgrad": sum(len(fm.wgrad_shapes(f.width, f.n_blocks, fm.EW)) for f in fields),
-            "sum_rows": 3 * len(fields)}
+    over every wide layer, two sums (the per-CTA and the per-split
+    partials)."""
+    return {"wgrad": len(fields), "sum_rows": 2 * len(fields)}
 
 
 def _deltas(counts, before):
@@ -346,42 +346,64 @@ def phase_kernels(star_cfg, n_rand):
 
 
 def backward_part_cases(star_cfg, n_rand, slice_cfg, slice_rays, nt_cfg, nt_rays):
-    """The backward calls whose GEMMs and sums phase 3c checks, as (name,
-    width, n_blocks, lin_in's rows, fields, points per field, calls per
-    online step): the field calls of one online step, then, checked and not
-    timed, the per-ray step's stacked fine call (K fields a launch) and the
-    nerf_time fine call (lin_in's 96 rows, wgrad_kernel's ragged-K
-    instance)."""
+    """The backward calls whose GEMM and sums phase 3c checks and times, as
+    (path, name, width, n_blocks, lin_in's rows, fields, points per field,
+    calls per step of the path): the field calls of one shared-pose online
+    step, the per-ray step's stacked fine call (K fields a launch) and the
+    nerf_time fine call (lin_in's 96 rows)."""
     from startrax_torch.kernels.fused_mlp import EW, XW
 
-    out = [(name, f.width, f.n_blocks, EW, 1, n, calls)
+    out = [("shared-pose", name, f.width, f.n_blocks, EW, 1, n, calls)
            for name, f, n, _, _, calls in kernel_cases(star_cfg, n_rand) if calls]
-    name, f, rays, samples, _, _ = stacked_cases(slice_cfg, slice_rays, star_cfg, n_rand)[1]
-    out.append((f"stacked {name} K={slice_cfg.num_vehicles}", f.width, f.n_blocks, EW,
-                slice_cfg.num_vehicles, rays * samples, 0))
-    name, f, n, _, _ = nerf_time_cases(nt_cfg, nt_rays)[1]
-    out.append((f"pre-encoded {name}", f.width, f.n_blocks, XW, 1, n, 0))
+    name, f, rays, samples, _, calls = stacked_cases(slice_cfg, slice_rays, star_cfg, n_rand)[1]
+    out.append(("per-ray", f"stacked {name} K={slice_cfg.num_vehicles}", f.width, f.n_blocks, EW,
+                slice_cfg.num_vehicles, rays * samples, calls))
+    name, f, n, _, calls = nerf_time_cases(nt_cfg, nt_rays)[1]
+    out.append(("nerf_time", f"pre-encoded {name}", f.width, f.n_blocks, XW, 1, n, calls))
+    return out
+
+
+def _device_ms(fns, reps=3):
+    """{i: the device time of fns[i]'s kernels, in ms a call}, from a
+    torch.profiler trace of reps calls of each fn after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for i, fn in enumerate(fns):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out[i] = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
     return out
 
 
 def phase_backward_parts(cases):
-    """The backward's weight-gradient GEMMs (wgrad_kernel) and partial sums
-    (sum_rows_kernel) of backward_part_cases' calls, each against its plain
-    version on random bf16 X and dY of every wide layer's shapes (the sums on
-    the GEMMs' partials and on random per-CTA partials). For the calls of one
-    online step, their times summed over the step's calls: kernel, plain
-    version and a library yardstick the port never calls: for the GEMMs one
-    torch.mm(X^T, dY) a layer in bf16 (it writes bf16 dW, not the f32 split
-    partials, and applies no relu to X), for the sums one torch.sum over the
-    rows a sum (the per-CTA partials' two levels in one, in another order).
-    Returns {"wgrad": ..., "sum_rows": ...}, each with its worst scaled and
-    absolute error, step times, flop and bytes."""
+    """The backward's weight-gradient GEMM (wgrad_kernel, one launch over
+    every wide layer of a call) and ordered sums (sum_rows_kernel, one
+    launch a sum) of backward_part_cases' calls, each against its plain
+    version on random bf16 X and dY of every wide layer's shapes (the sums
+    on the GEMM's split partials and on random per-CTA partials), then both
+    timed in turns with a library yardstick the port never calls: for the
+    GEMM one torch.mm(X^T, dY) a layer and field in bf16 (it writes bf16
+    dW, not f32 split partials, and applies no relu to X), for the sums one
+    torch.sum over the rows a sum. Times: CUDA events over back-to-back
+    calls (host time between launches included where it exceeds the
+    kernel's) and the device time of a profiler trace. Work: the function's
+    own, X and dY read once and dW written once in f32; each sum's inputs
+    read once and its outputs written once. Returns {"wgrad": ...,
+    "sum_rows": ...}, each with its worst scaled and absolute error, the
+    shared-pose step's times, flop and bytes summed over its calls, and
+    "paths": the same per path of the calls its cases stand for."""
     import torch
 
     from startrax_torch.kernels import fused_mlp as fm
 
-    out = {k: {"err": 0.0, "abs": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0.0,
-               "bytes": 0.0} for k in PART_TOL}
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms", "flop", "bytes")
+    out = {k: {"err": 0.0, "abs": 0.0, **dict.fromkeys(keys, 0.0), "paths": {}} for k in PART_TOL}
     g = torch.Generator(device="cuda").manual_seed(30)
 
     def check(name, got, want):
@@ -392,63 +414,79 @@ def phase_backward_parts(cases):
         out[name]["err"] = max(out[name]["err"], e)
         _require(e <= PART_TOL[name], f"{name} kernel vs plain: {e:.3e}")
 
-    for name, width, n_blocks, in_rows, K, n, calls in cases:
-        print(f"backward parts of {name} {width} wide, {n_blocks} blocks, lin_in {in_rows} rows, "
-              f"K={K}, N={n}/field", flush=True)
+    for path, name, width, n_blocks, in_rows, K, n, calls in cases:
+        print(f"backward parts of {name} ({path}) {width} wide, {n_blocks} blocks, lin_in {in_rows} "
+              f"rows, K={K}, N={n}/field", flush=True)
         shapes = fm.wgrad_shapes(width, n_blocks, in_rows)
-        splits = fm.wgrad_splits(n)
+        relus = [r for _, r, _ in shapes]
+        splits = fm.wgrad_layout(shapes, n, K)["splits"]
         xs = [torch.randn((K, n, k), generator=g, device="cuda").to(torch.bfloat16)
               for k, _, _ in shapes]
         dys = [torch.randn((K, n, m), generator=g, device="cuda").to(torch.bfloat16)
                for _, _, m in shapes]
         sizes = [k * m for k, _, m in shapes]
-        wpart = torch.empty((K, splits, sum(sizes)), device="cuda")
         total = fm._partial_offsets(width, n_blocks)["total"]
         part = torch.randn((K, -(-n // 64), total), generator=g, device="cuda")
+        wpart = fm.wgrad(xs, dys, relus)
+        check("wgrad", wpart, fm.wgrad_grouped_plain(xs, dys, relus, splits))
+        for src in (part, wpart):
+            check("sum_rows", fm.sum_rows(src), fm.sum_rows_plain(src))
 
-        def gemms():
-            start = 0
-            for X, dY, (_, relu, _), size in zip(xs, dys, shapes, sizes):
-                fm.wgrad(X, relu, dY, splits, out=wpart[..., start:start + size])
-                start += size
+        def gemm():
+            return fm.wgrad(xs, dys, relus)
 
-        def gemms_plain():
-            return [fm.wgrad_plain(X, relu, dY, splits) for X, dY, (_, relu, _) in zip(xs, dys, shapes)]
+        def gemm_plain():
+            return fm.wgrad_grouped_plain(xs, dys, relus, splits)
 
-        def gemms_library():
-            return [torch.mm(X[0].t(), dY[0]) for X, dY in zip(xs, dys)]
+        def gemm_library():
+            return [torch.mm(X[k].t(), dY[k]) for X, dY in zip(xs, dys) for k in range(K)]
 
-        def sums(f):  # the three sums of one backward call
-            mid = f(part, 128)
-            return f(mid, mid.shape[1]), f(wpart, splits)
+        def sums(f):  # the two sums of one backward call
+            return f(part), f(wpart)
 
         def sums_library():
             return part.sum(1), wpart.sum(1)
 
-        gemms()
-        check("wgrad", wpart, torch.cat(gemms_plain(), -1))
-        for got, want in zip(sums(fm.sum_rows), sums(fm.sum_rows_plain)):
-            check("sum_rows", got, want)
-        if calls:
-            t = {"wgrad": (_cuda_ms(gemms, 3), _cuda_ms(gemms_plain, 3), _cuda_ms(gemms_library, 3)),
-                 "sum_rows": (_cuda_ms(lambda: sums(fm.sum_rows), 3),
-                              _cuda_ms(lambda: sums(fm.sum_rows_plain), 3),
-                              _cuda_ms(sums_library, 3))}
-            mid = -(-part.shape[1] // 128) * total
-            sum_in, sum_out = part.numel() + mid + wpart.numel(), mid + total + sum(sizes)
-            work = {"wgrad": (sum(2.0 * n * s for s in sizes),
-                              sum(2.0 * n * (k + m) for k, _, m in shapes) + 4.0 * splits * sum(sizes)),
-                    "sum_rows": (float(sum_in), 4.0 * (sum_in + sum_out))}
-            for k, (ms, plain_ms, lib_ms) in t.items():
-                for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                               ("flop", work[k][0]), ("bytes", work[k][1])):
+        t = {"wgrad": [gemm, gemm_plain, gemm_library],
+             "sum_rows": [lambda: sums(fm.sum_rows), lambda: sums(fm.sum_rows_plain), sums_library]}
+        ms = {k: [0.0, 0.0, 0.0] for k in t}
+        for order in ((0, 2), (2, 0)):  # kernel and library in turns, the plain version once
+            for k, fns in t.items():
+                for i in order:
+                    ms[k][i] += _cuda_ms(fns[i], 3) / 2
+        for k, fns in t.items():
+            ms[k][1] = _cuda_ms(fns[1], 2)
+        dev = {k: _device_ms([fns[0], fns[2]]) for k, fns in t.items()}
+        sum_in = part.numel() + wpart.numel()
+        sum_out = K * (total + sum(sizes))
+        work = {"wgrad": (sum(2.0 * K * n * s for s in sizes),
+                          sum(2.0 * K * n * (k + m) for k, _, m in shapes) + 4.0 * K * sum(sizes)),
+                "sum_rows": (float(sum_in), 4.0 * (sum_in + sum_out))}
+        for k in t:
+            vals = {"ms": ms[k][0], "plain_ms": ms[k][1], "library_ms": ms[k][2],
+                    "device_ms": dev[k][0], "library_device_ms": dev[k][1], "flop": work[k][0],
+                    "bytes": work[k][1]}
+            acc = out[k]["paths"].setdefault(path, dict.fromkeys(keys, 0.0))
+            for key, v in vals.items():
+                acc[key] += calls * v
+                if path == "shared-pose":
                     out[k][key] += calls * v
-            print(f"time {name} backward parts: wgrad {t['wgrad'][0]:.3f} ms (plain "
-                  f"{t['wgrad'][1]:.3f}, torch.mm {t['wgrad'][2]:.3f}), sum_rows "
-                  f"{t['sum_rows'][0]:.3f} ms (plain {t['sum_rows'][1]:.3f}, torch.sum "
-                  f"{t['sum_rows'][2]:.3f})", flush=True)
+        print(f"time {name} backward parts: wgrad {ms['wgrad'][0]:.3f} ms, device "
+              f"{dev['wgrad'][0]:.3f} (plain {ms['wgrad'][1]:.3f}, torch.mm {ms['wgrad'][2]:.3f}, "
+              f"device {dev['wgrad'][1]:.3f}, bound {bound(*work['wgrad'])[0]:.3f}); sum_rows "
+              f"{ms['sum_rows'][0]:.4f} ms, device {dev['sum_rows'][0]:.4f} (plain "
+              f"{ms['sum_rows'][1]:.4f}, torch.sum {ms['sum_rows'][2]:.4f}, device "
+              f"{dev['sum_rows'][1]:.4f}, bound {bound(*work['sum_rows'], PEAK_F32)[0]:.4f})",
+              flush=True)
         del xs, dys, wpart, part
         torch.cuda.empty_cache()
+    for k in out:
+        for path, r in out[k]["paths"].items():
+            r["bound_ms"] = bound(r["flop"], r["bytes"], PEAK_FLOPS if k == "wgrad" else PEAK_F32)[0]
+            print(f"{k}, {path} step's calls: " + ", ".join(f"{key} {r[key]:.4f}" for key in
+                                                            ("ms", "device_ms", "library_ms",
+                                                             "library_device_ms", "bound_ms")),
+                  flush=True)
     return out
 
 
@@ -616,7 +654,7 @@ def phase_main_path(cfg, star_cfg, loss_cfg):
     want = {k: N_APPINIT * app[k] + N_ONLINE * online[k] for k in app}
     print(f"backward parts' launches after {N_APPINIT} app-init and {N_ONLINE} online steps {parts}",
           flush=True)
-    _require(parts == want, f"launches of the backward's GEMMs and sums {want}, got {parts}")
+    _require(parts == want, f"launches of the backward's GEMM and sums {want}, got {parts}")
     _require(all(math.isfinite(v) for v in app_losses + losses), "finite losses")
     _require(statistics.mean(losses[-3:]) < statistics.mean(losses[:3]), "the loss falls")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -728,7 +766,7 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
 
     def run(step, n, launches_per_step, parts_per_step):
         """n calls of step() -> loss, each timed with CUDA events and held to
-        its launches, the backward's GEMMs and sums included; an online step
+        its launches, the backward's GEMM and sums included; an online step
         also to the accumulation rhythm."""
         losses, ms = [], []
         for _ in range(n):
@@ -746,7 +784,7 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
                      f"launches per step {launches_per_step}, got {delta}")
             delta = _deltas(fm.part_launches, parts0)
             _require(delta == parts_per_step,
-                     f"launches of the backward's GEMMs and sums per step {parts_per_step}, "
+                     f"launches of the backward's GEMM and sums per step {parts_per_step}, "
                      f"got {delta}")
             if launches_per_step is online_launches:
                 changed = any(not torch.equal(b, w().detach()) for b, w in zip(before, watched))
@@ -938,7 +976,7 @@ def phase_nerf_time(cfg, star_cfg, loss_cfg):
         _require(delta == _counts(enc_fwd=2, enc_bwd=2),
                  f"2 launches of each pre-encoded kernel per nerf_time step, none other, got {delta}")
         delta = _deltas(fm.part_launches, parts0)
-        _require(delta == step_parts, f"launches of the backward's GEMMs and sums per nerf_time "
+        _require(delta == step_parts, f"launches of the backward's GEMM and sums per nerf_time "
                  f"step {step_parts}, got {delta}")
     counts = dict(fm.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -998,7 +1036,7 @@ def _rows(per_field, stacked, encoded, bwd_parts, part_launches):
     the field-axis kernel (the per-ray step's times) and the pre-encoded
     mode (the nerf_time step's times); bwd_parts and part_launches are
     phase 3c's readings and the flagship path's launches of the backward's
-    GEMMs and sums."""
+    GEMM and sums."""
     from startrax_torch.kernels import parity
 
     rows = []
@@ -1039,20 +1077,22 @@ def _rows(per_field, stacked, encoded, bwd_parts, part_launches):
                    "then fused_mlp_wgrad and fused_mlp_sum_rows); per_tile_ms subtracts phase "
                    "3c's times of those two", per_tile_ms=per_field[1]["bwd"] - parts_ms)
     for name, peak, note in (
-            ("wgrad", PEAK_FLOPS, "dW = X^T dY of every wide layer as split f32 partials: the "
-             "weight-grad accumulation of _bwd_kernel (dw_ref[...] += dw, :520); library_ms is one "
-             "torch.mm(X^T, dY) a layer "
-             "in bf16, which writes bf16 dW, not f32 partials, and applies no relu to X"),
-            ("sum_rows", PEAK_F32, "the ordered sums of the per-CTA and per-split partials: the "
-             "grid-order accumulation of _bwd_kernel; library_ms is one torch.sum over the rows "
-             "a sum (the per-CTA partials' two levels in one call), in another order")):
+            ("wgrad", PEAK_FLOPS, "dW = relu?(X)^T dY of every wide layer of a backward call in one "
+             "launch, as split f32 partials: the weight-grad accumulation of _bwd_kernel "
+             "(dw_ref[...] += dw, :520); bound: X and dY read once, dW written once in f32; "
+             "library_ms is one torch.mm(X^T, dY) a layer and field in bf16, which writes bf16 dW, "
+             "not f32 partials, and applies no relu to X"),
+            ("sum_rows", PEAK_F32, "the ordered sums of the per-CTA and the per-split partials, one "
+             "launch a sum: the grid-order accumulation of _bwd_kernel; library_ms is one torch.sum "
+             "over the rows a sum, in another order")):
         r = bwd_parts[name]
         bound_ms, bound_by = bound(r["flop"], r["bytes"], peak)
         rows.append({"name": f"fused_mlp_{name}", "route": "cuda", "source": SRC,
                      "replaces": "startrax/kernels/fused_mlp.py:343",
                      "launches": part_launches[name], "max_abs_err": r["abs"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": r["library_ms"],
+                     "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+                     "library_device_ms": r["library_device_ms"], "paths": r["paths"],
                      "max_scaled_err": r["err"], "tol": PART_TOL[name], "note": note})
     return rows
 

@@ -15,7 +15,8 @@ checkouts of the repository, for example the parent commit unpacked with
    kernel instance the two trees share (the one-field and field-axis
    instances on raw points, the weight-gradient GEMM at a width that is a
    multiple of 64, the partial sums), whether its machine code is the same
-   instruction for instruction;
+   instruction for instruction (the weight-gradient GEMM and the sums
+   were rebuilt, so their instances differ by name or code);
 3. times each tree in its own process, in turns (parent, change, change,
    parent, twice over): the per-field kernels at the shared-pose step's shapes
    (chip_smoke phase 3: static 8x256 and dynamic 4x256 with the warp, on
@@ -29,10 +30,15 @@ checkouts of the repository, for example the parent commit unpacked with
    (``fwd_device``, ``bwd_device``), which host gaps between launches do
    not reach: a backward whose kernels finish before the host has queued
    the next ones reads the host's pace on the events, not the card's;
-4. in the same processes, chip_smoke's three training steps (``step_times``:
-   shared-pose, per-ray joint, nerf_time), each the median of event-timed
-   steps and one step's device time, so that a step's change is read
-   against the parent on one machine, its host included.
+4. in the same processes, each tree's chip_smoke phase 3c (``parts``): the
+   weight-gradient GEMM's and the ordered sums' times summed over one
+   shared-pose step's calls, with their plain versions' and the library
+   yardsticks' (torch.mm, torch.sum) in the same process;
+5. then chip_smoke's three training steps (``step_times``: shared-pose,
+   per-ray joint, nerf_time), each the median of event-timed steps and one
+   step's device time, with the device time and launches of its
+   ``wgrad_kernel`` and ``sum_rows_kernel`` in that step, so that a step's
+   change is read against the parent on one machine, its host included.
 
 It prints one line per process and, with ``--json PATH``, writes every
 reading to PATH. Needs one CUDA card and nvcc.
@@ -121,8 +127,10 @@ def sass(cubin):
     return funcs
 
 
-def device_ms(fn, reps=3):
-    """Mean device time of fn's kernels, from a torch.profiler trace."""
+def device_ms(fn, reps=3, by_name=()):
+    """Mean device time of fn's kernels, from a torch.profiler trace; with
+    by_name, also {name: (ms, launches)} a call of the kernels whose names
+    contain it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -132,8 +140,13 @@ def device_ms(fn, reps=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / 1e3 / reps
+    events = prof.key_averages()
+    total = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    if not by_name:
+        return total
+    return total, {name: (sum(e.self_device_time_total for e in events if name in e.key) / 1e3 / reps,
+                          sum(e.count for e in events if name in e.key) / reps)
+                   for name in by_name}
 
 
 def once(root):
@@ -189,8 +202,12 @@ def once(root):
         del run
         torch.cuda.empty_cache()
     nt_cfg, nt_star = star("carla_nerf_time.txt")
+    parts = cs.phase_backward_parts(cs.backward_part_cases(flag, flag_cfg.N_rand, slice_star,
+                                                           slice_cfg.N_rand, nt_star, nt_cfg.N_rand))
+    parts = {k: {key: v[key] for key in ("ms", "plain_ms", "library_ms")} for k, v in parts.items()}
+    torch.cuda.empty_cache()
     steps = step_times(cs, (flag_cfg, flag), (slice_cfg, slice_star), (nt_cfg, nt_star))
-    print(json.dumps({"root": root, "times": times, "steps": steps}), flush=True)
+    print(json.dumps({"root": root, "times": times, "parts": parts, "steps": steps}), flush=True)
 
 
 def step_times(cs, flag, per_ray, nerf_time):
@@ -212,8 +229,10 @@ def step_times(cs, flag, per_ray, nerf_time):
 
     def timed(name, step, *args, **kw):
         _, ms = cs._timed_steps(step, STEPS, *args, **kw)
-        out[name] = {"step": statistics.median(ms[STEP_WARMUP:]),
-                     "step_device": device_ms(lambda: step(*args, **kw), 1)}
+        dev, kernels = device_ms(lambda: step(*args, **kw), 1, ("wgrad_kernel", "sum_rows_kernel"))
+        out[name] = {"step": statistics.median(ms[STEP_WARMUP:]), "step_device": dev,
+                     **{f"{k}_device": v[0] for k, v in kernels.items()},
+                     **{f"{k}_launches": v[1] for k, v in kernels.items()}}
         torch.cuda.empty_cache()
 
     cfg, star = flag
@@ -278,7 +297,8 @@ def main():
         if out.returncode != 0:
             raise RuntimeError(f"{tree} run failed:\n{out.stdout}\n{out.stderr}")
         line = json.loads(out.stdout.strip().splitlines()[-1])
-        runs.append({"tree": tree, "times": line["times"], "steps": line["steps"]})
+        runs.append({"tree": tree, "times": line["times"], "parts": line["parts"],
+                     "steps": line["steps"]})
         print(f"{tree}: " + "; ".join(f"{k} fwd {v['fwd']:.3f} bwd {v['bwd']:.3f} ms (device "
                                       f"{v['fwd_device']:.3f}, {v['bwd_device']:.3f})"
                                       for k, v in line["times"].items())
@@ -286,12 +306,15 @@ def main():
                                  for k, v in line["steps"].items()), flush=True)
     report["runs"] = runs
     for key, sides in (("times", ("fwd", "bwd", "fwd_device", "bwd_device")),
-                       ("steps", ("step", "step_device"))):
+                       ("parts", ("ms", "plain_ms", "library_ms")),
+                       ("steps", ("step", "step_device", "wgrad_kernel_device",
+                                  "wgrad_kernel_launches", "sum_rows_kernel_device",
+                                  "sum_rows_kernel_launches"))):
         for label in runs[0][key]:
             for side in sides:
                 p, c = (statistics.mean(r[key][label][side] for r in runs if r["tree"] == tree)
                         for tree in ("parent", "change"))
-                print(f"{label} {side}: parent {p:.3f} ms, change {c:.3f} ms "
+                print(f"{label} {side}: parent {p:.4f}, change {c:.4f} "
                       f"({100 * (c / p - 1):+.2f}%)", flush=True)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)

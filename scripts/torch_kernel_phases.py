@@ -75,7 +75,13 @@ __device__ __forceinline__ void stx_add_wait(long long w0, int chunks) {
     stx_cyc[3][stx_cta()] += chunks;
   }
 }
-""" % (MAXC, MAXC, MAXC, MAXC)
+// the weight-gradient GEMM (wgrad_kernel): kernel, slab wait, wgmma loop,
+// copies issued, partial store, slabs; thread 0 of each CTA
+__device__ unsigned long long stx_wg[6][%d];
+__device__ __forceinline__ void stx_wg_add(int what, long long t0) {
+  if (threadIdx.x == 0 && stx_cta() < %d) stx_wg[what][stx_cta()] += what == 5 ? 1 : stx_clock() - t0;
+}
+""" % (MAXC, MAXC, MAXC, MAXC, MAXC, MAXC)
 
 EPILOGUE = r"""
 extern "C" int stx_phase_reset() {
@@ -85,10 +91,18 @@ extern "C" int stx_phase_reset() {
 extern "C" int stx_phase_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, stx_cyc, sizeof(unsigned long long) * 4 * %d);
 }
-""" % (MAXC, MAXC)
+extern "C" int stx_wg_reset() {
+  static unsigned long long zeros[6][%d];
+  return (int)cudaMemcpyToSymbol(stx_wg, zeros, sizeof(zeros));
+}
+extern "C" int stx_wg_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, stx_wg, sizeof(unsigned long long) * 6 * %d);
+}
+""" % (MAXC, MAXC, MAXC, MAXC)
 
-KERNEL_ANCHOR = ("  extern __shared__ __align__(128) unsigned char smem[];\n",
-                 "  extern __shared__ __align__(128) unsigned char smem[];\n  StxKernel stx_k;\n", 2)
+KERNEL_ANCHOR = ("  extern __shared__ __align__(128) unsigned char smem[];\n  const int W = all_in.width",
+                 "  extern __shared__ __align__(128) unsigned char smem[];\n  StxKernel stx_k;\n"
+                 "  const int W = all_in.width", 2)
 
 # The GEMM core's anchors: (text to find, its replacement, how many times it occurs).
 CORE_ANCHORS = [
@@ -103,10 +117,38 @@ CORE_ANCHORS = [
      " stx_add_wait(stx_w0, 0); }\n", 1),
 ]
 
+# The weight-gradient GEMM's anchors: the kernel's cycles (1: slab wait, the
+# slab's mbarrier and the block barrier; 3: the math, ldmatrix, masks and
+# wgmma to their retirement; 2: of it, thread 0 issuing the next slab's
+# copies while the wgmma run; 4: the partial store; 5: slabs counted).
+WGRAD_ANCHORS = [
+    ("  const WgTable& t = prm.t;\n", "  const WgTable& t = prm.t;\n  const long long stx_k0 = stx_clock();\n", 1),
+    ("wg_tile<64>(t, L, xm, ym, blockIdx.y, split, rt, ring, full, wpart); break;\n  }\n",
+     "wg_tile<64>(t, L, xm, ym, blockIdx.y, split, rt, ring, full, wpart); break;\n  }\n"
+     "  stx_wg_add(0, stx_k0);\n", 1),
+    ("    mbar_wait(full + b, (s / WG_STAGES) & 1);  // slab s has landed\n"
+     "    __syncthreads();  // slab s - 1's stage is free\n",
+     "    const long long stx_w0 = stx_clock();\n    mbar_wait(full + b, (s / WG_STAGES) & 1);\n"
+     "    __syncthreads();\n    stx_wg_add(1, stx_w0);\n    stx_wg_add(5, 0);\n", 1),
+    ("    if (!active) continue;  // (thread 0 is always active)\n",
+     "    if (!active) continue;\n    const long long stx_m0 = stx_clock();\n", 1),
+    ("      if (threadIdx.x == 0 && s2 < slabs)\n        wg_load<N>(x_map, dy_map, c0, kc, row0 + s2 * WG_P,"
+     " ring + b2 * WG_STAGE, full + b2);\n    }\n",
+     "      const long long stx_l0 = stx_clock();\n      if (threadIdx.x == 0 && s2 < slabs)\n"
+     "        wg_load<N>(x_map, dy_map, c0, kc, row0 + s2 * WG_P, ring + b2 * WG_STAGE, full + b2);\n"
+     "      stx_wg_add(2, stx_l0);\n    }\n", 1),
+    ("      asm volatile(\"\" ::\"r\"(a[k][0]), \"r\"(a[k][1]), \"r\"(a[k][2]), \"r\"(a[k][3]) : \"memory\");\n  }\n"
+     "  if (!active) return;\n",
+     "      asm volatile(\"\" ::\"r\"(a[k][0]), \"r\"(a[k][1]), \"r\"(a[k][2]), \"r\"(a[k][3]) : \"memory\");\n"
+     "    stx_wg_add(3, stx_m0);\n  }\n  const long long stx_s0 = stx_clock();\n  if (!active) return;\n", 1),
+    ("make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);\n  }\n}\n",
+     "make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);\n  }\n  stx_wg_add(4, stx_s0);\n}\n", 1),
+]
+
 
 def instrument(src):
     """fused_mlp.cu's text -> the stamped copy's text."""
-    out = cu_copies.substitute(src, [KERNEL_ANCHOR, *CORE_ANCHORS], "the stamps")
+    out = cu_copies.substitute(src, [KERNEL_ANCHOR, *CORE_ANCHORS, *WGRAD_ANCHORS], "the stamps")
     head = out.index("namespace {")
     return out[:head] + PREAMBLE + out[head:] + EPILOGUE
 
@@ -123,6 +165,23 @@ def split(cyc, n_cta):
             "kernel_cycles": statistics.mean(kernel), "gemm_cycles": statistics.mean(gemm),
             "wait_cycles": statistics.mean(wait), "chunks": statistics.mean(chunks),
             "cycles_per_chunk": statistics.mean(g / max(c, 1) for g, c in zip(gemm, chunks))}
+
+
+def split_wgrad(cyc, n_cta):
+    """Per-CTA stamps of the weight-gradient GEMM -> the shares of its
+    cycles: the slab wait (the slab's mbarrier and the block barrier), the
+    math (ldmatrix, masks, wgmma to retirement) less thread 0's issuing of
+    the next slab's copies inside it, that issuing, the partial store, and
+    the rest."""
+    kernel, wait, issue, math, store, slabs = (cyc[i][:n_cta] for i in range(6))
+    shares = {"wait": [], "issue": [], "wgmma": [], "store": [], "other": []}
+    for k, w, i, m, st in zip(kernel, wait, issue, math, store):
+        for key, v in (("wait", w), ("issue", i), ("wgmma", m - i), ("store", st),
+                       ("other", k - w - m - st)):
+            shares[key].append(v / k)
+    return {"ctas": n_cta, **{f"{k}_share": statistics.mean(v) for k, v in shares.items()},
+            "kernel_cycles": statistics.mean(kernel), "slabs": statistics.mean(slabs),
+            "cycles_per_slab": statistics.mean(k / max(s, 1) for k, s in zip(kernel, slabs))}
 
 
 def main():
@@ -156,6 +215,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="stx_phases_") as out_dir:
         lib = cu_copies.load_in_place(cu_copies.build({"stamped": text}, out_dir)["stamped"])
     lib.stx_phase_read.argtypes = [ctypes.c_void_p]
+    lib.stx_wg_read.argtypes = [ctypes.c_void_p]
 
     cfg = Config(**parse_config_file(os.path.join(root, "startrax", "configs",
                                                   "carla_star_online_multi.txt")))
@@ -185,8 +245,16 @@ def main():
     report["fwd"] = split(read(), n_cta)
     torch.autograd.grad(loss, leaves, retain_graph=True)
     lib.stx_phase_reset()
+    lib.stx_wg_reset()
     torch.autograd.grad(loss, leaves)
     report["bwd"] = split(read(), n_cta)
+    wg = (ctypes.c_ulonglong * (6 * MAXC))()
+    if lib.stx_wg_read(ctypes.addressof(wg)) != 0:
+        raise RuntimeError("stx_wg_read failed")
+    shapes = fm.wgrad_shapes(case[1].width, case[1].n_blocks, fm.EW)
+    lay = fm.wgrad_layout(shapes, n, 1)
+    report["wgrad"] = split_wgrad([wg[i * MAXC:(i + 1) * MAXC] for i in range(6)],
+                                  lay["tiles"] * lay["splits"])
     for side in ("fwd", "bwd"):
         r = report[side]
         print(f"static fine {side}: wait {100 * r['wait_share']:.2f}%, matrix loop "
@@ -194,6 +262,13 @@ def main():
               f"(mean of {r['ctas']} CTAs; {r['kernel_cycles']:.0f} cycles a CTA, "
               f"{r['chunks']:.1f} chunks, {r['cycles_per_chunk']:.0f} cycles a chunk in the core)",
               flush=True)
+    r = report["wgrad"]
+    print(f"static fine wgrad: slab wait {100 * r['wait_share']:.2f}%, copies issued (while the "
+          f"wgmma run) {100 * r['issue_share']:.2f}%, the rest of the math "
+          f"{100 * r['wgmma_share']:.2f}%, partial store "
+          f"{100 * r['store_share']:.2f}%, other {100 * r['other_share']:.2f}% (mean of {r['ctas']} "
+          f"CTAs; {r['kernel_cycles']:.0f} cycles a CTA, {r['slabs']:.1f} slabs, "
+          f"{r['cycles_per_slab']:.0f} cycles a slab)", flush=True)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)
         with open(json_path, "w") as fp:

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Planted faults in the fused-MLP kernels' pre-encoded mode and in their
-GEMM core's weight ring, read through startrax_torch.kernels.parity: the
-readings that set ``parity.ENC_LIMITS``.
+"""Planted faults in the fused-MLP kernels' pre-encoded mode, in their GEMM
+core's weight ring and in the backward's weight-gradient GEMM, read through
+startrax_torch.kernels.parity: the readings that set ``parity.ENC_LIMITS``;
+and, for every build, the weight-gradient GEMM's own reading against its
+plain version (chip_smoke.PART_TOL["wgrad"]).
 
     python3 scripts/torch_planted_faults.py [--json PATH]
 
@@ -59,7 +61,19 @@ FAULTS = {
         ("    mbar_wait(&r->empty[slot], (g / NSLOT) & 1);\n    ring_issue(r);", "", 1)],
     "ring: the stream cursor skips one chunk at each GEMM boundary": [
         ("    r->c = 0;\n    ++r->m;", "    r->c = 1;\n    ++r->m;", 1)],
+    "wgrad: each split runs one point past its end": [
+        ("const long p_end = min((long)t.n, p_begin + (long)t.per_split);",
+         "const long p_end = min((long)t.n, p_begin + (long)t.per_split + 1);", 1)],
+    "wgrad: relu dropped on X": [("if (L.relu) v = __hmax2", "if (false) v = __hmax2", 1)],
+    "wgrad: points past the split's end not zeroed": [
+        ("if (p >= valid) v.x", "if (false) v.x", 1), ("if (p + 1 >= valid) v.y", "if (false) v.y", 1)],
+    "wgrad: dY read without the transpose bit": [("p, 1, 1, 1;", "p, 1, 1, 0;", 3)],
 }
+# the weight-gradient GEMM's own reading: (width, n_blocks, lin_in's rows,
+# fields, points per field) of grouped launches, each against its plain
+# version, scaled by the plain result's largest magnitude
+WGRAD_CASES = [(256, 4, 64, 1, 3000), (256, 4, 96, 1, 65536), (128, 2, 64, 2, 65536),
+               (256, 2, 64, 1, 100000)]
 MEASURES = ("fwd", "fwd_rms", "w", "input", "input_rms")
 
 
@@ -135,7 +149,29 @@ def one(name, so):
             failing.append(f"{label}: {bad} " + ", ".join(f"{k} {errs[k]:.3e}" for k in MEASURES
                                                            if k in errs))
     print(json.dumps({"name": name, "worst": worst, "failing": failing,
-                      "cases": len(all_cases)}), flush=True)
+                      "cases": len(all_cases), "wgrad": wgrad_reading()}), flush=True)
+
+
+def wgrad_reading():
+    """The largest scaled error of the grouped weight-gradient GEMM against
+    its plain version over WGRAD_CASES (random bf16 X and dY)."""
+    import torch
+
+    from startrax_torch.kernels import fused_mlp as fm
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    for width, n_blocks, in_rows, fields, n in WGRAD_CASES:
+        shapes = fm.wgrad_shapes(width, n_blocks, in_rows)
+        xs = [torch.randn((fields, n, k), generator=g, device="cuda").to(torch.bfloat16)
+              for k, _, _ in shapes]
+        dys = [torch.randn((fields, n, m), generator=g, device="cuda").to(torch.bfloat16)
+               for _, _, m in shapes]
+        relus = [r for _, r, _ in shapes]
+        got = fm.wgrad(xs, dys, relus)
+        want = fm.wgrad_grouped_plain(xs, dys, relus, fm.wgrad_layout(shapes, n, fields)["splits"])
+        worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+    return worst
 
 
 def main():
@@ -152,7 +188,11 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    report = {"card": card, "limits": parity.ENC_LIMITS, "builds": {}}
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    part_tol = cs.PART_TOL["wgrad"]
+    report = {"card": card, "limits": parity.ENC_LIMITS, "wgrad_tol": part_tol, "builds": {}}
     with tempfile.TemporaryDirectory(prefix="stx_faults_") as out_dir:
         libs = build_all(os.path.join(HERE, "startrax_torch", "kernels", "csrc", "fused_mlp.cu"),
                          out_dir)
@@ -167,7 +207,8 @@ def main():
             r = json.loads(out.stdout.strip().splitlines()[-1])
             report["builds"][name] = r
             print(f"{name}: worst " + ", ".join(f"{k} {v:.3e}" for k, v in r["worst"].items())
-                  + f"; fails in {len(r['failing'])} of {r['cases']} cases", flush=True)
+                  + f"; fails in {len(r['failing'])} of {r['cases']} cases; wgrad "
+                  f"{r['wgrad']:.3e} (PART_TOL {part_tol})", flush=True)
             for f in r["failing"]:
                 print(f"    {f}", flush=True)
     if "--json" in sys.argv:

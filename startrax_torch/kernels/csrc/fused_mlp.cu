@@ -6,11 +6,12 @@
 // (startrax/kernels/fused_mlp.py:1027) and `_stacked_bwd_kernel`
 // (startrax/kernels/fused_mlp.py:1040). One field is the K = 1 case.
 //
-// Field axis: the grid's y index (z for the weight-gradient GEMM and the
-// partial sums) is the field. Every stacked operand is a contiguous stack of
-// K equal per-field blocks ([K, n, 3] points, [K, in, out] weights, [K, n, W]
-// activations, [K, tiles, total] partials, ...), so field k's block starts k
-// block sizes in; the kernels derive those offsets from n and W.
+// Field axis: the grid's y index (z for the partial sums) is the field.
+// Every stacked operand is a contiguous stack of K equal per-field blocks
+// ([K, n, 3] points, [K, in, out] weights, [K, n, W] activations, [K, tiles,
+// total] partials, ...), so field k's block starts k block sizes in; the
+// kernels derive those offsets from n and W (the weight-gradient GEMM from
+// n and each layer's widths).
 // The BARF masks are shared by all fields.
 //
 // Backward modes: the pose-sum mode (a warped field whose points carry no
@@ -76,9 +77,11 @@
 //   (A) bwd_kernel walks the chain backward per point tile and writes every
 //       layer's bf16 pre-activation grad dY plus per-CTA f32 partials of the
 //       bias grads, the two narrow heads' weight grads and the 12 pose sums;
-//   (B) wgrad_kernel computes dW = X^T dY for every wide layer as a split-N
-//       GEMM, one f32 partial per split;
-//   (C) sum_rows_kernel sums partials in a fixed order.
+//   (B) wgrad_kernel computes dW = relu?(X)^T dY for every wide layer of
+//       the call in one grouped launch, one f32 partial per split of the
+//       points (bound by bytes; its design is at the kernel);
+//   (C) sum_rows_kernel sums the per-CTA partials, and then the split
+//       partials, each in one launch and in a fixed order.
 //   The TPU's stacked backward zeroed each field's weight grads at its first
 //   tile and relied on the grid's order; here each field has its own partials
 //   and its own sums, so the weight grads keep a zero run-to-run spread.
@@ -87,13 +90,12 @@
 //   backward then runs no second forward (about a third of its matmuls), for
 //   about 3 KB a point and field of device memory.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 #include <string.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -1138,77 +1140,407 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   if (tid == 0) ring_drain(ring, feed.g);
 }
 
-// part[field][split][tm*64 + i][tn*64 + j] = sum over this split's points p
-// of X[field][p][tm*64 + i] * dY[field][p][tn*64 + j] (X through relu when
-// relu_x); the field is blockIdx.z, the split blockIdx.y. KTAIL: k_in is an
-// odd multiple of 32 (the pre-encoded X, XW = 96 wide), so the last row tile
-// reads and writes only its first 32 rows.
-template <bool KTAIL>
-__global__ void __launch_bounds__(NT) wgrad_kernel(const bf16* X, int k_in, int relu_x, const bf16* dY,
-                                                   int n_out, long n, long per_split, float* part,
-                                                   long part_stride) {
-  __shared__ __align__(128) bf16 xs[32 * 72];
-  __shared__ __align__(128) bf16 ys[32 * 72];
-  X += (size_t)blockIdx.z * n * k_in;
-  dY += (size_t)blockIdx.z * n * n_out;
-  part += (size_t)blockIdx.z * gridDim.y * part_stride;
-  const int tiles_n = n_out / 64;
-  const int tm = blockIdx.x / tiles_n, tn = blockIdx.x - tm * tiles_n;
-  const long p_begin = (long)blockIdx.y * per_split;
-  const long p_end = min(n, p_begin + per_split);
-  const int warp = threadIdx.x >> 5, rt = warp & 3, cg = warp >> 2;
-  const int lr = threadIdx.x >> 3, lc = (threadIdx.x & 7) * 8;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  for (long p0 = p_begin; p0 < p_end; p0 += 32) {
-    const long p = p0 + lr;
-    uint4 vx = make_uint4(0, 0, 0, 0), vy = make_uint4(0, 0, 0, 0);
-    if (p < p_end) {
-      if (!KTAIL || tm * 64 + lc < k_in) vx = *reinterpret_cast<const uint4*>(X + p * k_in + tm * 64 + lc);
-      vy = *reinterpret_cast<const uint4*>(dY + p * n_out + tn * 64 + lc);
-    }
-    if (relu_x) {
-      bf16* e = reinterpret_cast<bf16*>(&vx);
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (!(__bfloat162float(e[q]) > 0.f)) e[q] = __float2bfloat16(0.f);
-    }
-    __syncthreads();
-    *reinterpret_cast<uint4*>(xs + lr * 72 + lc) = vx;
-    *reinterpret_cast<uint4*>(ys + lr * 72 + lc) = vy;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 32; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::load_matrix_sync(fa, xs + kk * 72 + rt * 16, 72);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, ys + kk * 72 + (cg * 2 + j) * 16, 72);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-  }
-  if (KTAIL && tm * 64 + rt * 16 >= k_in) return;
-  float* dst = part + blockIdx.y * part_stride + (long)(tm * 64 + rt * 16) * n_out + tn * 64;
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(dst + (cg * 2 + j) * 16, acc[j], n_out, wmma::mem_row_major);
+// ---------------------------------------------------------------------------
+// (B) The weight-gradient GEMM: dW = relu?(X)^T dY for every wide layer of
+// one backward call, in one launch (wgrad_kernel).
+//
+// The work is bound by bytes: X and dY are read once, 2 n (k_in + n_out)
+// bf16 a layer, against k_in n_out multiply-adds a point, about 120
+// operations a byte at W = 256 where the card balances at ~295. So the
+// design reads each operand once, at close to device-memory rate:
+// - A CTA owns up to WG_ROWS = 128 rows of one layer's k_in and all its
+//   n_out (<= 256) columns, over one split of the points; its two
+//   warpgroups hold an m64 x n_out f32 accumulator each (128 registers a
+//   thread at n_out = 256). A 256-row layer thus reads its X once and its
+//   dY twice; the two row tiles of a split are neighbours in the grid, so
+//   the second read of dY comes from L2.
+// - Points stream through a WG_STAGES-deep ring of WG_P-point slabs,
+//   WG_STAGES - 1 slabs ahead of the math, with one block barrier a slab.
+//   Thread 0 fills a slab, while its warpgroup's wgmma run, with a few
+//   tensor-memory-accelerator copies of
+//   64 points x 64 columns (X's, then dY's), 128-byte swizzled, under the
+//   stage's "full" mbarrier. (Filling it with 16-byte cp.async instead, or
+//   with copies of 16-byte rows, left the SMs taking in ~2.3 TB/s in all,
+//   most of a CTA's cycles spent issuing copies; PERF.md, PR 6.) A slab may
+//   reach past the split's end into real rows of the next split or field,
+//   or past the tensor, where the copy fills zeros; the A registers of
+//   points past the split's end are zeroed, so they add nothing.
+// - A = X^T comes from the slab's X tiles [point][64 columns] by
+//   ldmatrix.trans into registers, where relu is applied; B = dY is
+//   point-major, that is MN-major for wgmma, read in place from its
+//   swizzled tiles by a descriptor with the transpose bit set.
+// - Every (field, layer, row tile, split) is one CTA of one launch; the
+//   layer table (WgTable) is the kernel's parameter, by value. Each split
+//   writes its own f32 partial, so the sums (C) fix the order and the
+//   weight grads keep a zero run-to-run spread.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_MAXL = 2 * MAXB + 5;  // wide layers of a backward call, at most
+constexpr int WG_P = 64;               // points a slab
+constexpr int WG_STAGES = 4;           // slabs in the ring
+constexpr int WG_ROWS = 128;           // output rows (columns of X) a CTA: two warpgroups of 64
+constexpr int WG_NMAX = 256;           // widest dY
+constexpr int WG_BLK = WG_P * 64;      // elements of a tile: 64 points x 64 columns, 128-byte rows
+constexpr int WG_STAGE = (WG_ROWS + WG_NMAX) / 64 * WG_BLK;  // elements of a stage: X, then dY tiles
+
+// One wide layer: X [fields, n, k_in] and dY [fields, n, n_out] bf16; its
+// [k_in][n_out] partial sits wofs floats into each split's row of wpart.
+// tile0: the row tiles (ceil(k_in / WG_ROWS)) of the layers before it.
+struct WgLayer {
+  const bf16* x;
+  const bf16* dy;
+  long long wofs;
+  int k_in, n_out, relu, tile0;
+};
+
+// The layer table of one launch (the Python wrapper builds it, fused_mlp.py
+// _WgTable). per_split = ceil(n / splits); wtotal: floats in a split's row;
+// tiles: the row tiles of all layers, the CTAs of one split and field.
+struct WgTable {
+  WgLayer l[WG_MAXL];
+  long long n, per_split, wtotal;
+  int n_layers, splits, tiles;
+};
+
+// The kernel's parameter: the table and, for each layer, the tensor maps of
+// its X [fields * n][k_in] and dY [fields * n][n_out]. A copy moves a tile
+// of 64 points x 64 columns into 64 rows of 128 bytes, 128-byte swizzled:
+// the 16-byte chunk c of row r lands at chunk c ^ (r % 8).
+struct WgParams {
+  WgTable t;
+  CUtensorMap x_map[WG_MAXL], dy_map[WG_MAXL];
+};
+
+// 1 KB of slack to align the ring to the swizzle's 1,024-byte pattern.
+size_t wgrad_smem() {
+  return sizeof(bf16) * WG_STAGES * WG_STAGE + sizeof(unsigned long long) * WG_STAGES + 1024;
 }
 
-// out[field][chunk][c] = sum of in[field][r][c] over rows r of the chunk, in
-// row order; the field is blockIdx.z, so no chunk spans two fields.
-__global__ void sum_rows_kernel(const float* in, int rows, long cols, int rows_per_chunk, float* out) {
-  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  in += (size_t)blockIdx.z * rows * cols;
-  out += (size_t)blockIdx.z * gridDim.y * cols;
-  const int r0 = blockIdx.y * rows_per_chunk;
-  const int r1 = min(rows, r0 + rows_per_chunk);
-  float s = 0.f;
-  for (int r = r0; r < r1; ++r) s += in[(long)r * cols + c];
-  out[(long)blockIdx.y * cols + c] = s;
+// wgmma m64nNk16, D (f32, registers) += A (bf16, registers) B (bf16, shared
+// memory through desc), B MN-major (the transpose bit set).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a, uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<256>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
+        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+
+// Shared-memory descriptor of an MN-major operand in 128-byte swizzled
+// tiles: the next 64 columns (the next tile) at lbo bytes, the next 8 rows
+// along K at sbo bytes.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, int lbo, int sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, int col, int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// Starts copying the slab of rows [row, row + WG_P) (thread 0): X's columns
+// [c0, c0 + kc) as ceil(kc / 64) tiles (zeros past k_in), then dY's N / 64
+// tiles, under the stage's "full" barrier.
+template <int N>
+__device__ __forceinline__ void wg_load(const CUtensorMap* x_map, const CUtensorMap* dy_map, int c0, int kc,
+                                        int row, bf16* stage, unsigned long long* full) {
+  const uint32_t bar = smem_u32(full);
+  const int xt = (kc + 63) / 64;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"((xt + N / 64) * WG_BLK * (int)sizeof(bf16))
+               : "memory");
+  for (int i = 0; i < xt; ++i) tma_tile(stage + i * WG_BLK, x_map, c0 + 64 * i, row, bar);
+#pragma unroll
+  for (int j = 0; j < N / 64; ++j) tma_tile(stage + (WG_ROWS / 64 + j) * WG_BLK, dy_map, 64 * j, row, bar);
+}
+
+// One CTA's tile: rows [c0, c0 + 128) of layer L's dW for one field and
+// split, written to its partial in wpart. Warpgroup wg computes rows
+// c0 + 64 wg .. + 63 (warp wr of it 16 of them, as gemm_core) from X tile
+// wg of each slab.
+template <int N>
+__device__ void wg_tile(const WgTable& t, const WgLayer& L, const CUtensorMap* x_map, const CUtensorMap* dy_map,
+                        int field, int split, int rt, bf16* ring, unsigned long long* full, float* wpart) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wr = warp & 3;
+  const int c0 = rt * WG_ROWS, kc = min(WG_ROWS, L.k_in - c0);
+  const bool active = 64 * wg < kc;
+  const long p_begin = min((long)t.n, (long)(split * t.per_split));
+  const long p_end = min((long)t.n, p_begin + (long)t.per_split);
+  const int slabs = (int)((p_end - p_begin + WG_P - 1) / WG_P);
+  const int row0 = (int)((long)field * t.n + p_begin);  // the split's first row of the maps
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  if (threadIdx.x == 0)
+    for (int s = 0; s < WG_STAGES - 1 && s < slabs; ++s)
+      wg_load<N>(x_map, dy_map, c0, kc, row0 + s * WG_P, ring + s * WG_STAGE, full + s);
+  // this lane's ldmatrix row of a k16 step: point (lane % 8) + 8 (lane / 16),
+  // columns 16 wr + 8 ((lane / 8) % 2) of X tile wg, its chunk swizzled by the point
+  const int xoff = wg * WG_BLK + ((lane & 7) + 8 * (lane >> 4)) * 64 +
+                   8 * ((2 * wr + ((lane >> 3) & 1)) ^ (lane & 7));
+  // the points of this thread's A registers: 2 (lane % 4) + 8 (q / 2) + {0, 1} of each k16 step
+  const int pt = 2 * (lane & 3);
+  for (int s = 0; s < slabs; ++s) {
+    const int b = s % WG_STAGES;
+    mbar_wait(full + b, (s / WG_STAGES) & 1);  // slab s has landed
+    __syncthreads();  // slab s - 1's stage is free
+    if (!active) continue;  // (thread 0 is always active)
+    const bf16* xs = ring + b * WG_STAGE + xoff;
+    const bf16* ys = ring + b * WG_STAGE + (WG_ROWS / 64) * WG_BLK;
+    // points of the slab past the split's end (the last slab) hold rows of
+    // the next split or zeros: their X is zeroed, so they add nothing
+    const int valid = (int)min((long)WG_P, p_end - p_begin - (long)s * WG_P);
+    uint32_t a[WG_P / 16][4];
+#pragma unroll
+    for (int k = 0; k < WG_P / 16; ++k) {
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(a[k][0]), "=r"(a[k][1]), "=r"(a[k][2]), "=r"(a[k][3])
+                   : "r"(smem_u32(xs + 16 * k * 64)));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&a[k][q]);
+        if (L.relu) v = __hmax2(v, __float2bfloat162_rn(0.f));
+        const int p = 16 * k + 8 * (q >> 1) + pt;
+        if (p >= valid) v.x = __float2bfloat16(0.f);
+        if (p + 1 >= valid) v.y = __float2bfloat16(0.f);
+        a[k][q] = *reinterpret_cast<uint32_t*>(&v);
+      }
+    }
+    fence_acc<N>(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < WG_P / 16; ++k)  // k16 step k: rows 16 k .. + 15 of each dY tile, 2 x 1,024 bytes
+      wgmma_rs_tb<N>(acc, a[k], sw128_desc(ys + 16 * k * 64, WG_BLK * (int)sizeof(bf16), 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    {  // while the wgmma run, the copies of slab s + WG_STAGES - 1 into slab s - 1's stage
+      const int s2 = s + WG_STAGES - 1, b2 = s2 % WG_STAGES;
+      if (threadIdx.x == 0 && s2 < slabs)
+        wg_load<N>(x_map, dy_map, c0, kc, row0 + s2 * WG_P, ring + b2 * WG_STAGE, full + b2);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc<N>(acc);
+#pragma unroll
+    for (int k = 0; k < WG_P / 16; ++k)  // the A registers live until the wgmma retired
+      asm volatile("" ::"r"(a[k][0]), "r"(a[k][1]), "r"(a[k][2]), "r"(a[k][3]) : "memory");
+  }
+  if (!active) return;
+  float* dst = wpart + ((size_t)field * t.splits + split) * t.wtotal + L.wofs;
+  const int row = c0 + 64 * wg + 16 * wr + (lane >> 2), col = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= L.k_in) continue;
+    float* d = dst + (size_t)(row + 8 * h) * N + col;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(d + 8 * j) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// wpart [field][split][t.wtotal]: blockIdx.y is the field; blockIdx.x runs
+// over the layers in table order, each over its splits, each split over its
+// row tiles (the two row tiles of a split side by side).
+__global__ void __launch_bounds__(NT, 1) wgrad_kernel(const __grid_constant__ WgParams prm, float* wpart) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WgTable& t = prm.t;
+  // [WG_STAGES][WG_STAGE] slabs, 1,024-byte aligned: X tiles, then dY tiles
+  bf16* ring = reinterpret_cast<bf16*>(smem + ((1024 - (smem_u32(smem) & 1023)) & 1023));
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(ring + WG_STAGES * WG_STAGE);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(full + s)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int bid = blockIdx.x;
+  int l = 0;
+  while (l + 1 < t.n_layers && bid >= t.l[l + 1].tile0 * t.splits) ++l;
+  const WgLayer L = t.l[l];
+  const int rows = (L.k_in + WG_ROWS - 1) / WG_ROWS;
+  const int local = bid - L.tile0 * t.splits, split = local / rows, rt = local - split * rows;
+  const CUtensorMap *xm = prm.x_map + l, *ym = prm.dy_map + l;
+  switch (L.n_out) {
+    case 256: wg_tile<256>(t, L, xm, ym, blockIdx.y, split, rt, ring, full, wpart); break;
+    case 128: wg_tile<128>(t, L, xm, ym, blockIdx.y, split, rt, ring, full, wpart); break;
+    default: wg_tile<64>(t, L, xm, ym, blockIdx.y, split, rt, ring, full, wpart); break;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (C) Ordered sums: out[field][c] = the sum over rows r of in[field][r][c],
+// one launch a sum (sum_rows_kernel).
+//
+// Bound by bytes: each input float is read once. A CTA owns a slab of
+// SR_COLS columns (a float4 a thread) and a chunk of rows, and sums it with
+// SR_ACC independent accumulators (row r0 + SR_ACC i + j into the j-th),
+// added in a fixed order. With one chunk it writes the result; otherwise it
+// writes its chunk's sum to scratch, and the last CTA of the slab to arrive
+// (a counter the wrapper keeps zeroed; that CTA sets it back to 0) adds the
+// chunk sums in chunk order. The order depends only on the shapes, so the
+// result does not depend on scheduling.
+// ---------------------------------------------------------------------------
+
+constexpr int SR_T = 256;         // threads of a CTA
+constexpr int SR_COLS = 4 * SR_T;  // columns of a slab
+constexpr int SR_ACC = 8;         // independent accumulators a thread
+
+__device__ __forceinline__ void add4(float4& a, const float4 b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+
+// ((a0 + a1) + (a2 + a3)) + ((a4 + a5) + (a6 + a7)), componentwise
+__device__ __forceinline__ float4 sum_acc(float4* a) {
+#pragma unroll
+  for (int step = 1; step < SR_ACC; step *= 2)
+#pragma unroll
+    for (int j = 0; j < SR_ACC; j += 2 * step) add4(a[j], a[j + step]);
+  return a[0];
+}
+
+__global__ void __launch_bounds__(SR_T) sum_rows_kernel(const float* in, int rows, long long cols,
+                                                         int rows_per_chunk, float* scratch,
+                                                         unsigned* counters, float* out) {
+  const int slab = blockIdx.x, chunk = blockIdx.y, field = blockIdx.z, chunks = gridDim.y;
+  const long long c = (long long)slab * SR_COLS + 4 * threadIdx.x;
+  const bool ok = c < cols;
+  in += (size_t)field * rows * cols;
+  const int r0 = min(rows, chunk * rows_per_chunk), r1 = min(rows, r0 + rows_per_chunk);
+  float4 a[SR_ACC];
+#pragma unroll
+  for (int j = 0; j < SR_ACC; ++j) a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (ok) {
+    int r = r0;
+    for (; r + SR_ACC <= r1; r += SR_ACC)
+#pragma unroll
+      for (int j = 0; j < SR_ACC; ++j) add4(a[j], __ldg(reinterpret_cast<const float4*>(in + (size_t)(r + j) * cols + c)));
+#pragma unroll
+    for (int j = 0; j < SR_ACC - 1; ++j)
+      if (r + j < r1) add4(a[j], __ldg(reinterpret_cast<const float4*>(in + (size_t)(r + j) * cols + c)));
+  }
+  const float4 s = sum_acc(a);
+  if (chunks == 1) {
+    if (ok) *reinterpret_cast<float4*>(out + (size_t)field * cols + c) = s;
+    return;
+  }
+  if (ok) __stcg(reinterpret_cast<float4*>(scratch + ((size_t)field * chunks + chunk) * cols + c), s);
+  __threadfence();
+  __syncthreads();
+  __shared__ bool last;
+  unsigned* counter = counters + (size_t)field * gridDim.x + slab;
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == (unsigned)chunks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (ok) {
+#pragma unroll
+    for (int j = 0; j < SR_ACC; ++j) a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* sc = scratch + (size_t)field * chunks * cols + c;
+    int k = 0;
+    for (; k + SR_ACC <= chunks; k += SR_ACC)
+#pragma unroll
+      for (int j = 0; j < SR_ACC; ++j) add4(a[j], __ldcg(reinterpret_cast<const float4*>(sc + (size_t)(k + j) * cols)));
+#pragma unroll
+    for (int j = 0; j < SR_ACC - 1; ++j)
+      if (k + j < chunks) add4(a[j], __ldcg(reinterpret_cast<const float4*>(sc + (size_t)(k + j) * cols)));
+    *reinterpret_cast<float4*>(out + (size_t)field * cols + c) = sum_acc(a);
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link
+// against libcuda); null where the driver lacks it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 // The pre-encoded mode takes one field, no warp or mask, and encoded widths
@@ -1293,28 +1625,69 @@ int stx_enc_width() { return EW; }
 // Padded width of the pre-encoded point features (lin_in's rows in that mode).
 int stx_enc_in_width() { return XW; }
 
-// X [fields, n, k_in], dY [fields, n, n_out] -> part, rows of part_stride
-// floats, [fields, splits] of them. k_in a multiple of 32, n_out of 64.
-int stx_wgrad(const void* X, int k_in, int relu_x, const void* dY, int n_out, long long n, int splits,
-              int fields, void* part, long long part_stride, void* stream) {
-  if (k_in % 32 != 0 || n_out % 64 != 0) return (int)cudaErrorInvalidValue;
-  const long per_split = (long)((n + splits - 1) / splits);
-  dim3 grid(((k_in + 63) / 64) * (n_out / 64), splits, fields);
-  const auto kernel = k_in % 64 != 0 ? wgrad_kernel<true> : wgrad_kernel<false>;
-  kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const bf16*>(X), k_in, relu_x, reinterpret_cast<const bf16*>(dY), n_out, (long)n,
-      per_split, reinterpret_cast<float*>(part), (long)part_stride);
+// The weight-gradient GEMM of one backward call: the table's (a WgTable) layers over
+// `fields` fields -> wpart [fields, t.splits, t.wtotal] f32. Checks the
+// table's shapes and bookkeeping and refuses one it does not take.
+int stx_wgrad(const void* table, int fields, void* wpart, void* stream) {
+  WgParams prm;  // the launch copies it
+  prm.t = *reinterpret_cast<const WgTable*>(table);
+  const WgTable* t = &prm.t;
+  if (t->n_layers < 1 || t->n_layers > WG_MAXL || t->splits < 1 || t->n < 0 || fields < 1 ||
+      t->per_split * t->splits < t->n)
+    return (int)cudaErrorInvalidValue;
+  long long wofs = 0;
+  int tile0 = 0;
+  for (int i = 0; i < t->n_layers; ++i) {
+    const WgLayer& L = t->l[i];
+    const int n_out = L.n_out;
+    if ((n_out != 64 && n_out != 128 && n_out != 256) || L.k_in <= 0 || L.k_in % 16 != 0 ||
+        L.wofs != wofs || L.tile0 != tile0 || L.x == nullptr || L.dy == nullptr)
+      return (int)cudaErrorInvalidValue;
+    wofs += (long long)L.k_in * n_out;
+    tile0 += (L.k_in + WG_ROWS - 1) / WG_ROWS;
+  }
+  if (wofs != t->wtotal || tile0 != t->tiles) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  for (int i = 0; i < t->n_layers && t->n > 0; ++i) {  // without points, the CTAs only write zeros
+    const WgLayer& L = t->l[i];
+    const struct { CUtensorMap* map; const bf16* p; int cols; } ops[2] = {{&prm.x_map[i], L.x, L.k_in},
+                                                                          {&prm.dy_map[i], L.dy, L.n_out}};
+    for (const auto& op : ops) {
+      const cuuint64_t dims[2] = {(cuuint64_t)op.cols, (cuuint64_t)fields * t->n};
+      const cuuint64_t strides[1] = {(cuuint64_t)op.cols * sizeof(bf16)};
+      const cuuint32_t box[2] = {64, WG_P}, one[2] = {1, 1};
+      if (encode(op.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(op.p), dims, strides, box, one,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wgrad_smem());
+    attr = true;
+  }
+  const dim3 grid((unsigned)(t->tiles * t->splits), (unsigned)fields);
+  wgrad_kernel<<<grid, NT, wgrad_smem(), (cudaStream_t)stream>>>(prm, reinterpret_cast<float*>(wpart));
   return (int)cudaGetLastError();
 }
 
-// in [fields, rows, cols] -> out [fields, ceil(rows / rows_per_chunk), cols].
-int stx_sum_rows(const void* in, int rows, long long cols, int rows_per_chunk, int fields, void* out,
-                 void* stream) {
-  const int chunks = (rows + rows_per_chunk - 1) / rows_per_chunk;
-  dim3 grid((unsigned)((cols + 255) / 256), chunks, fields);
-  if (cols > 0 && chunks > 0 && fields > 0)
-    sum_rows_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float*>(in), rows, (long)cols, rows_per_chunk, reinterpret_cast<float*>(out));
+// in [fields, rows, cols] f32 (cols a multiple of 4, 16-byte aligned) -> out
+// [fields, cols], the rows summed in `chunks` chunks. With chunks > 1,
+// scratch holds [fields, chunks, cols] floats and counters fields *
+// ceil(cols / SR_COLS) zeros (left zero again).
+int stx_sum_rows(const void* in, int rows, long long cols, int fields, int chunks, void* scratch,
+                 void* counters, void* out, void* stream) {
+  if (cols % 4 != 0 || rows < 0 || chunks < 1 || (chunks > 1 && (scratch == nullptr || counters == nullptr)) ||
+      reinterpret_cast<uintptr_t>(in) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int rows_per_chunk = rows > chunks ? (rows + chunks - 1) / chunks : 1;
+  const dim3 grid((unsigned)((cols + SR_COLS - 1) / SR_COLS), chunks, fields);
+  if (cols > 0 && fields > 0)
+    sum_rows_kernel<<<grid, SR_T, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float*>(in), rows, cols, rows_per_chunk, reinterpret_cast<float*>(scratch),
+        reinterpret_cast<unsigned*>(counters), reinterpret_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -21,9 +21,10 @@ what bounds the kernels on the card and how the design answers it.
   pre-encoded features, "stacked_fwd" and "stacked_bwd" for
   ``fused_stacked_apply``; once per forward call and once per backward call
   (one backward call launches the per-tile backward and, when a weight
-  needs a grad, the weight-gradient GEMMs and the partial sums, which
-  ``wgrad`` and ``sum_rows`` count in ``part_launches``, each with its
-  plain version).
+  needs a grad, one weight-gradient GEMM over every wide layer and two
+  ordered sums, of the per-tile and of the per-split partials (one when
+  only a pose grad is needed), which ``wgrad`` and ``sum_rows`` count in
+  ``part_launches``, each with its plain version).
 - Every wide weight matrix reaches the kernels packed for their weight
   ring (``pack_chunks``, ``pack_offset``): KC-row chunks of wgmma core
   matrices, one contiguous bulk copy each.
@@ -231,9 +232,9 @@ def _lib():
         for fn in (lib.stx_fused_fwd, lib.stx_fused_bwd):
             fn.argtypes = [pp, pi, vp]
             fn.restype = ci
-        lib.stx_wgrad.argtypes = [vp, ci, ci, vp, ci, cll, ci, ci, vp, cll, vp]
+        lib.stx_wgrad.argtypes = [vp, ci, vp, vp]
         lib.stx_wgrad.restype = ci
-        lib.stx_sum_rows.argtypes = [vp, ci, cll, ci, ci, vp, vp]
+        lib.stx_sum_rows.argtypes = [vp, ci, cll, ci, ci, vp, vp, vp, vp]
         lib.stx_sum_rows.restype = ci
         lib.stx_partial_offset.argtypes = [ci, ci, ctypes.c_char_p]
         lib.stx_partial_offset.restype = ci
@@ -264,72 +265,161 @@ def _call(fn, tensors, ints, stream, what):
     _check(fn(ptrs, iv, stream), what)
 
 
-def sum_rows_plain(src, rows_per_chunk: int):
+# The ordered sums' layout in csrc/fused_mlp.cu: columns a CTA (SR_COLS) and
+# the CTAs one sum aims at (about two for each of an H100's 132 SMs).
+SUM_COLS = 1024
+SUM_CTAS = 264
+SUM_MAX_CHUNKS = 64
+_sum_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def sum_rows_plain(src):
     """Plain version of sum_rows."""
-    K, rows, cols = src.shape
-    chunks = math.ceil(rows / rows_per_chunk)
-    pad = src.new_zeros((K, chunks * rows_per_chunk - rows, cols))
-    return torch.cat([src, pad], 1).reshape(K, chunks, rows_per_chunk, cols).sum(2)
+    return src.sum(1)
 
 
-def sum_rows(src, rows_per_chunk: int):
-    """src [K, rows, cols] f32 (cols contiguous, rows at stride cols) -> [K,
-    ceil(rows / rows_per_chunk), cols]: each chunk of rows summed, in row
-    order on the card (sum_rows_kernel). A CPU tensor takes sum_rows_plain."""
+def sum_rows_chunks(rows: int, cols: int, fields: int) -> int:
+    """The row chunks of sum_rows' launch: enough CTAs (fields x column slabs
+    x chunks) to fill the card, at most SUM_MAX_CHUNKS, at least 8 rows a
+    chunk. A function of the shapes alone, so the order of the sum is too."""
+    ctas = fields * -(-cols // SUM_COLS)
+    return max(1, min(-(-SUM_CTAS // ctas), SUM_MAX_CHUNKS, rows // 8))
+
+
+def sum_rows(src):
+    """src [K, rows, cols] f32 (contiguous, cols a multiple of 4) -> [K,
+    cols], the rows summed in one launch (sum_rows_kernel): each CTA sums a
+    slab of columns over a chunk of rows in a fixed order, and the last CTA
+    of a slab to finish adds the chunk sums in chunk order, so the result
+    does not depend on scheduling. A CPU tensor takes sum_rows_plain."""
     if src.device.type == "cpu":
-        return sum_rows_plain(src, rows_per_chunk)
+        return sum_rows_plain(src)
+    if src.dim() != 3 or src.dtype != torch.float32 or not src.is_contiguous() \
+            or src.shape[2] % 4 != 0:
+        raise ValueError("sum_rows takes a contiguous float32 [K, rows, cols] tensor, cols a "
+                         "multiple of 4")
     K, rows, cols = src.shape
-    if src.dtype != torch.float32 or not src.is_contiguous():
-        raise ValueError("sum_rows takes a contiguous float32 [K, rows, cols] tensor")
-    out = torch.empty((K, math.ceil(rows / rows_per_chunk), cols), dtype=torch.float32,
+    chunks = sum_rows_chunks(rows, cols, K)
+    # the result [K, cols], then with chunks > 1 the chunk sums [K, chunks, cols]
+    buf = torch.empty(K * cols * (1 + (chunks if chunks > 1 else 0)), dtype=torch.float32,
                       device=src.device)
-    _check(_lib().stx_sum_rows(src.data_ptr(), rows, cols, rows_per_chunk, K, out.data_ptr(),
-                               torch.cuda.current_stream(src.device).cuda_stream),
+    scratch = counters = None
+    if chunks > 1:
+        scratch = buf.data_ptr() + 4 * K * cols
+        need = K * -(-cols // SUM_COLS)
+        counters = _sum_counters.get(src.device)
+        if counters is None or counters.numel() < need:
+            # zeros the kernel leaves zero: each slab's last CTA resets its counter
+            counters = torch.zeros(need, dtype=torch.int32, device=src.device)
+            _sum_counters[src.device] = counters
+        counters = counters.data_ptr()
+    _check(_lib().stx_sum_rows(src.data_ptr(), rows, cols, K, chunks, scratch, counters,
+                               buf.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream),
            "fused MLP partial sums")
     part_launches["sum_rows"] += 1
-    return out
+    return buf[:K * cols].view(K, cols)
+
+
+# wgrad_kernel's tiling in csrc/fused_mlp.cu: output rows (columns of X) a
+# CTA, and the most layers of its table; and an H100's SMs, which the split
+# rule fills about twice with one CTA each.
+WG_ROWS = 128
+WG_MAXL = 2 * MAX_BLOCKS + 5
+SMS = 132
+
+
+class _WgLayer(ctypes.Structure):
+    """struct WgLayer of csrc/fused_mlp.cu."""
+    _fields_ = [("x", ctypes.c_void_p), ("dy", ctypes.c_void_p), ("wofs", ctypes.c_longlong),
+                ("k_in", ctypes.c_int), ("n_out", ctypes.c_int), ("relu", ctypes.c_int),
+                ("tile0", ctypes.c_int)]
+
+
+class _WgTable(ctypes.Structure):
+    """struct WgTable of csrc/fused_mlp.cu: the layer table in the kernel's parameter."""
+    _fields_ = [("l", _WgLayer * WG_MAXL), ("n", ctypes.c_longlong),
+                ("per_split", ctypes.c_longlong), ("wtotal", ctypes.c_longlong),
+                ("n_layers", ctypes.c_int), ("splits", ctypes.c_int), ("tiles", ctypes.c_int)]
+
+
+def wgrad_splits(n: int, tiles: int) -> int:
+    """Splits of the n points for a launch of `tiles` CTAs a split (row
+    tiles of every layer and field): about two waves of one CTA on each of
+    an H100's SMS SMs, and at least 1,024 points a split. A function of the
+    shapes alone, so that wgrad_plain partitions the points the same way."""
+    return max(1, min(2 * SMS // tiles, n // 1024))
+
+
+def wgrad_split_bounds(n: int, splits: int):
+    """[(begin, end)] of each split's points: per = ceil(n / splits) points
+    each, the last ones short or empty."""
+    per = -(-n // splits)
+    return [(min(n, i * per), min(n, (i + 1) * per)) for i in range(splits)]
+
+
+def wgrad_layout(shapes, n: int, fields: int):
+    """The host side of wgrad_kernel's layer table for layers [(k_in, relu,
+    n_out)] on `fields` fields of n points: each layer's (k_in, n_out, relu,
+    wofs, tile0), wofs its partial's offset in a split's row and tile0 the
+    row tiles (ceil(k_in / WG_ROWS)) of the layers before it; the row tiles
+    of all layers (``tiles``), the split count, points a split and floats a
+    split's row (``wtotal``)."""
+    layers, wofs, tile0 = [], 0, 0
+    for k_in, relu, n_out in shapes:
+        layers.append((k_in, n_out, int(relu), wofs, tile0))
+        wofs += k_in * n_out
+        tile0 += -(-k_in // WG_ROWS)
+    splits = wgrad_splits(n, fields * tile0)
+    return {"layers": layers, "tiles": tile0, "splits": splits, "per_split": -(-n // splits),
+            "wtotal": wofs}
 
 
 def wgrad_plain(X, relu_x: bool, dY, splits: int):
-    """Plain version of wgrad: [K, splits, k_in * n_out] f32 partials."""
-    K, n, k_in = X.shape
-    per = math.ceil(n / splits)
+    """Plain version of one layer's wgrad: [K, splits, k_in * n_out] f32
+    partials, split i the sum over its points (wgrad_split_bounds)."""
+    K, n, _ = X.shape
     x = X.float().clamp(min=0) if relu_x else X.float()
-    parts = [x[:, i * per:(i + 1) * per].transpose(1, 2) @ dY[:, i * per:(i + 1) * per].float()
-             for i in range(splits)]
+    parts = [x[:, a:b].transpose(1, 2) @ dY[:, a:b].float()
+             for a, b in wgrad_split_bounds(n, splits)]
     return torch.stack(parts, 1).reshape(K, splits, -1)
 
 
-def wgrad(X, relu_x: bool, dY, splits: int, out=None):
-    """dW = X^T dY of one wide layer per field, as splits partials: X [K, n,
-    k_in] and dY [K, n, n_out] bf16 (relu applied to X when relu_x) -> [K,
-    splits, k_in * n_out] f32, partial i the sum over points [i per, (i + 1)
-    per), per = ceil(n / splits) (wgrad_kernel). ``out``, a [K, splits, >=
-    k_in * n_out] float32 view with unit column stride, receives it (the
-    backward packs every layer's partials side by side). A CPU tensor takes
-    wgrad_plain."""
-    K, n, k_in = X.shape
-    if X.device.type == "cpu":
-        res = wgrad_plain(X, relu_x, dY, splits)
-        if out is None:
-            return res
-        out[..., :res.shape[2]] = res
-        return out[..., :res.shape[2]]
-    n_out = dY.shape[2]
-    if out is None:
-        out = torch.empty((K, splits, k_in * n_out), dtype=torch.float32, device=X.device)
-    if (X.dtype != torch.bfloat16 or dY.dtype != torch.bfloat16 or not X.is_contiguous()
-            or not dY.is_contiguous() or tuple(dY.shape[:2]) != (K, n) or out.dtype != torch.float32
-            or out.shape[:2] != (K, splits) or out.shape[2] < k_in * n_out or out.stride(2) != 1
-            or out.stride(0) != splits * out.stride(1)):
-        raise ValueError("wgrad takes contiguous bf16 X [K, n, k_in], dY [K, n, n_out] and a "
-                         "float32 out [K, splits, >= k_in * n_out] with unit column stride")
-    _check(_lib().stx_wgrad(X.data_ptr(), k_in, int(relu_x), dY.data_ptr(), n_out, n, splits, K,
-                            out.data_ptr(), out.stride(1),
-                            torch.cuda.current_stream(X.device).cuda_stream),
+def wgrad_grouped_plain(xs, dys, relus, splits: int):
+    """Plain version of wgrad: the layers' wgrad_plain partials side by side."""
+    return torch.cat([wgrad_plain(X, r, dY, splits) for X, dY, r in zip(xs, dys, relus)], -1)
+
+
+def wgrad(xs, dys, relus):
+    """dW = relu?(X)^T dY of every wide layer of one backward call, in one
+    launch (wgrad_kernel): xs [K, n, k_in] and dys [K, n, n_out] bf16, one
+    pair a layer, relu applied to X where relus says -> [K, splits,
+    wtotal] f32, split i's row holding every layer's [k_in, n_out] partial
+    over its points (wgrad_split_bounds), layer after layer
+    (wgrad_layout's wofs). A CPU tensor takes wgrad_grouped_plain."""
+    K, n = xs[0].shape[:2]
+    lay = wgrad_layout([(X.shape[2], r, dY.shape[2]) for X, dY, r in zip(xs, dys, relus)], n, K)
+    if xs[0].device.type == "cpu":
+        return wgrad_grouped_plain(xs, dys, relus, lay["splits"])
+    dev = xs[0].device
+    if not 0 < len(xs) == len(dys) == len(relus) <= WG_MAXL:
+        raise ValueError(f"wgrad takes 1 to {WG_MAXL} layers, one X and dY each")
+    for X, dY in zip(xs, dys):
+        if (X.dtype != torch.bfloat16 or dY.dtype != torch.bfloat16 or X.device != dev
+                or dY.device != dev or not X.is_contiguous() or not dY.is_contiguous()
+                or X.shape[:2] != (K, n) or dY.shape[:2] != (K, n) or X.shape[2] % 16 != 0
+                or dY.shape[2] not in (64, 128, 256)):
+            raise ValueError("wgrad takes contiguous bf16 X [K, n, k_in] (k_in a multiple of "
+                             "16) and dY [K, n, n_out] (n_out 64, 128 or 256) on one device")
+    t = _WgTable(n=n, per_split=lay["per_split"], wtotal=lay["wtotal"], n_layers=len(xs),
+                 splits=lay["splits"], tiles=lay["tiles"])
+    for i, (X, dY, (k_in, n_out, relu, wofs, tile0)) in enumerate(zip(xs, dys, lay["layers"])):
+        t.l[i] = _WgLayer(X.data_ptr(), dY.data_ptr(), wofs, k_in, n_out, relu, tile0)
+    out = torch.empty((K, lay["splits"], lay["wtotal"]), dtype=torch.float32, device=dev)
+    _check(_lib().stx_wgrad(ctypes.addressof(t), K, out.data_ptr(),
+                            torch.cuda.current_stream(dev).cuda_stream),
            "fused MLP weight-gradient GEMM")
     part_launches["wgrad"] += 1
-    return out[..., :k_in * n_out]
+    return out
 
 
 def wgrad_shapes(width: int, n_blocks: int, in_rows: int):
@@ -422,18 +512,14 @@ def _param_shapes(width: int, n_blocks: int, in_ch: int, view_ch: int):
     return shapes
 
 
-def wgrad_splits(n: int) -> int:
-    """The backward's split count of the weight-gradient GEMMs for n points."""
-    return max(1, min(64, n // 2048))
-
-
 class _FusedMLP(torch.autograd.Function):
     """K fields of one shape through the kernels, on x, d [K, N, 3] (or, with
     pe=None, one field's pre-encoded x_emb [1, N, in_ch], d_emb [1, N,
     view_ch]), an optional packed warp [K, 16] and stacked weights [K, ...].
     Forward: the forward kernel, saving bf16 activations when ``save``.
     Backward: the per-tile backward kernel; then, when a weight needs a grad,
-    one split-N GEMM per wide layer and the deterministic partial sums. When
+    one grouped split-N GEMM over the wide layers and the deterministic
+    partial sums. When
     x or d needs a grad the backward writes per-point dx, dd; otherwise a
     warp's grad is dM = M G, dt = M s from the kernel's pose sums.
     ``counter`` names the launch counters ("", "stacked_" or "enc_")."""
@@ -498,22 +584,15 @@ class _FusedMLP(torch.autograd.Function):
 
         grads = [None] * n_w
         if w_grads or (pose_grad and not in_grads):
-            mid = sum_rows(part, 128)
-            ps = sum_rows(mid, mid.shape[1])[:, 0]
+            ps = sum_rows(part)
         if w_grads:
             # dW = X^T dY for every wide layer, the X and dY of wgrad_shapes
             h_acts, h_last, ho, feat = acts[:2 * n_blocks], acts[-4], acts[-3], acts[-2]
             xs = [xe, *h_acts, h_last, ho, feat, de]
             dys = [d_in, *d_blocks, d_out, d_f, d_v, d_v]
-            sizes = [k * m for k, _, m in wgrad_shapes(width, n_blocks, in_rows)]
-            splits = wgrad_splits(n)
-            wpart = torch.empty((K, splits, sum(sizes)), dtype=f32, device=dev)
-            start = 0
-            for X, dY, (_, relu, _), size in zip(xs, dys, wgrad_shapes(width, n_blocks, in_rows),
-                                                 sizes):
-                wgrad(X, relu, dY, splits, out=wpart[..., start:start + size])
-                start += size
-            dw = sum_rows(wpart, splits)[:, 0]
+            shapes = wgrad_shapes(width, n_blocks, in_rows)
+            sizes = [k * m for k, _, m in shapes]
+            dw = sum_rows(wgrad(xs, dys, [r for _, r, _ in shapes]))
 
             mats = torch.split(dw, sizes, dim=1)
 

@@ -162,23 +162,53 @@ def test_pre_encoded_kernels_match_plain(card, width, in_ch, input_grads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k_in", [96, 256], ids=["ktail", "wide"])
-def test_weight_gradient_gemm_and_sums_match_plain(card, k_in):
-    """wgrad_kernel on K = 2 fields of 3,000 ragged points in 3 splits (the
-    96-row lin_in tail, and a relu'd 256-wide layer), then sum_rows_kernel
-    over the splits, each against its plain version: f32 sums of exact
-    bf16 products in another order, within 1e-4 and 1e-5 of the largest
-    magnitude (chip_smoke.PART_TOL)."""
+@pytest.mark.parametrize("fields", [1, 2])
+@pytest.mark.parametrize("n_out", [64, 128, 256])
+@pytest.mark.parametrize("k_in", [64, 96, 128, 256])
+def test_weight_gradient_gemm_and_sums_match_plain(card, k_in, n_out, fields):
+    """wgrad_kernel on `fields` fields of 3,000 ragged points, one grouped
+    launch over two layers of this shape (relu on the first one's X, not on
+    the second's) and a 64 x 128 one, then sum_rows_kernel over the splits
+    and over random per-CTA partials, each against its plain version: f32
+    sums of exact bf16 products in another order, within 1e-4 and 1e-5 of
+    the largest magnitude (chip_smoke.PART_TOL)."""
     g = torch.Generator(device="cuda").manual_seed(3)
-    X = torch.randn((2, N, k_in), generator=g, device="cuda").to(torch.bfloat16)
-    dY = torch.randn((2, N, 128), generator=g, device="cuda").to(torch.bfloat16)
-    relu = k_in == 256
+    shapes = [(k_in, True, n_out), (k_in, False, n_out), (64, False, 128)]
+
+    def bf(cols):
+        return torch.randn((fields, N, cols), generator=g, device="cuda").to(torch.bfloat16)
+
+    xs, dys, relus = [bf(k) for k, _, _ in shapes], [bf(m) for _, _, m in shapes], [True, False, False]
+    lay = tfused.wgrad_layout(shapes, N, fields)
     tfused.reset_launch_counts()
-    got = tfused.wgrad(X, relu, dY, 3)
-    want = tfused.wgrad_plain(X, relu, dY, 3)
+    got = tfused.wgrad(xs, dys, relus)
+    want = tfused.wgrad_grouped_plain(xs, dys, relus, lay["splits"])
+    assert got.shape == (fields, lay["splits"], lay["wtotal"])
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
-    sums = tfused.sum_rows(got.contiguous(), 2)
-    want_sums = tfused.sum_rows_plain(got.contiguous(), 2)
-    assert sums.shape == (2, 2, k_in * 128)
-    assert float((sums - want_sums).abs().max()) <= 1e-5 * float(want_sums.abs().max())
-    assert tfused.part_launches == {"wgrad": 1, "sum_rows": 1}
+    part = torch.randn((fields, 47, 2576), generator=g, device="cuda")
+    for src in (got, part):
+        sums = tfused.sum_rows(src)
+        want_sums = tfused.sum_rows_plain(src)
+        assert sums.shape == (fields, src.shape[2])
+        assert float((sums - want_sums).abs().max()) <= 1e-5 * float(want_sums.abs().max())
+    assert tfused.part_launches == {"wgrad": 1, "sum_rows": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True], ids=["one_field", "field_axis"])
+def test_backward_weight_grads_are_bitwise_reproducible(card, stacked):
+    """Two backward calls on the same inputs give the same weight grads, bit
+    for bit: the GEMM's split partials and the sums' chunks are added in an
+    order fixed by the shapes alone."""
+    if stacked:
+        cfg, params, x, d, _ = _stacked_setup(256, seed=10, n_rays=200, n_samples=64)
+        out = tfused.fused_stacked_apply(params, x, d, cfg.n_blocks, PE)
+    else:
+        cfg, params, x, d = _setup(seed=10)
+        out = tfused.fused_field_apply(params, x, d, cfg.n_blocks, PE)
+    loss = torch.sin(out[0]).sum() + (out[1] ** 2).sum()
+    leaves = list(tfused.flatten_params(params, cfg.n_blocks))
+    first = torch.autograd.grad(loss, leaves, retain_graph=True)
+    second = torch.autograd.grad(loss, leaves)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(bool(a.abs().sum() > 0) for a in first)

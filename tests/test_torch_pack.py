@@ -105,18 +105,19 @@ def test_descriptor_strides_match_the_cuda_source():
 def test_weight_gradient_plain_versions_sum_to_the_full_product(n):
     """The plain versions of the backward's weight-gradient GEMM and ordered
     sums, which the kernels are held to on the card: the split partials of
-    relu(X)^T dY sum to the whole product, and sum_rows_plain sums each
-    chunk of rows (the last one ragged)."""
+    relu(X)^T dY sum to the whole product, each split over its own points,
+    and the grouped call (on the CPU, its plain version) gives the layer's
+    partials at the split count of its rule."""
     rng = np.random.default_rng(n)
     X = torch.tensor(rng.normal(size=(2, n, 64)), dtype=torch.float32).to(torch.bfloat16)
     dY = torch.tensor(rng.normal(size=(2, n, 32)), dtype=torch.float32).to(torch.bfloat16)
-    parts = fm.wgrad(X, True, dY, 5)
+    parts = fm.wgrad_plain(X, True, dY, 5)
     assert parts.shape == (2, 5, 64 * 32)
     full = X.float().clamp(min=0).transpose(1, 2) @ dY.float()
-    torch.testing.assert_close(parts.sum(1).reshape(2, 64, 32), full, rtol=1e-5, atol=1e-3)
-    out = torch.zeros((2, 5, 64 * 32 + 7))
-    assert torch.equal(fm.wgrad(X, True, dY, 5, out=out[..., 3:]), parts)
-    rows = fm.sum_rows(parts.contiguous(), 2)
-    assert rows.shape == (2, 3, 64 * 32)
-    torch.testing.assert_close(rows[:, 2], parts[:, 4])
-    torch.testing.assert_close(rows[:, 0], parts[:, 0] + parts[:, 1])
+    torch.testing.assert_close(fm.sum_rows(parts.contiguous()).reshape(2, 64, 32), full,
+                               rtol=1e-5, atol=1e-3)
+    per = -(-n // 5)
+    last = X[:, 4 * per:].float().clamp(min=0).transpose(1, 2) @ dY[:, 4 * per:].float()
+    torch.testing.assert_close(parts[:, 4].reshape(2, 64, 32), last)
+    splits = fm.wgrad_layout([(64, True, 32)], n, 2)["splits"]
+    assert torch.equal(fm.wgrad([X], [dY], [True]), fm.wgrad_plain(X, True, dY, splits))
