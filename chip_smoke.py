@@ -64,15 +64,36 @@ Phases, each printing its numbers:
      GEMM and sums, and none of another kind, the loss finite and falling,
      then 5 steps of the plain path; (c) the tiled eval render of a 64x64
      frame from get_rays, kernel path against plain path;
-  6. one JSON line per kernel (with its bound: the larger of its FLOP over
+  6. the appearance-init app at synthetic_star_online_scaled.txt's widths
+     (scene 192x192, 32 + 4 views, 8 frames, K = 2; static field 8x128,
+     N_rand 2048, 64 + 64 samples, accumulation 4), its depth cut by
+     APP_CUT: (a) the scene generated on the card into a fresh cache
+     directory and timed, loaded again from the cache file (equal arrays),
+     and the card marcher held against the numpy marcher on a crop of one
+     view and frame (rgb 2e-5, depth 2e-4, masks agreeing on > 99.9% of
+     the pixels); (b) startrax_torch.apps.app_init.main through its argv
+     parser: the fine loss per epoch (it must fall), each validation's PSNR
+     and SSIM, the median step time (CUDA events, steps 10 on, the
+     profiled window left out), the device's idle share (profiled device
+     time over that median), the launches per step (2 fwd + 2 bwd, one
+     weight-gradient GEMM and two sums a backward call, and the validation
+     renders' forwards, nothing else) and one profiled step's table;
+     (c) the final checkpoint restores bitwise, restore_static_only keeps
+     exactly the static fields, and the last validation view re-rendered
+     from the restored params gives the app's PSNR within 1e-4 dB;
+     (d) the pose, RPE/ATE and 3D-IoU metrics of the noisy GT poses
+     against the GT (errors > 0, the GT against itself 0), the pose-file
+     round trip, and the logged PNG files hold the bytes that write_png
+     makes of the re-rendered arrays;
+  7. one JSON line per kernel (with its bound: the larger of its FLOP over
      989 TFLOP/s dense bf16, 67 TFLOP/s f32 for the sums, and its bytes,
-     each input read once and each output written once, over 3.35 TB/s),
-     the card's line, and the result line {"ok": true, "device": {...}}
-     last.
+     each input read once and each output written once, over 3.35 TB/s;
+     and the app's launches of it), the card's line, and the result line
+     {"ok": true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device or when any phase
-fails. Imports nothing of JAX or of the JAX package: only torch, numpy and
-startrax_torch; the configs are read as text by the port's own parser.
+fails. Imports nothing of JAX or of the JAX package: only torch, numpy,
+scipy and startrax_torch; the configs are read as text by the port's own parser.
 Float32 matmuls and convolutions on the plain paths run in full float32
 (TF32 off).
 """
@@ -81,9 +102,11 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_APPINIT = 3
@@ -105,6 +128,13 @@ N_NT = 20
 N_NT_PLAIN = 5
 RENDER_HW = 64
 SRC = "startrax_torch/kernels/csrc/fused_mlp.cu"
+# phase 6: the app's depth cut (existing config fields), the side of the
+# crop held against the numpy marcher, the steps the step time skips, and
+# the profiled window of steps
+APP_CUT = ("--epochs_appearance", "3", "--steps_per_epoch", "100", "--epoch_val", "1")
+MARCH_CROP = 32
+APP_WARM = 10
+APP_PROFILED = (60, 65)
 # NVIDIA H100 SXM: dense bf16 tensor-core peak, float32 peak outside the
 # tensor cores, and memory rate (data sheet)
 PEAK_FLOPS = 989e12
@@ -1030,6 +1060,230 @@ def phase_nerf_time(cfg, star_cfg, loss_cfg):
     return worst, step_ms, counts
 
 
+def phase_scene(cfg):
+    """6a: the scaled scene generated on the card into cfg.synth_cache_dir
+    (empty), loaded again from the file, and a crop of one view and frame
+    held against the numpy marcher."""
+    import numpy as np
+    import torch
+
+    from startrax_torch.apps.common import make_dataset
+    from startrax_torch.data import synthetic as syn
+
+    syn._GEN_MEMO.clear()
+    t0 = time.perf_counter()
+    train = make_dataset(cfg, "train")
+    make_dataset(cfg, "val")
+    gen_s = time.perf_counter() - t0
+    scene, views = train.scene, cfg.synth_views + cfg.synth_val_views
+    files = os.listdir(cfg.synth_cache_dir)
+    _require(files == [syn.cache_file(scene, views)], f"one cache file, got {files}")
+    generated = syn._GEN_MEMO[syn.cache_key(scene, views)]
+    syn._GEN_MEMO.clear()
+    t0 = time.perf_counter()
+    loaded = make_dataset(cfg, "train")
+    load_s = time.perf_counter() - t0
+    _require(loaded.data is not generated and all(
+        np.array_equal(syn._GEN_MEMO[syn.cache_key(scene, views)][k], v)
+        for k, v in generated.items()), "the cache file holds the generated arrays")
+    imgs = generated["images"]
+    _require(imgs.shape == (views, cfg.num_frames, scene.H, scene.W, 3)
+             and bool(np.isfinite(imgs).all()) and generated["dyn_masks"].any(),
+             f"a finite scene [V, F, H, W, 3] with vehicles in view, got {imgs.shape}")
+    print(f"scene {scene}: {views} views x {cfg.num_frames} frames generated on the card in "
+          f"{gen_s:.2f} s ({gen_s / (views * cfg.num_frames) * 1e3:.1f} ms a frame), cache file "
+          f"{os.path.getsize(os.path.join(cfg.synth_cache_dir, files[0])) / 1e6:.1f} MB, loaded "
+          f"again in {load_s:.2f} s", flush=True)
+
+    # a crop across the left edge of the last frame's vehicle pixels in the
+    # first view that has them: vehicle, background and the mask's border
+    v, f = next((v, cfg.num_frames - 1) for v in range(views)
+                if generated["dyn_masks"][v, cfg.num_frames - 1].any())
+    ys, xs = np.nonzero(generated["dyn_masks"][v, f])
+    y0, x0 = (min(max(c - MARCH_CROP // 2, 0), n - MARCH_CROP)
+              for c, n in ((int(ys.mean()), scene.H), (int(xs.min()), scene.W)))
+    crop = np.s_[y0:y0 + MARCH_CROP, x0:x0 + MARCH_CROP]
+    ro, rd = generated["rays_o"][v][crop], generated["rays_d"][v][crop]
+    got = scene.march(ro, rd, f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = scene.march_numpy(ro, rd, f)
+    numpy_s = time.perf_counter() - t0
+    err_rgb = float(np.abs(got[0] - want[0]).max())
+    err_depth = float(np.abs(got[1] - want[1]).max())
+    agree = float((got[2] == want[2]).mean())
+    print(f"marcher on the card vs numpy, view {v} frame {f} crop {MARCH_CROP}x{MARCH_CROP} at "
+          f"({y0}, {x0}), {scene.n_march} samples ({numpy_s:.2f} s in numpy): rgb {err_rgb:.3e} "
+          f"(tol 2e-5), depth {err_depth:.3e} (tol 2e-4), masks agree {agree:.5f} (> 0.999), "
+          f"{int(want[2].sum())} vehicle pixels", flush=True)
+    _require(err_rgb <= 2e-5 and err_depth <= 2e-4 and agree > 0.999 and want[2].any(),
+             "the card marcher against the numpy marcher")
+
+
+def phase_app_init(cfg, config_path, basedir):
+    """6b-6d: the appearance-init app through its entry point at cfg's
+    widths with APP_CUT, its checkpoints, and the host modules on its
+    outputs. Returns the app's launch counts (the fused kernels', then the
+    backward's GEMM and sums')."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from startrax_torch.apps import app_init
+    from startrax_torch.apps.common import make_dataset
+    from startrax_torch.eval import iou, pose, trajectory
+    from startrax_torch.eval.image import psnr
+    from startrax_torch.eval.render import render_image
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.ops import lie
+    from startrax_torch.train import checkpoint as ckpt
+    from startrax_torch.train import loop
+    from startrax_torch.utils.config import load_config, star_config_from
+    from startrax_torch.utils.logging import write_png
+    from startrax_torch.utils.tree import tree_leaves
+
+    argv = ["--config", config_path, "--basedir", basedir,
+            "--synth_cache_dir", cfg.synth_cache_dir, *APP_CUT]
+    app_cfg = load_config(argv)
+    print(f"app_init: python -m startrax_torch.apps.app_init {' '.join(argv)} (depth cut: "
+          f"epochs_appearance {cfg.epochs_appearance} -> {app_cfg.epochs_appearance}, "
+          f"steps_per_epoch {cfg.steps_per_epoch} -> {app_cfg.steps_per_epoch}, epoch_val "
+          f"{cfg.epoch_val} -> {app_cfg.epoch_val})", flush=True)
+
+    # time each step the app takes: CUDA events around it, and one window of
+    # steps profiled for its device time (device activity only, so that each
+    # kernel counts once, as _device_ms counts it)
+    step_ms, prof = [], profile(activities=[ProfilerActivity.CUDA])
+    make_step = loop.make_appinit_train_step
+
+    def timed_make_step(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def timed(*a, **k):
+            i = len(step_ms)
+            if i == APP_PROFILED[0]:
+                torch.cuda.synchronize()
+                prof.start()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            if i == APP_PROFILED[1] - 1:
+                prof.stop()
+            return out
+
+        return timed
+
+    loop.make_appinit_train_step = timed_make_step
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        params = app_init.main(argv)
+    finally:
+        loop.make_appinit_train_step = make_step
+    app_s = time.perf_counter() - t0
+    counts, parts = dict(fm.launches), dict(fm.part_launches)
+
+    run_dir = os.path.join(basedir, app_cfg.expname, "app_init")
+    rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    losses = [r["train/fine_loss"] for r in rows if "train/fine_loss" in r]
+    vals = [(r["step"], r["val/psnr"], r["val/ssim"]) for r in rows if "val/psnr" in r]
+    n_steps, n_val = len(step_ms), len(vals)
+    star_cfg = star_config_from(app_cfg)
+    val_data = make_dataset(app_cfg, "val")
+    n_pix = val_data.H * val_data.W
+    tiles = -(-n_pix // 8192)  # render_image's tiles of a validation view
+    print(f"app_init: {n_steps} steps in {app_s:.2f} s; train/fine_loss per epoch {losses}; "
+          "validations (step, PSNR dB, SSIM) " + ", ".join(f"({s}, {p:.4f}, {q:.4f})"
+                                                           for s, p, q in vals), flush=True)
+    _require(n_steps == app_cfg.epochs_appearance * app_cfg.steps_per_epoch
+             and len(losses) == app_cfg.epochs_appearance and n_val == len(losses),
+             "every epoch trained, logged and validated")
+    _require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+             "the fine loss is finite and falls")
+    _require(all(math.isfinite(p) and math.isfinite(q) for _, p, q in vals), "finite val metrics")
+    want = _counts(fwd=2 * n_steps + 2 * tiles * n_val, bwd=2 * n_steps)
+    want_parts = {k: n_steps * v for k, v in _part_counts("coarse", "fine").items()}
+    print(f"app_init launches {counts}, backward parts {parts}: per step 2 fwd + 2 bwd, "
+          f"{want_parts['wgrad'] // n_steps} wgrad + {want_parts['sum_rows'] // n_steps} "
+          f"sum_rows, and {2 * tiles} fwd a validation ({tiles} tiles)", flush=True)
+    _require(counts == want, f"the app's launches {want}, got {counts}")
+    _require(parts == want_parts, f"the app's GEMM and sum launches {want_parts}, got {parts}")
+
+    steady = [t for i, t in enumerate(step_ms)
+              if i >= APP_WARM and not APP_PROFILED[0] <= i < APP_PROFILED[1]]
+    step_med = statistics.median(steady)
+    n_prof = APP_PROFILED[1] - APP_PROFILED[0]
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / n_prof
+    print(f"app_init step: median {step_med:.3f} ms over steps {APP_WARM + 1}-{n_steps} "
+          f"(CUDA events, profiled steps {APP_PROFILED[0] + 1}-{APP_PROFILED[1]} left out), "
+          f"{app_cfg.N_rand / step_med * 1e3:.1f} rays/s; device time {busy:.3f} ms a step "
+          f"(profiler, {n_prof} steps), idle share {1 - busy / step_med:.3f}", flush=True)
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), flush=True)
+
+    # 6c: the checkpoints
+    restored = ckpt.restore_checkpoint(os.path.join(run_dir, "ckpts"))
+    pairs = list(zip(tree_leaves(restored["params"]), tree_leaves(params)))
+    _require(len(pairs) == len(tree_leaves(params)) and all(
+        a.device.type == "cuda" and torch.equal(a, b) for a, b in pairs),
+        "the final checkpoint restores the returned params bitwise")
+    steps = sorted(int(d) for d in os.listdir(os.path.join(run_dir, "ckpts")))
+    _require(steps == list(range(app_cfg.epochs_appearance + 1)), f"checkpoint steps {steps}")
+    online = loop.init_online_params(star_cfg, app_cfg.num_frames,
+                                     torch.Generator(device="cuda").manual_seed(9))
+    warm = ckpt.restore_static_only(restored["params"], online)
+    _require(all(warm["nerf"][k] is (restored["params"][k] if k.startswith("static")
+                                     else online["nerf"][k]) for k in online["nerf"])
+             and warm["poses"] is online["poses"], "restore_static_only keeps the static fields")
+    rng = np.random.default_rng(app_cfg.seed)  # the app's validation draws
+    view = [int(rng.integers(0, val_data.rays_o.shape[0])) for _ in vals][-1]
+    out = render_image(restored["params"], star_cfg, *val_data.view_rays(view))
+    target = val_data.images[view, 0]
+    p = float(psnr(torch.from_numpy(out["rgb"]), torch.tensor(target)))
+    print(f"restored checkpoint: bitwise; view {view} re-rendered: PSNR {p:.6f} dB against the "
+          f"app's {vals[-1][1]:.6f} (tol 1e-4)", flush=True)
+    _require(abs(p - vals[-1][1]) <= 1e-4, "the restored params render the app's PSNR")
+
+    # 6d: the host modules on the card's Python
+    # the logged PNG holds the bytes write_png makes of the re-rendered image
+    # (the CPU tests decode write_png's files independently)
+    for name, arr in (("val_rgb", out["rgb"]), ("val_target", target)):
+        logged = os.path.join(run_dir, "images", f"{name}_{vals[-1][0]:06d}.png")
+        again = os.path.join(basedir, f"{name}_again.png")
+        write_png(again, (255 * np.clip(np.nan_to_num(arr), 0, 1)).astype(np.uint8))
+        same = open(logged, "rb").read() == open(again, "rb").read()
+        print(f"logged {name} PNG: {os.path.getsize(logged)} bytes, equal to write_png of the "
+              f"re-rendered array: {same}", flush=True)
+        _require(same, f"the logged {name} PNG holds the re-rendered array")
+    gt = val_data.gt_relative_poses()  # [K, F, 7]
+    noisy = val_data.noisy_gt_relative_poses(np.random.default_rng(0))
+    ident = pose.get_pose_metrics_multi(gt.swapaxes(0, 1), gt.swapaxes(0, 1))
+    metrics = pose.get_pose_metrics_multi(noisy.swapaxes(0, 1), gt.swapaxes(0, 1))
+    rpe = [trajectory.evaluate_rpe(n, g) for n, g in zip(noisy, gt)]
+    ate = [trajectory.evaluate_ate(n, g) for n, g in zip(noisy, gt)]
+    local = val_data.bbox_local_vertices()
+    gt_mat = val_data.gt_vehicle_poses()[:, -1]
+    est_mat = lie.se3_to_matrix(torch.from_numpy(np.ascontiguousarray(noisy[:, -1]))).numpy()
+    ious = iou.compute_3d_iou(est_mat, gt_mat, local)[0]
+    ious_gt = iou.compute_3d_iou(gt_mat, gt_mat, local)[0]
+    print(f"noisy GT poses against GT, per vehicle: trans {[float(t) for t in metrics[0]]}, rot "
+          f"{[float(r) for r in metrics[1]]}, RPE (trans, deg) {rpe}, ATE {ate}, 3D IoU (last "
+          f"frame) {ious.tolist()}; GT against itself: trans {[float(t) for t in ident[0]]}, "
+          f"3D IoU {ious_gt.tolist()}", flush=True)
+    _require(all(t > 0 for t in metrics[0]) and all(a > 0 for a in ate)
+             and all(r[0] > 0 for r in rpe) and bool((ious > 0).all() and (ious < 1).all()),
+             "noisy poses show an error")
+    _require(all(t == 0 and r < 1e-5 for t, r in zip(ident[0], ident[1]))
+             and bool(np.allclose(ious_gt, 1.0, atol=1e-4)), "the GT against itself shows none")
+    path = os.path.join(basedir, "poses.txt")
+    ckpt.save_poses_txt(path, val_data.gt_vehicle_poses()[0])
+    back = ckpt.load_poses_txt(path)
+    _require(np.allclose(back, val_data.gt_vehicle_poses()[0], atol=1e-6), "pose file round trip")
+    return counts, parts
+
+
 def _rows(per_field, stacked, encoded, bwd_parts, part_launches):
     """The JSON kernel rows. per_field, stacked and encoded are (worst,
     step_ms, launches) of the per-field kernel (the flagship step's times),
@@ -1151,8 +1405,25 @@ def main():
     counts, part_counts = phase_main_path(cfg, star_cfg, loss_cfg)
     counts_s = phase_per_ray_path(slice_cfg, slice_star, slice_star_barf, slice_loss)
     worst_e, ms_e, counts_e = phase_nerf_time(nt_cfg, nt_star, nt_loss)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t6 = time.perf_counter()
+        app_cfg = dataclasses.replace(slice_cfg, synth_cache_dir=os.path.join(tmp, "cache"))
+        phase_scene(app_cfg)
+        app_counts, app_parts = phase_app_init(
+            app_cfg, os.path.join(here, "startrax", "configs", SLICE_CONFIG),
+            os.path.join(tmp, "runs"))
+        print(f"phase 6 (scene, app, checkpoints, host modules): "
+              f"{time.perf_counter() - t6:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s), (worst_e, ms_e, counts_e),
                  bwd_parts, part_counts)
+    app_launches = {"fused_mlp_fwd": app_counts["fwd"], "fused_mlp_bwd": app_counts["bwd"],
+                    "fused_mlp_wgrad": app_parts["wgrad"],
+                    "fused_mlp_sum_rows": app_parts["sum_rows"]}
+    for row in rows:
+        row["app_init_launches"] = app_launches.get(row["name"], 0)
     print(f"total: {time.perf_counter() - t0:.1f} s, the build included", flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

@@ -2,11 +2,13 @@
 
 The JAX package ``startrax`` beside it is the reference. Module names mirror
 startrax's: ``ops/`` (Lie algebra, encoding, sampling, compositing, losses,
-regularizers), ``kernels/`` (the fused field MLP: hand-written CUDA for
-sm_90a with a plain PyTorch version), ``models/`` (fields, STaR), ``train/``
-(optimizer, train steps), ``utils/config.py`` (adapter over startrax's
-config parser) and ``convert.py`` (parameters between the two packages).
-This package never imports JAX.
+regularizers, rays), ``kernels/`` (the fused field MLP: hand-written CUDA
+for sm_90a with a plain PyTorch version), ``models/`` (fields, STaR,
+nerf_time), ``data/`` (the synthetic scene, prefetch, transforms),
+``train/`` (optimizer, train steps, checkpoints, curriculum), ``eval/``
+(renders, image and pose metrics), ``apps/`` (appearance init), ``utils/``
+(the config parser, logging) and ``convert.py`` (parameters between the two
+packages). This package never imports JAX nor anything of startrax.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,68 @@
+"""Shared app scaffolding: run workspace, dataset construction and the host
+random generators of the training entry points (PyTorch).
+
+Counterpart of startrax/apps/common.py. Of its datasets only the synthetic
+scene is ported; carla and blender raise.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..device import resolve
+from ..utils.config import Config, save_config
+from ..utils.logging import MetricsLogger, configure_logger
+
+
+class Workspace:
+    """Run directory <basedir>/<expname>/<app_name> with args.json, the
+    loggers (run.log, metrics.jsonl, images/) and the checkpoint path."""
+
+    def __init__(self, cfg: Config, app_name: str):
+        self.cfg = cfg
+        self.run_dir = os.path.join(cfg.basedir, cfg.expname, app_name)
+        os.makedirs(self.run_dir, exist_ok=True)
+        save_config(cfg, self.run_dir)
+        self.logger = configure_logger(self.run_dir, app_name)
+        self.metrics = MetricsLogger(self.run_dir)
+        self.ckpt_dir = os.path.join(self.run_dir, "ckpts")
+
+    def log(self, msg: str):
+        self.logger.info(msg)
+
+
+def make_dataset(cfg: Config, split: str, device=None):
+    """Dataset factory over dataset_type. A synthetic scene that is neither
+    in memory nor in cfg.synth_cache_dir is generated on ``device`` (None:
+    the card)."""
+    if cfg.dataset_type == "carla":
+        raise NotImplementedError("the CARLA loader (data/carla.py) is not ported yet: "
+                                  "ROADMAP queue 1, item 5")
+    if cfg.dataset_type == "blender":
+        raise NotImplementedError("the Blender loader (data/blender.py) is not ported yet: "
+                                  "ROADMAP queue 1, item 7")
+    if cfg.dataset_type == "synthetic":
+        from ..data.synthetic import SyntheticAdapter, SyntheticScene
+
+        scene = SyntheticScene(
+            num_vehicles=cfg.num_vehicles, num_frames=cfg.num_frames,
+            H=cfg.synth_height, W=cfg.synth_height,
+            focal=float(cfg.synth_height),
+        )
+        return SyntheticAdapter(
+            scene, num_views=cfg.synth_views,
+            num_val_views=cfg.synth_val_views,
+            cache_dir=cfg.synth_cache_dir,
+            split="train" if split == "train" else "val",
+            device=device,
+        )
+    raise ValueError(f"unknown dataset_type {cfg.dataset_type}")
+
+
+def host_prng(seed: int = 42, device=None):
+    """(numpy Generator, torch.Generator on ``device``), both seeded with
+    ``seed``; device None is the card (device.resolve)."""
+    return np.random.default_rng(seed), torch.Generator(device=resolve(device)).manual_seed(seed)

@@ -2,9 +2,10 @@
 
 Counterpart of startrax/eval/render.py (``render_image``,
 ``render_image_nerf_time``), without the device mesh: H*W rays go through
-the eval render in tiles of ``tile`` rays under ``torch.no_grad``, so no
-graph is kept and the fused kernels save no activations (kernels/fused_mlp:
-each tile's scratch is freed with the tile). The last tile may be short.
+the eval render (for ``render_image``, train.loop.make_eval_render) in
+tiles of ``tile`` rays under ``torch.no_grad``, so no graph is kept and
+the fused kernels save no activations (kernels/fused_mlp: each tile's
+scratch is freed with the tile). The last tile may be short.
 Each tile's outputs are copied to the host; the result is numpy arrays
 [H, W, ...].
 """
@@ -18,7 +19,8 @@ import torch
 
 from ..device import resolve
 from ..models.nerf_time import render_nerf_time
-from ..models.star import StarConfig, render_star
+from ..models.star import StarConfig
+from ..train.loop import make_eval_render
 
 DEFAULT_KEYS = ("rgb", "depth", "rgb0", "depth0", "rgb_static", "rgb_dynamic",
                 "depth_static", "depth_dynamic", "dynamic_transmittance",
@@ -53,12 +55,9 @@ def render_image(params, cfg: StarConfig, rays_o, rays_d, pose=None, tile: int =
     dynamic maps of appearance init) are skipped. pose: [K, 7] or None.
     device=None is the card (device.resolve)."""
     device = resolve(device)
-
-    def tile_render(o, d):
-        return render_star(params, cfg, o, d, pose=pose, train=False,
-                           with_test_outputs=with_test_outputs)
-
-    return _render_tiles(tile_render, rays_o, rays_d, tile, keys, device)
+    eval_render = make_eval_render(cfg, with_test_outputs)
+    return _render_tiles(lambda o, d: eval_render(params, o, d, pose), rays_o, rays_d, tile,
+                         keys, device)
 
 
 def render_image_nerf_time(params, cfg: StarConfig, rays_o, rays_d, frame, num_frames: int,

@@ -243,3 +243,16 @@ def make_nerf_time_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt, n
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_eval_render(star_cfg: StarConfig, with_test_outputs: bool = False):
+    """Deterministic (eval-mode) renderer over a ray batch: returns
+    eval_render(params, rays_o, rays_d, pose) -> render_star's outputs,
+    under torch.no_grad with train=False (no jitter, no noise, no graph)."""
+
+    @torch.no_grad()
+    def eval_render(params, rays_o, rays_d, pose):
+        return render_star(params, star_cfg, rays_o, rays_d, pose=pose, train=False,
+                           with_test_outputs=with_test_outputs)
+
+    return eval_render

@@ -1,4 +1,6 @@
-"""The fused-MLP CUDA kernels against their plain PyTorch version, on the card.
+"""The fused-MLP CUDA kernels against their plain PyTorch version, on the card;
+and the card's side of the host modules: the synthetic scene's marcher
+against its numpy version, a checkpoint round trip, the app's generator.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc, and skip without a card.
 They import no JAX, so they also run where JAX is absent:
@@ -23,12 +25,15 @@ import pytest
 import torch
 
 from startrax_torch import convert
+from startrax_torch.apps.common import host_prng
+from startrax_torch.data.synthetic import SyntheticScene
 from startrax_torch.kernels import fused_mlp as tfused
 from startrax_torch.kernels import parity
 from startrax_torch.models import fields as tfields
-from startrax_torch.models.star import pack_warp, warp_to_vehicle_frames
+from startrax_torch.models.star import StarConfig, init_star, pack_warp, warp_to_vehicle_frames
 from startrax_torch.ops.encoding import barf_weights
-from startrax_torch.utils.tree import tree_map
+from startrax_torch.train import checkpoint as ckpt
+from startrax_torch.utils.tree import tree_leaves, tree_map
 
 N = 3000
 PE = (10, 4)
@@ -212,3 +217,35 @@ def test_backward_weight_grads_are_bitwise_reproducible(card, stacked):
     second = torch.autograd.grad(loss, leaves)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     assert all(bool(a.abs().sum() > 0) for a in first)
+
+
+@pytest.mark.cuda
+def test_scene_marcher_on_the_card_matches_numpy(card):
+    """The ground-truth marcher on the card against its numpy version on one
+    48x48 frame with two vehicles, with the CPU test's bounds (rgb 2e-5,
+    depth 2e-4, masks agreeing on more than 99.9% of the pixels)."""
+    s = SyntheticScene(num_vehicles=2, num_frames=4, H=48, W=48, focal=48.0, n_march=64)
+    got = s.render_frame(1, 5, 2)
+    want = s._render_frame_numpy(1, 5, 2)
+    assert abs(got[0] - want[0]).max() <= 2e-5
+    assert abs(got[1] - want[1]).max() <= 2e-4
+    assert (got[2] == want[2]).mean() > 0.999 and got[2].any()
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(card, tmp_path):
+    cfg = StarConfig(num_vehicles=2, netdepth=2, netdepth_fine=2, netwidth=16, netwidth_fine=16,
+                     n_samples=4, n_importance=4)
+    params = init_star(cfg, torch.Generator(device="cuda").manual_seed(0))
+    ckpt.save_checkpoint(str(tmp_path), {"params": params, "step": 3}, step=3)
+    got = ckpt.restore_checkpoint(str(tmp_path))
+    assert got["step"] == 3
+    pairs = list(zip(tree_leaves(got["params"]), tree_leaves(params)))
+    assert all(a.device.type == "cuda" and torch.equal(a, b) for a, b in pairs)
+
+
+@pytest.mark.cuda
+def test_host_prng_generator_is_on_the_card(card):
+    _, gen = host_prng(5)
+    assert gen.device.type == "cuda" and gen.initial_seed() == 5
+    assert torch.rand(3, generator=gen, device="cuda").device.type == "cuda"
