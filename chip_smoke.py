@@ -26,8 +26,14 @@ Phases, each printing its numbers:
      against their plain versions within PART_TOL, with times (CUDA events
      and profiler device time) beside library yardsticks (one torch.mm a
      layer and field, one torch.sum a sum) and their bounds: at one online
-     step's shapes, at the per-ray step's stacked fine call (K = 2) and at
-     nerf_time's fine call (96-row lin_in);
+     step's shapes, at the online app's shared-pose step's shapes (static
+     8x128, dynamic 4x128), at the per-ray step's stacked fine call (K = 2)
+     and at nerf_time's fine call (96-row lin_in);
+  3d. the per-field kernel at the shapes one shared-pose step of the online
+     app (startrax/configs/synthetic_star_online.txt) gives it: the static
+     8x128 field and the K = 2 dynamic 4x128 fields with the in-kernel SE(3)
+     warp and the pose sums, on 131,072 coarse and 262,144 fine points,
+     against its plain version within the limits of parity.py, with times;
   4. the main path: StarConfig and LossConfig from
      startrax/configs/carla_star_online_multi.txt, random weights from a
      seed, app-init steps then online training steps on one fixed batch of
@@ -85,11 +91,37 @@ Phases, each printing its numbers:
      against the GT (errors > 0, the GT against itself 0), the pose-file
      round trip, and the logged PNG files hold the bytes that write_png
      makes of the re-rendered arrays;
-  7. one JSON line per kernel (with its bound: the larger of its FLOP over
+  7. the online tracking app at synthetic_star_online.txt's widths (scene
+     128x128, 8 + 1 views, 8 frames, K = 2; static 8x128, dynamic 4x128,
+     N_rand 2048, 64 + 64 samples, bf16, accumulation 4), in the same
+     temporary directory as phase 6: (a) warm-started from phase 6's final
+     app-init checkpoint when the two configs give the same static fields
+     (else from a short app-init on synthetic_star_online.txt); (b)
+     startrax_torch.apps.online.main through its argv parser, cut in depth
+     and schedule by ONLINE_CUT (each cut printed): the phase sequence of
+     history.json must be ONLINE_PHASES (fieldform, BARF, the curriculum's
+     pose and joint epochs, the alternate polish, a stop on the polish
+     budget), the fine loss finite and falling over the warmup, val metrics
+     finite, a selection score on every epoch after the last admission; the
+     fine loss, window, pose errors and score per epoch, the validations,
+     the median step by CUDA events (read after the run: no sync is added
+     between steps) and the device time and idle share (profiled window of
+     5 steps) of each step kind: per-ray batches (the
+     anchor rays' [N] frames) and shared-pose batches; every step's
+     launches as designed for its kind (per-ray: 2 fwd, 2 bwd, 2 stacked
+     fwd, 2 stacked bwd, 4 GEMMs, 8 sums; shared-pose: 6 fwd, 6 bwd, 6
+     GEMMs, 12 sums), the stale prefetched batches by phase, and the eval
+     renders' 6 fwd a tile; (c) a resume from the final checkpoint with
+     RESUME_CUT: run.log says it resumed the run and the polish sub-state
+     and restored the best snapshot, the run continues the alternation, and
+     the saved params and every optimizer state load bitwise into fresh
+     leaves and buffers; (d) --test true on the final checkpoint: the test
+     metrics present and finite, ATE under 0.4, the pose files written;
+  8. one JSON line per kernel (with its bound: the larger of its FLOP over
      989 TFLOP/s dense bf16, 67 TFLOP/s f32 for the sums, and its bytes,
      each input read once and each output written once, over 3.35 TB/s;
-     and the app's launches of it), the card's line, and the result line
-     {"ok": true, "device": {...}} last.
+     and the launches of it by the app-init app and by the online app), the
+     card's line, and the result line {"ok": true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device or when any phase
 fails. Imports nothing of JAX or of the JAX package: only torch, numpy,
@@ -135,6 +167,20 @@ APP_CUT = ("--epochs_appearance", "3", "--steps_per_epoch", "100", "--epoch_val"
 MARCH_CROP = 32
 APP_WARM = 10
 APP_PROFILED = (60, 65)
+# phase 7: the online app's config, its cut in depth and schedule (existing
+# config fields), the phases it must run, the resume's extension, the steps of
+# each kind the median skips, and the profiled window of each kind (by index
+# among the steps of that kind)
+ONLINE_CONFIG = "synthetic_star_online.txt"
+ONLINE_CUT = ("--epochs_online", "12", "--steps_per_epoch", "40", "--pose_delay_epochs", "1",
+              "--end_barf", "3", "--epochs_between_frames", "0", "--online_thres", "1e9",
+              "--online_thres_tightened", "1e9", "--polish_epochs", "4", "--alt_field_epochs", "1",
+              "--alt_pose_epochs", "1", "--epoch_val", "2", "--selection_patience", "0")
+ONLINE_PHASES = ["fieldform", "barf", "barf", "pose", "joint", "joint", "pose", "polish_field",
+                 "polish_pose", "polish_field", "polish_pose"]
+RESUME_CUT = ("--epochs_online", "14", "--polish_epochs", "6")
+ONLINE_WARM = 10
+ONLINE_PROFILED = {"per_ray": (20, 25), "shared": (60, 65)}
 # NVIDIA H100 SXM: dense bf16 tensor-core peak, float32 peak outside the
 # tensor cores, and memory rate (data sheet)
 PEAK_FLOPS = 989e12
@@ -375,16 +421,20 @@ def phase_kernels(star_cfg, n_rand):
     return worst, step_ms
 
 
-def backward_part_cases(star_cfg, n_rand, slice_cfg, slice_rays, nt_cfg, nt_rays):
+def backward_part_cases(star_cfg, n_rand, online_cfg, online_rays, slice_cfg, slice_rays, nt_cfg,
+                        nt_rays):
     """The backward calls whose GEMM and sums phase 3c checks and times, as
     (path, name, width, n_blocks, lin_in's rows, fields, points per field,
     calls per step of the path): the field calls of one shared-pose online
-    step, the per-ray step's stacked fine call (K fields a launch) and the
-    nerf_time fine call (lin_in's 96 rows)."""
+    step at the flagship's widths and at the online app's, the per-ray
+    step's stacked fine call (K fields a launch) and the nerf_time fine call
+    (lin_in's 96 rows)."""
     from startrax_torch.kernels.fused_mlp import EW, XW
 
-    out = [("shared-pose", name, f.width, f.n_blocks, EW, 1, n, calls)
-           for name, f, n, _, _, calls in kernel_cases(star_cfg, n_rand) if calls]
+    out = [(path, name, f.width, f.n_blocks, EW, 1, n, calls)
+           for path, cfg, rays in (("shared-pose", star_cfg, n_rand),
+                                   ("online shared-pose", online_cfg, online_rays))
+           for name, f, n, _, _, calls in kernel_cases(cfg, rays) if calls]
     name, f, rays, samples, _, calls = stacked_cases(slice_cfg, slice_rays, star_cfg, n_rand)[1]
     out.append(("per-ray", f"stacked {name} K={slice_cfg.num_vehicles}", f.width, f.n_blocks, EW,
                 slice_cfg.num_vehicles, rays * samples, calls))
@@ -593,6 +643,24 @@ def phase_field_axis(slice_cfg, n_rand, flagship_cfg, flagship_rays):
         print(f"time of the {what} field calls of one per-ray step: "
               + ", ".join(f"{k} {ms[k]:.3f} ms" for k in STEP_TIMES[:4]), flush=True)
     return worst_s, ms_s, worst_f, ms_f
+
+
+def phase_online_kernels(online_cfg, n_rand):
+    """3d: the per-field kernel at the shapes one shared-pose step of the
+    online app gives it (the static field, and the dynamic fields with the
+    in-kernel warp and the pose sums), each against its plain version and
+    timed. Returns the worst readings."""
+    import torch
+
+    worst, ms = dict.fromkeys(MEASURES, 0.0), dict.fromkeys(STEP_TIMES, 0.0)
+    for i, case in enumerate(kernel_cases(online_cfg, n_rand)[:4]):  # not the BARF case
+        name, fcfg, n_points, _, _, calls = case
+        _check_and_time(f"online {name} {fcfg.depth}x{fcfg.width} N={n_points}",
+                        case_inputs(online_cfg, case, 20 + i), False, calls, worst, ms)
+        torch.cuda.empty_cache()
+    print("time of the six field calls of one shared-pose step of the online app: "
+          + ", ".join(f"{k} {ms[k]:.3f} ms" for k in STEP_TIMES[:4]), flush=True)
+    return worst
 
 
 def _batch(n_rand, num_frames=None, near=None, far=None):
@@ -1284,6 +1352,229 @@ def phase_app_init(cfg, config_path, basedir):
     return counts, parts
 
 
+def _same_static_fields(path_a, path_b):
+    """Whether two configs give the same static coarse and fine fields."""
+    from startrax_torch.utils.config import load_config, star_config_from
+
+    a, b = (star_config_from(load_config(["--config", p])) for p in (path_a, path_b))
+    return all(a.static_field(fine=f) == b.static_field(fine=f) for f in (False, True))
+
+
+def phase_online(config_path, warm_path, basedir, cache):
+    """7b-7d: the online app through its entry point at the config's widths
+    with ONLINE_CUT, warm-started from warm_path; then the resume and the
+    test protocol. Returns the 7b run's launch counts (the fused kernels',
+    then the backward's GEMM and sums')."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from startrax_torch.apps import online
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.train import checkpoint as ckpt
+    from startrax_torch.train import loop, optim
+    from startrax_torch.utils.config import load_config, parse_config_file, star_config_from
+    from startrax_torch.utils.tree import tree_leaves
+
+    argv = ["--config", config_path, "--basedir", basedir, "--synth_cache_dir", cache,
+            "--appearance_ckpt_path", warm_path, *ONLINE_CUT]
+    cfg = load_config(argv)
+    published = parse_config_file(config_path)
+    cuts = ", ".join(f"{k} {published.get(k, 'default')} -> {getattr(cfg, k)}"
+                     for k in (flag[2:] for flag in ONLINE_CUT[::2]))
+    print(f"online: python -m startrax_torch.apps.online {' '.join(argv)} (cut in depth and "
+          f"schedule: {cuts})", flush=True)
+
+    # each step the app takes: its kind (a per-ray batch carries [N] frame
+    # tensors), its CUDA events, its launches; and one profiled window of
+    # each kind (device activity only, so that each kernel counts once). No
+    # sync is added but at the profiled windows' edges: the events are read
+    # after the run, so the host queues work ahead as the app does
+    step_log, profs = [], {}
+
+    def timed(step):
+        def run(params, batch, epoch=0, **k):
+            kind = loop.batch_kind(batch)
+            seen = sum(r["kind"] == kind for r in step_log)
+            lo, hi = ONLINE_PROFILED[kind]
+            if seen == lo:
+                torch.cuda.synchronize()
+                profs[kind] = profile(activities=[ProfilerActivity.CUDA])
+                profs[kind].start()
+            before = dict(fm.launches) | dict(fm.part_launches)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(params, batch, epoch=epoch, **k)
+            end.record()
+            if seen == hi - 1:
+                torch.cuda.synchronize()
+                profs[kind].stop()
+            after = dict(fm.launches) | dict(fm.part_launches)
+            step_log.append({"kind": kind, "epoch": int(epoch), "events": (start, end),
+                             "launches": _deltas(after, before)})
+            return out
+
+        return run
+
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    with loop.wrapping_online_steps(timed):
+        online.main(argv)
+    torch.cuda.synchronize()
+    app_s = time.perf_counter() - t0
+    counts, parts = dict(fm.launches), dict(fm.part_launches)
+
+    run_dir = os.path.join(basedir, cfg.expname, "online")
+    for r in step_log:
+        r["ms"] = r["events"][0].elapsed_time(r["events"][1])
+    history = json.load(open(os.path.join(run_dir, "history.json")))
+    rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    vals = [(r["step"], r["val/psnr"], r["val/ssim"]) for r in rows if "val/psnr" in r]
+    phases = [h["phase"] for h in history]
+    print(f"online: {len(step_log)} steps, {len(history)} epochs in {app_s:.2f} s", flush=True)
+    for h in history:
+        print(f"  epoch {h['epoch']} {h['phase']}: fine {h['fine']}, window {h['window']}, "
+              f"trans {h['trans']}, rot {h['rot']}"
+              + (f", selection score {h['score']}" if "score" in h else ""), flush=True)
+    print("online validations (step, PSNR dB, SSIM) "
+          + ", ".join(f"({s}, {p:.4f}, {q:.4f})" for s, p, q in vals), flush=True)
+    _require(phases == ONLINE_PHASES, f"the phase sequence {ONLINE_PHASES}, got {phases}")
+    _require(len(step_log) == len(history) * cfg.steps_per_epoch, "every epoch took its steps")
+    fines = [h["fine"] for h in history]
+    _require(all(math.isfinite(f) for f in fines) and fines[2] < fines[0],
+             "finite fine losses that fall over the warmup")
+    _require(len(vals) == len(history) // cfg.epoch_val
+             and all(math.isfinite(p) and math.isfinite(q) for _, p, q in vals),
+             "finite val metrics every epoch_val epochs")
+    _require(all(("score" in h) == (h["epoch"] >= 6) for h in history)
+             and all(math.isfinite(h["score"]) for h in history[6:]),
+             "a selection score on every epoch from the last admission on")
+    log = open(os.path.join(run_dir, "run.log")).read()
+    _require("training stopped: polish budget" in log, "the run stops on the polish budget")
+
+    # launches: each step kind's as designed, the stale batches (sampled
+    # under the previous phase's state) by layout, and the renders' forwards
+    # (one GEMM and two sums a backward call: 4 calls a per-ray step, 6 a
+    # shared-pose step)
+    design = {"per_ray": _counts(fwd=2, bwd=2, stacked_fwd=2, stacked_bwd=2) | _part_counts(
+                  *range(4)),
+              "shared": _counts(fwd=6, bwd=6) | _part_counts(*range(6))}
+    kinds = {}
+    for rec in step_log:
+        kinds.setdefault(rec["kind"], []).append(rec)
+    _require(sorted(kinds) == ["per_ray", "shared"], "steps of both kinds")
+    for kind, recs in sorted(kinds.items()):
+        bad = [r for r in recs if r["launches"] != design[kind]]
+        med = statistics.median(r["ms"] for i, r in enumerate(recs) if i >= ONLINE_WARM and not
+                                ONLINE_PROFILED[kind][0] <= i <= ONLINE_PROFILED[kind][1])
+        by_phase = {}
+        for r in recs:
+            by_phase[phases[r["epoch"]]] = by_phase.get(phases[r["epoch"]], 0) + 1
+        n_prof = ONLINE_PROFILED[kind][1] - ONLINE_PROFILED[kind][0]
+        busy = sum(e.self_device_time_total for e in profs[kind].key_averages()) / 1e3 / n_prof
+        print(f"online {kind} steps: {len(recs)} (by phase {by_phase}), median {med:.3f} ms "
+              f"(CUDA events, no sync added, steps {ONLINE_WARM + 1} on, the profiled "
+              f"steps and the one after them left out), "
+              f"{cfg.N_rand / med * 1e3:.1f} rays/s; "
+              f"device time {busy:.3f} ms a step (profiler, {n_prof} steps), idle share "
+              f"{1 - busy / med:.3f}; launches a step {recs[0]['launches']}, design "
+              f"{design[kind]}", flush=True)
+        print(profs[kind].key_averages().table(sort_by="cuda_time_total", row_limit=12),
+              flush=True)
+        _require(not bad, f"every {kind} step launches {design[kind]}, got {bad[:1]}")
+    stale = {phases[r["epoch"]]: 0 for r in step_log}
+    for r in step_log:
+        per_ray_phase = phases[r["epoch"]] in ("fieldform", "barf", "polish_field")
+        stale[phases[r["epoch"]]] += (r["kind"] == "per_ray") != per_ray_phase
+    print(f"online steps whose batch has the other phase kind's layout (stale prefetched "
+          f"batches), by phase: {stale}", flush=True)
+    star_cfg = star_config_from(cfg)
+    tiles = -(-cfg.synth_height * cfg.synth_height // 8192)
+    n_frames = sum(len(online._score_frames(cfg, 0, cfg.num_frames)) for h in history
+                   if "score" in h)
+    renders = len(vals) + n_frames
+    want = _counts(**{k: sum(r["launches"][k] for r in step_log) for k in fm.launches})
+    want["fwd"] += renders * tiles * (2 + 2 * star_cfg.num_vehicles)
+    want_parts = {k: sum(r["launches"][k] for r in step_log) for k in fm.part_launches}
+    print(f"online launches {counts}, backward parts {parts}; the eval renders: {renders} "
+          f"({len(vals)} validations, {n_frames} selection frames) of {tiles} tiles, "
+          f"{2 + 2 * star_cfg.num_vehicles} fwd a tile", flush=True)
+    _require(counts == want and parts == want_parts,
+             f"the app's launches: the steps' and the renders' forwards {want}, got {counts}")
+
+    # 7c: resume mid-polish from the final checkpoint
+    ckpts = os.path.join(run_dir, "ckpts")
+    argv_resume = argv + ["--online_ckpt_path", ckpts, *RESUME_CUT]
+    t0 = time.perf_counter()
+    params = online.main(argv_resume)
+    resume_s = time.perf_counter() - t0
+    cfg_r = load_config(argv_resume)
+    log = open(os.path.join(run_dir, "run.log")).read()
+    history_r = json.load(open(os.path.join(run_dir, "history.json")))
+    print(f"online resume ({' '.join(RESUME_CUT)}): {resume_s:.2f} s, epochs "
+          f"{[(h['epoch'], h['phase'], h['fine']) for h in history_r]}", flush=True)
+    for line in ("resumed online training", "resumed polish sub-state",
+                 "restored best-epoch snapshot"):
+        _require(line in log, f"run.log says '{line}'")
+    _require([h["phase"] for h in history_r] == ["polish_field"],
+             "the resumed run continues the alternation")
+    saved = ckpt.restore_checkpoint(ckpts)
+    _require(saved["epoch"] == cfg_r.epochs_online, "the resumed run's final checkpoint")
+    fresh = loop.init_online_params(star_cfg, cfg.num_frames,
+                                    torch.Generator(device="cuda").manual_seed(1))
+    leaves = tree_leaves(fresh)
+    ckpt.copy_into(fresh, saved["params"])
+    _require(all(a is b for a, b in zip(tree_leaves(fresh), leaves)) and all(
+        torch.equal(a, b) and torch.equal(a, c) for a, b, c in
+        zip(leaves, tree_leaves(saved["params"]), tree_leaves(params))),
+        "the saved params load bitwise into fresh leaves and equal the returned ones")
+    names = [k for k in saved if k.startswith("opt_state")]
+    for name in names:
+        opt = optim.make_fused_star_optimizer(fresh, 0.0, 0.0, 0.0,
+                                              accumulate_steps=cfg.accumulate_grad_batches)
+        buffers = [opt.m, opt.v, opt.acc]
+        opt.load_state_dict(saved[name])
+        st = saved[name]
+        _require(all(a is b for a, b in zip([opt.m, opt.v, opt.acc], buffers)),
+                 f"{name} loads in place")
+        _require(all(torch.equal(getattr(opt, k), st[k]) for k in ("m", "v", "acc"))
+                 and (opt.count, opt.mini_step) == (st["count"], st["mini_step"]),
+                 f"{name} loads bitwise")
+    if "restoring every-epoch best-epoch" in log.split("resumed online training")[-1]:
+        best = ckpt.restore_checkpoint(run_dir + "/ckpts_best")["params"]
+        _require(all(torch.equal(a, b) for a, b in zip(tree_leaves(best), leaves)),
+                 "the restored best snapshot is the returned params")
+    print(f"online resume: the final checkpoint's params and {len(names)} optimizer states "
+          f"({', '.join(names)}) load bitwise into fresh leaves and buffers", flush=True)
+
+    # 7d: the test protocol on the final checkpoint
+    argv_test = argv + ["--test", "true", "--online_ckpt_path", ckpts]
+    t0 = time.perf_counter()
+    online.main(argv_test)
+    test_s = time.perf_counter() - t0
+    test_dir = os.path.join(basedir, cfg.expname, "online_test")
+    rows_t = [json.loads(line) for line in open(os.path.join(test_dir, "metrics.jsonl"))]
+    got = {}
+    for r in rows_t:
+        for k, v in r.items():
+            if k.startswith("test/"):
+                got.setdefault(k, []).append(v)
+    K = star_cfg.num_vehicles
+    need = ["test/view0_frame_psnr", "test/view0_frame_psnr_dynamic", "test/view0_frame_2d_iou",
+            "test/view0_2d_iou"] + [f"test/{m}_{k}" for m in ("rpe_trans", "ate", "3d_iou")
+                                    for k in range(K)]
+    summary = {k: (got[k] if len(got.get(k, [])) <= 1 else
+                   [round(min(got[k]), 5), round(max(got[k]), 5)]) for k in need if k in got}
+    print(f"online test: {test_s:.2f} s; {summary} (a list of two: min and max over frames)",
+          flush=True)
+    _require(all(k in got and all(math.isfinite(v) for v in got[k]) for k in need),
+             f"the test metrics {need} present and finite")
+    _require(all(got[f"test/ate_{k}"][0] < 0.4 for k in range(K)), "ATE under 0.4")
+    _require(all(os.path.exists(os.path.join(test_dir, f"poses_vehicle{k}.txt"))
+                 for k in range(K)), "the pose files")
+    return counts, parts
+
+
 def _rows(per_field, stacked, encoded, bwd_parts, part_launches):
     """The JSON kernel rows. per_field, stacked and encoded are (worst,
     step_ms, launches) of the per-field kernel (the flagship step's times),
@@ -1362,6 +1653,7 @@ def main():
     from startrax_torch.kernels import build, fused_mlp as fm
     from startrax_torch.utils.config import (
         Config,
+        load_config,
         loss_config_from,
         parse_config_file,
         star_config_from,
@@ -1395,13 +1687,18 @@ def main():
     slice_star = dataclasses.replace(slice_star, end_barf=-1)
     slice_star_barf = dataclasses.replace(slice_star, end_barf=slice_cfg.end_barf)
     nt_cfg, nt_star, nt_loss = load(NT_CONFIG)
+    # the online app's main steps, as apps/online.py builds them
+    on_cfg, on_star, _ = load(ONLINE_CONFIG)
+    on_star = dataclasses.replace(on_star, end_barf=-1)
 
     worst, step_ms = phase_kernels(star_cfg, cfg.N_rand)
-    bwd_parts = phase_backward_parts(backward_part_cases(star_cfg, cfg.N_rand, slice_star,
-                                                         slice_cfg.N_rand, nt_star, nt_cfg.N_rand))
+    bwd_parts = phase_backward_parts(backward_part_cases(
+        star_cfg, cfg.N_rand, on_star, on_cfg.N_rand, slice_star, slice_cfg.N_rand, nt_star,
+        nt_cfg.N_rand))
     worst_s, ms_s, worst_f, _ = phase_field_axis(slice_star_barf, slice_cfg.N_rand, star_cfg,
                                                  cfg.N_rand)
-    worst = {k: max(worst[k], worst_f[k]) for k in worst}
+    worst_o = phase_online_kernels(on_star, on_cfg.N_rand)
+    worst = {k: max(worst[k], worst_f[k], worst_o[k]) for k in worst}
     counts, part_counts = phase_main_path(cfg, star_cfg, loss_cfg)
     counts_s = phase_per_ray_path(slice_cfg, slice_star, slice_star_barf, slice_loss)
     worst_e, ms_e, counts_e = phase_nerf_time(nt_cfg, nt_star, nt_loss)
@@ -1415,6 +1712,27 @@ def main():
             os.path.join(tmp, "runs"))
         print(f"phase 6 (scene, app, checkpoints, host modules): "
               f"{time.perf_counter() - t6:.1f} s", flush=True)
+
+        t7 = time.perf_counter()
+        configs = os.path.join(here, "startrax", "configs")
+        online_path = os.path.join(configs, ONLINE_CONFIG)
+        warm = os.path.join(tmp, "runs", app_cfg.expname, "app_init", "ckpts")
+        if _same_static_fields(os.path.join(configs, SLICE_CONFIG), online_path):
+            print(f"online warm start: {SLICE_CONFIG} and {ONLINE_CONFIG} give the same static "
+                  "fields; phase 6's final app-init checkpoint", flush=True)
+        else:
+            from startrax_torch.apps import app_init
+
+            print(f"online warm start: {SLICE_CONFIG} and {ONLINE_CONFIG} give other static "
+                  f"fields; a short app-init on {ONLINE_CONFIG} instead", flush=True)
+            app_init.main(["--config", online_path, "--basedir", os.path.join(tmp, "warm"),
+                           "--synth_cache_dir", app_cfg.synth_cache_dir, *APP_CUT])
+            warm = os.path.join(tmp, "warm", load_config(["--config", online_path]).expname,
+                                "app_init", "ckpts")
+        online_counts, online_parts = phase_online(online_path, warm, os.path.join(tmp, "runs"),
+                                                   app_cfg.synth_cache_dir)
+        print(f"phase 7 (online app, resume, test): {time.perf_counter() - t7:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s), (worst_e, ms_e, counts_e),
@@ -1422,8 +1740,14 @@ def main():
     app_launches = {"fused_mlp_fwd": app_counts["fwd"], "fused_mlp_bwd": app_counts["bwd"],
                     "fused_mlp_wgrad": app_parts["wgrad"],
                     "fused_mlp_sum_rows": app_parts["sum_rows"]}
+    online_launches = {"fused_mlp_fwd": online_counts["fwd"], "fused_mlp_bwd": online_counts["bwd"],
+                       "fused_mlp_stacked_fwd": online_counts["stacked_fwd"],
+                       "fused_mlp_stacked_bwd": online_counts["stacked_bwd"],
+                       "fused_mlp_wgrad": online_parts["wgrad"],
+                       "fused_mlp_sum_rows": online_parts["sum_rows"]}
     for row in rows:
         row["app_init_launches"] = app_launches.get(row["name"], 0)
+        row["online_launches"] = online_launches.get(row["name"], 0)
     print(f"total: {time.perf_counter() - t0:.1f} s, the build included", flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

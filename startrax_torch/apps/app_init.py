@@ -28,18 +28,14 @@ from ..train import checkpoint as ckpt
 from ..train import loop, optim
 from ..utils.config import Config, load_config, loss_config_from, star_config_from
 from ..utils.tree import tree_leaves
-from .common import Workspace, host_prng, make_dataset
+from .common import Workspace, check_one_device, host_prng, make_dataset
 
 
 def train(cfg: Config, device=None):
     """Run appearance init; returns the parameters (leaf tensors on
     ``device``, None: the card, device.resolve)."""
     dev = resolve(device)
-    if cfg.data_parallel == "on":
-        raise NotImplementedError("data_parallel = on: ray-axis data parallelism is not ported "
-                                  "yet (ROADMAP queue 1, item 8)")
-    if cfg.data_parallel not in ("auto", "off"):
-        raise ValueError(f"data_parallel must be auto/on/off, got {cfg.data_parallel}")
+    check_one_device(cfg)
     ws = Workspace(cfg, "app_init")
     star_cfg = star_config_from(cfg)
     loss_cfg = loss_config_from(cfg)

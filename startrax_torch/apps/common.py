@@ -62,6 +62,16 @@ def make_dataset(cfg: Config, split: str, device=None):
     raise ValueError(f"unknown dataset_type {cfg.dataset_type}")
 
 
+def check_one_device(cfg: Config) -> None:
+    """The apps run on one device: data_parallel = on raises
+    NotImplementedError, and a value other than auto/on/off ValueError."""
+    if cfg.data_parallel == "on":
+        raise NotImplementedError("data_parallel = on: ray-axis data parallelism is not ported "
+                                  "yet (ROADMAP queue 1, item 8)")
+    if cfg.data_parallel not in ("auto", "off"):
+        raise ValueError(f"data_parallel must be auto/on/off, got {cfg.data_parallel}")
+
+
 def host_prng(seed: int = 42, device=None):
     """(numpy Generator, torch.Generator on ``device``), both seeded with
     ``seed``; device None is the card (device.resolve)."""

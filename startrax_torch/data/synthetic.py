@@ -481,7 +481,8 @@ class SyntheticAdapter:
 
     # the synthetic scene's canonical vehicle frame is origin-centered (the
     # model pose IS world->vehicle), unlike CARLA where the canonical frame
-    # is the frame-0 placement
+    # is the frame-0 placement — the test protocol's bbox math and its
+    # frame-0 trajectory entry branch on this (apps/test_protocol.py)
     bbox_rebase_frame0 = False
 
     def bbox_local_vertices(self) -> np.ndarray:

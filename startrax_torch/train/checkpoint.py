@@ -3,9 +3,12 @@
 Counterpart of startrax/train/checkpoint.py, with the same contract:
 
 1. an appearance checkpoint warm-starts online training by restoring only
-   the static field weights (``restore_static_only``; the reference filters
-   out keys containing "dynamic"),
-2. a full resume restores the whole state,
+   the static field weights (``restore_static_only``; ``copy_into`` puts
+   its result into live leaves; the reference filters out keys containing
+   "dynamic"),
+2. a full resume restores the whole state: ``copy_into`` copies saved
+   params into the live leaves that the optimizers hold, and
+   ``FusedGroupAdam.load_state_dict`` the optimizer states,
 3. pose trajectories are exported as TUM-style flat-matrix text with
    translations x100 (``save_poses_txt``).
 
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..utils.tree import tree_map
+from ..utils.tree import tree_leaves, tree_map
 from .curriculum import CurriculumState
 
 _STATE_FILE = "state.pt"
@@ -93,7 +96,9 @@ def checkpoint_keys(path: str, step: Optional[int] = None):
 def restore_static_only(appearance_params, online_params):
     """Copy the static coarse/fine field weights from an appearance-init
     checkpoint into an online parameter tree, leaving dynamic fields and
-    poses untouched."""
+    poses untouched. The result holds the checkpoint's own (detached)
+    tensors; to warm-start leaves that an optimizer updates, copy it into
+    them (copy_into)."""
     nerf = dict(online_params["nerf"])
     for k in ("static_coarse", "static_fine"):
         if k in appearance_params:
@@ -101,6 +106,22 @@ def restore_static_only(appearance_params, online_params):
     out = dict(online_params)
     out["nerf"] = nerf
     return out
+
+
+@torch.no_grad()
+def copy_into(live, saved) -> None:
+    """Copy a saved tree into the live tree's leaf tensors in place (same
+    structure and shapes): the leaves keep their identity, device and
+    requires_grad, so an optimizer built on them goes on updating them.
+    ``saved`` may hold tensors on any device or numpy arrays."""
+    dst, src = tree_leaves(live), tree_leaves(saved)
+    if len(dst) != len(src):
+        raise ValueError(f"copy_into: {len(src)} saved leaves for {len(dst)} live ones")
+    for d, s in zip(dst, src):
+        s = torch.as_tensor(s)
+        if tuple(s.shape) != tuple(d.shape):
+            raise ValueError(f"copy_into: shape {tuple(s.shape)} for a leaf of {tuple(d.shape)}")
+        d.copy_(s)
 
 
 def gc_checkpoints(path: str, keep_last: int = 3):

@@ -9,6 +9,7 @@ returns the loss and the logged metrics.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -163,6 +164,30 @@ def make_online_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt,
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def batch_kind(batch) -> str:
+    """"per_ray" for a batch of per-ray frames (an [R] tensor), "shared" for
+    a batch at one frame (an int)."""
+    return "per_ray" if torch.is_tensor(batch["frame"]) else "shared"
+
+
+@contextlib.contextmanager
+def wrapping_online_steps(wrap):
+    """Within the block, every step that make_online_train_step builds is
+    wrap(step): a measurement observes an app's steps through its entry
+    point."""
+    global make_online_train_step
+    make = make_online_train_step
+
+    def wrapped(*args, **kw):
+        return wrap(make(*args, **kw))
+
+    make_online_train_step = wrapped
+    try:
+        yield
+    finally:
+        make_online_train_step = make
 
 
 def make_gauge_train_step(star_cfg: StarConfig, opt, freeze_rot: bool = False,

@@ -89,6 +89,32 @@ class FusedGroupAdam:
         for p in self.leaves:
             p.grad = None
 
+    def state_dict(self) -> Dict:
+        """The optimizer's state: the moments, the accumulator (None
+        without accumulation), the update count and the mini-steps taken
+        since the last update. Its tensors are the live buffers; save it
+        with train.checkpoint.save_checkpoint, which detaches them."""
+        return {"m": self.m, "v": self.v, "acc": self.acc, "count": self.count,
+                "mini_step": self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a state_dict() into this optimizer in place: the buffers
+        keep their identity and device. Raises when the state was saved by
+        an optimizer over other leaves or another accumulation."""
+        if (state["acc"] is None) != (self.acc is None):
+            raise ValueError("the state's accumulation does not match this optimizer's")
+        for name in ("m", "v", "acc"):
+            dst, src = getattr(self, name), state[name]
+            if dst is None:
+                continue
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"optimizer state {name}: shape {tuple(src.shape)}, "
+                                 f"expected {tuple(dst.shape)}")
+            dst.copy_(torch.as_tensor(src))
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
     @torch.no_grad()
     def step(self) -> bool:
         """One optimizer step on the leaves' .grad; returns whether it
