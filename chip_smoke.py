@@ -117,11 +117,38 @@ Phases, each printing its numbers:
      the saved params and every optimizer state load bitwise into fresh
      leaves and buffers; (d) --test true on the final checkpoint: the test
      metrics present and finite, ATE under 0.4, the pose files written;
-  8. one JSON line per kernel (with its bound: the larger of its FLOP over
+  8. the scaled recipe's online app (synthetic_star_online_scaled.txt, the
+     config and scene of phase 6, warm-started from its checkpoint; static
+     8x128, dynamic 4x128, N_rand 2048, 64 + 64 samples, bf16, accumulation
+     4, depth loss 0.1; photometric_depth selection at stride 2, boundary
+     only; the gauge_align polish in frame0 mode, gauge_epochs 2,
+     gauge_depth_lambda 2.0), cut in depth and schedule by SCALED_CUT
+     (gauge_rounds 2, so that the gauge round re-enters): (a) the phase
+     sequence SCALED_PHASES (warmup, curriculum, two gauge rounds of two
+     gauge_fit epochs, each followed by an alternation round that ends on a
+     boundary row, the stop on the polish budget); each gauge application
+     equal to G^-1 ∘ p to 1e-6 for every vehicle (read at the first step
+     after it) and each reset optimizer's first step after it at a newly
+     built optimizer's state; the boundary best restored into the returned
+     params bitwise; the step time, device time and idle share of each kind
+     (per-ray, shared-pose, and the gauge steps of either layout), every
+     step's launches as its kind's design (gauge per-ray: 2 fwd, 2 stacked
+     fwd, 2 stacked bwd; gauge shared-pose: 6 fwd, 4 bwd with the pose sums,
+     4 sums; no GEMM), the stale batches and the renders' forwards; (b) a
+     resume from the checkpoint of the second round's first gauge_fit
+     epoch: the round restarts, both best snapshots are restored; (c)
+     --test true over the 4 held-out views, ATE under 0.4;
+  8b. on phase 7's config and scene, POLISH_CUTS: the gauge in ref_field
+     mode with its held-out guard, then multi-start (2 candidates), and
+     refit_anchor; each one's phases, run.log decisions and launches by
+     kind;
+  9. one JSON line per kernel (with its bound: the larger of its FLOP over
      989 TFLOP/s dense bf16, 67 TFLOP/s f32 for the sums, and its bytes,
      each input read once and each output written once, over 3.35 TB/s;
-     and the launches of it by the app-init app and by the online app), the
-     card's line, and the result line {"ok": true, "device": {...}} last.
+     and the launches of it by the app-init app, the online app, the scaled
+     app of phase 8 and the polishes of 8b, each counted from 0 over its
+     run), the card's line, and the result line {"ok": true, "device":
+     {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device or when any phase
 fails. Imports nothing of JAX or of the JAX package: only torch, numpy,
@@ -181,6 +208,46 @@ ONLINE_PHASES = ["fieldform", "barf", "barf", "pose", "joint", "joint", "pose", 
 RESUME_CUT = ("--epochs_online", "14", "--polish_epochs", "6")
 ONLINE_WARM = 10
 ONLINE_PROFILED = {"per_ray": (20, 25), "shared": (60, 65)}
+# phase 8: the scaled recipe's online app (phase 6's config), cut in depth and
+# schedule (existing config fields; gauge_rounds 1 -> 2 so that the gauge
+# round re-enters), the phases it must run, the checkpoint the resume starts
+# from (mid-gauge) and its extension, and the profiled window of each step
+# kind; 8b: the ref_field gauge with its guard plus multi-start, and
+# refit_anchor, on phase 7's config: each cut, its phases and the run.log
+# lines it must write (text, count)
+SCALED_CUT = ("--epochs_online", "16", "--steps_per_epoch", "24", "--pose_delay_epochs", "1",
+              "--end_barf", "3", "--epochs_between_frames", "0", "--online_thres", "1e9",
+              "--online_thres_tightened", "1e9", "--polish_epochs", "8", "--alt_field_epochs", "1",
+              "--alt_pose_epochs", "1", "--gauge_rounds", "2", "--epoch_val", "12",
+              "--selection_patience", "0")
+SCALED_PHASES = ["fieldform", "barf", "barf", "pose", "joint", "joint", "pose", "gauge_fit",
+                 "gauge_fit", "polish_field", "polish_pose", "gauge_fit", "gauge_fit",
+                 "polish_field", "polish_pose"]
+SCALED_RESUME_AT = 11
+SCALED_RESUME_CUT = ("--epochs_online", "14")
+SCALED_PROFILED = {"per_ray": (12, 17), "shared": (30, 35), "gauge_per_ray": (30, 35),
+                   "gauge_shared": (2, 5)}
+_POLISH_BASE = ("--epochs_online", "10", "--steps_per_epoch", "16", "--pose_delay_epochs", "0",
+                "--end_barf", "0", "--initial_num_frames", "8", "--epochs_between_frames", "0",
+                "--online_thres", "1e9", "--online_thres_tightened", "1e9",
+                "--alt_field_epochs", "1", "--alt_pose_epochs", "1", "--epoch_val", "100",
+                "--selection_patience", "0", "--refit_epochs", "1")
+POLISH_CUTS = (
+    ("guard_multi_start", _POLISH_BASE + (
+        "--polish_epochs", "6", "--polish_mode", "gauge_align", "--gauge_mode", "ref_field",
+        "--gauge_guard", "true", "--gauge_epochs", "1", "--gauge_rounds", "1",
+        "--multi_start_rounds", "1", "--multi_start_candidates", "2", "--multi_start_epochs",
+        "1"),
+     ["joint", "gauge_ref", "gauge_fit", "polish_field", "polish_pose", "multi_start",
+      "polish_field"],
+     (("gauge_align: fitting frame-0 reference fields", 1), ("gauge_align guard: vehicle", 2),
+      ("multi_start: candidate", 2), ("multi_start: ", 3))),
+    ("refit_anchor", _POLISH_BASE + (
+        "--polish_epochs", "4", "--polish_mode", "refit_anchor", "--refit_pose_epochs", "1"),
+     ["joint", "refit_field", "refit_pose", "polish_field", "polish_pose"],
+     (("refit_anchor: dynamic fields re-initialized", 1),
+      ("refit_anchor: pose recovery done", 1))),
+)
 # NVIDIA H100 SXM: dense bf16 tensor-core peak, float32 peak outside the
 # tensor cores, and memory rate (data sheet)
 PEAK_FLOPS = 989e12
@@ -212,6 +279,18 @@ def _part_counts(*fields):
     over every wide layer, two sums (the per-CTA and the per-split
     partials)."""
     return {"wgrad": len(fields), "sum_rows": 2 * len(fields)}
+
+
+def _step_designs():
+    """The launches of each kind of the online app's steps with K = 2
+    dynamic fields: per-ray, shared-pose, and the gauge fit's on either
+    layout (frozen fields: no weight grads, so no GEMM; a shared-pose gauge
+    step's four dynamic backward calls sum their pose partials)."""
+    return {"per_ray": _counts(fwd=2, bwd=2, stacked_fwd=2, stacked_bwd=2)
+            | _part_counts(*range(4)),
+            "shared": _counts(fwd=6, bwd=6) | _part_counts(*range(6)),
+            "gauge_per_ray": _counts(fwd=2, stacked_fwd=2, stacked_bwd=2) | _part_counts(),
+            "gauge_shared": _counts(fwd=6, bwd=4) | {"wgrad": 0, "sum_rows": 4}}
 
 
 def _deltas(counts, before):
@@ -1365,9 +1444,7 @@ def phase_online(config_path, warm_path, basedir, cache):
     with ONLINE_CUT, warm-started from warm_path; then the resume and the
     test protocol. Returns the 7b run's launch counts (the fused kernels',
     then the backward's GEMM and sums')."""
-    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from startrax_torch.apps import online
     from startrax_torch.kernels import fused_mlp as fm
@@ -1386,47 +1463,18 @@ def phase_online(config_path, warm_path, basedir, cache):
           f"schedule: {cuts})", flush=True)
 
     # each step the app takes: its kind (a per-ray batch carries [N] frame
-    # tensors), its CUDA events, its launches; and one profiled window of
-    # each kind (device activity only, so that each kernel counts once). No
-    # sync is added but at the profiled windows' edges: the events are read
-    # after the run, so the host queues work ahead as the app does
-    step_log, profs = [], {}
-
-    def timed(step):
-        def run(params, batch, epoch=0, **k):
-            kind = loop.batch_kind(batch)
-            seen = sum(r["kind"] == kind for r in step_log)
-            lo, hi = ONLINE_PROFILED[kind]
-            if seen == lo:
-                torch.cuda.synchronize()
-                profs[kind] = profile(activities=[ProfilerActivity.CUDA])
-                profs[kind].start()
-            before = dict(fm.launches) | dict(fm.part_launches)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step(params, batch, epoch=epoch, **k)
-            end.record()
-            if seen == hi - 1:
-                torch.cuda.synchronize()
-                profs[kind].stop()
-            after = dict(fm.launches) | dict(fm.part_launches)
-            step_log.append({"kind": kind, "epoch": int(epoch), "events": (start, end),
-                             "launches": _deltas(after, before)})
-            return out
-
-        return run
-
+    # tensors), its CUDA events, its launches; one profiled window a kind
+    rec = _StepRecorder(ONLINE_PROFILED)
     fm.reset_launch_counts()
     t0 = time.perf_counter()
-    with loop.wrapping_online_steps(timed):
+    with rec:
         online.main(argv)
     torch.cuda.synchronize()
     app_s = time.perf_counter() - t0
     counts, parts = dict(fm.launches), dict(fm.part_launches)
+    step_log = rec.log
 
     run_dir = os.path.join(basedir, cfg.expname, "online")
-    for r in step_log:
-        r["ms"] = r["events"][0].elapsed_time(r["events"][1])
     history = json.load(open(os.path.join(run_dir, "history.json")))
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
     vals = [(r["step"], r["val/psnr"], r["val/ssim"]) for r in rows if "val/psnr" in r]
@@ -1456,32 +1504,11 @@ def phase_online(config_path, warm_path, basedir, cache):
     # under the previous phase's state) by layout, and the renders' forwards
     # (one GEMM and two sums a backward call: 4 calls a per-ray step, 6 a
     # shared-pose step)
-    design = {"per_ray": _counts(fwd=2, bwd=2, stacked_fwd=2, stacked_bwd=2) | _part_counts(
-                  *range(4)),
-              "shared": _counts(fwd=6, bwd=6) | _part_counts(*range(6))}
-    kinds = {}
-    for rec in step_log:
-        kinds.setdefault(rec["kind"], []).append(rec)
-    _require(sorted(kinds) == ["per_ray", "shared"], "steps of both kinds")
-    for kind, recs in sorted(kinds.items()):
-        bad = [r for r in recs if r["launches"] != design[kind]]
-        med = statistics.median(r["ms"] for i, r in enumerate(recs) if i >= ONLINE_WARM and not
-                                ONLINE_PROFILED[kind][0] <= i <= ONLINE_PROFILED[kind][1])
-        by_phase = {}
-        for r in recs:
-            by_phase[phases[r["epoch"]]] = by_phase.get(phases[r["epoch"]], 0) + 1
-        n_prof = ONLINE_PROFILED[kind][1] - ONLINE_PROFILED[kind][0]
-        busy = sum(e.self_device_time_total for e in profs[kind].key_averages()) / 1e3 / n_prof
-        print(f"online {kind} steps: {len(recs)} (by phase {by_phase}), median {med:.3f} ms "
-              f"(CUDA events, no sync added, steps {ONLINE_WARM + 1} on, the profiled "
-              f"steps and the one after them left out), "
-              f"{cfg.N_rand / med * 1e3:.1f} rays/s; "
-              f"device time {busy:.3f} ms a step (profiler, {n_prof} steps), idle share "
-              f"{1 - busy / med:.3f}; launches a step {recs[0]['launches']}, design "
-              f"{design[kind]}", flush=True)
-        print(profs[kind].key_averages().table(sort_by="cuda_time_total", row_limit=12),
+    medians = rec.report(_step_designs(), ONLINE_WARM, cfg, "online", phases)
+    _require(sorted(medians) == ["per_ray", "shared"], "steps of both kinds")
+    for kind in sorted(rec.profs):
+        print(rec.profs[kind].key_averages().table(sort_by="cuda_time_total", row_limit=12),
               flush=True)
-        _require(not bad, f"every {kind} step launches {design[kind]}, got {bad[:1]}")
     stale = {phases[r["epoch"]]: 0 for r in step_log}
     for r in step_log:
         per_ray_phase = phases[r["epoch"]] in ("fieldform", "barf", "polish_field")
@@ -1573,6 +1600,393 @@ def phase_online(config_path, warm_path, basedir, cache):
     _require(all(os.path.exists(os.path.join(test_dir, f"poses_vehicle{k}.txt"))
                  for k in range(K)), "the pose files")
     return counts, parts
+
+
+class _StepRecorder:
+    """Records each step an app takes through its entry point: the step's
+    kind (its batch's layout; gauge steps apart), its CUDA events and its
+    launches, with one profiled window of each kind (device activity only)
+    at the step indices `profiled` gives by kind. No sync is added but at
+    the profiled windows' edges: the events are read after the run, so the
+    host queues work ahead as the app does. Wrap the app's run in
+    `with recorder:`."""
+
+    def __init__(self, profiled):
+        self.profiled = profiled
+        self.log, self.profs, self.done = [], {}, set()
+        self.on_online = self.on_gauge = None  # hooks(step_or_None, args) before a step
+
+    def _run(self, kind, call, epoch):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from startrax_torch.kernels import fused_mlp as fm
+
+        seen = sum(r["kind"] == kind for r in self.log)
+        lo, hi = self.profiled.get(kind, (-1, -1))
+        if seen == lo:
+            torch.cuda.synchronize()
+            self.profs[kind] = profile(activities=[ProfilerActivity.CUDA])
+            self.profs[kind].start()
+        before = dict(fm.launches) | dict(fm.part_launches)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = call()
+        end.record()
+        if seen == hi - 1:
+            torch.cuda.synchronize()
+            self.profs[kind].stop()
+            self.done.add(kind)
+        after = dict(fm.launches) | dict(fm.part_launches)
+        self.log.append({"kind": kind, "epoch": epoch, "events": (start, end),
+                         "launches": _deltas(after, before)})
+        return out
+
+    def online(self, step):
+        from startrax_torch.train import loop
+
+        def run(params, batch, epoch=0, **k):
+            if self.on_online:
+                self.on_online(step, params)
+            return self._run(loop.batch_kind(batch),
+                             lambda: step(params, batch, epoch=epoch, **k), int(epoch))
+
+        return run
+
+    def gauge(self, step):
+        from startrax_torch.train import loop
+
+        def run(gauge, nerf, poses, batch, **k):
+            if self.on_gauge:
+                self.on_gauge(gauge, poses)
+            # a gauge step learns no epoch: report() places it
+            return self._run("gauge_" + loop.batch_kind(batch),
+                             lambda: step(gauge, nerf, poses, batch, **k), None)
+
+        return run
+
+    def __enter__(self):
+        from startrax_torch.train import loop
+
+        self._blocks = [loop.wrapping_online_steps(self.online),
+                        loop.wrapping_gauge_steps(self.gauge)]
+        for b in self._blocks:
+            b.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        for b in reversed(self._blocks):
+            b.__exit__(*exc)
+        for kind in [k for k in self.profs if k not in self.done]:
+            torch.cuda.synchronize()
+            self.profs.pop(kind).stop()  # a window that its kind's steps did not fill
+        return False
+
+    def times(self, steps_per_epoch):
+        """Read the events; place each gauge step in its epoch: the epochs
+        after the last online step's, steps_per_epoch steps each."""
+        last, run = -1, 0
+        for r in self.log:
+            r["ms"] = r["events"][0].elapsed_time(r["events"][1])
+            if r["epoch"] is None:
+                r["epoch"] = last + 1 + run // steps_per_epoch
+                run += 1
+            else:
+                last, run = r["epoch"], 0
+
+    def report(self, design, warm, cfg, label, phases):
+        """Per kind: the steps (by phase), the median step time (CUDA
+        events, the first `warm` and the profiled window left out), the
+        device time and idle share of the profiled window, and every step's
+        launches against design[kind]. Returns {kind: median ms}."""
+        import statistics
+
+        self.times(cfg.steps_per_epoch)
+        n_rand = cfg.N_rand
+        kinds = {}
+        for rec in self.log:
+            kinds.setdefault(rec["kind"], []).append(rec)
+        medians = {}
+        for kind, recs in sorted(kinds.items()):
+            lo, hi = self.profiled.get(kind, (-1, -1))
+            kept = [r["ms"] for i, r in enumerate(recs) if i >= min(warm, len(recs) // 2)
+                    and not lo <= i <= hi]
+            med = statistics.median(kept or [r["ms"] for r in recs])
+            medians[kind] = med
+            by_phase = {}
+            for r in recs:
+                p = phases[r["epoch"]] if 0 <= r["epoch"] < len(phases) else r["epoch"]
+                by_phase[p] = by_phase.get(p, 0) + 1
+            line = (f"{label} {kind} steps: {len(recs)} (by phase {by_phase}), median {med:.3f} "
+                    f"ms (CUDA events, no sync added), {n_rand / med * 1e3:.1f} rays/s")
+            if kind in self.profs:
+                n_prof = hi - lo
+                busy = sum(e.self_device_time_total
+                           for e in self.profs[kind].key_averages()) / 1e3 / n_prof
+                line += (f"; device time {busy:.3f} ms a step (profiler, {n_prof} steps), idle "
+                         f"share {1 - busy / med:.3f}")
+            print(line + f"; launches a step {recs[0]['launches']}, design {design[kind]}",
+                  flush=True)
+            bad = [r for r in recs if r["launches"] != design[kind]]
+            _require(not bad, f"{label}: every {kind} step launches {design[kind]}, got {bad[:1]}")
+        return medians
+
+
+def _check_jump(gauge, poses_before, poses_after, max_trans, max_rot):
+    """The pose jump of a gauge application: poses_after must be
+    accepted ∘ poses_before, accepted holding G^-1's rows within the caps
+    (identity elsewhere). Returns (the largest error, the vehicles
+    corrected)."""
+    import torch
+
+    from startrax_torch.apps import online
+    from startrax_torch.ops import lie
+
+    inv = lie.se3_inverse(gauge.detach().cpu())
+    ok = [w for w, _, _ in online.gauge_within_caps(inv.numpy(), max_trans, max_rot)]
+    accepted = torch.where(torch.tensor(ok)[:, None], inv, lie.se3_identity(len(ok)))
+    want = lie.se3_multiply(accepted[None].to(poses_before.device), poses_before)
+    return float((poses_after - want).abs().max()), sum(ok)
+
+
+def phase_scaled_online(config_path, warm_path, basedir, cache):
+    """8: the scaled recipe's online app through its entry point at the
+    config's widths with SCALED_CUT, warm-started from warm_path (module
+    docstring). Returns the main run's launch counts (the fused kernels',
+    then the backward's GEMM and sums')."""
+    import torch
+
+    from startrax_torch.apps import online
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.train import checkpoint as ckpt
+    from startrax_torch.utils.config import load_config, parse_config_file, star_config_from
+    from startrax_torch.utils.tree import tree_leaves
+
+    argv = ["--config", config_path, "--basedir", basedir, "--synth_cache_dir", cache,
+            "--appearance_ckpt_path", warm_path, *SCALED_CUT]
+    cfg = load_config(argv)
+    star_cfg = star_config_from(cfg)
+    K = star_cfg.num_vehicles
+    published = parse_config_file(config_path)
+    cuts = ", ".join(f"{k} {published.get(k, 'default')} -> {getattr(cfg, k)}"
+                     for k in (flag[2:] for flag in SCALED_CUT[::2]))
+    print(f"scaled online: python -m startrax_torch.apps.online {' '.join(argv)} (cut in depth "
+          f"and schedule: {cuts})", flush=True)
+
+    # each gauge application: the pose jump against G^-1 ∘ p (read at the
+    # first online step after a gauge step), then each optimizer's first
+    # step after it must find a newly built optimizer's state (these six
+    # reads are the only syncs added between steps but the profiled
+    # windows' edges)
+    rec = _StepRecorder(SCALED_PROFILED)
+    jump = {"gauge": None, "poses": None, "checked": None}
+    jumps, resets = [], []
+
+    def on_gauge(gauge, poses):
+        if jump["gauge"] is not gauge:
+            jump.update(gauge=gauge, poses=poses.detach().clone())
+
+    def on_online(step, params):
+        if jump["gauge"] is not None:
+            err, n = _check_jump(jump["gauge"], jump["poses"], params["poses"].detach(),
+                                 cfg.gauge_max_trans, cfg.gauge_max_rot)
+            jumps.append((err, n))
+            jump.update(gauge=None, checked=set() if n else None)
+        opt = step.opt
+        if jump["checked"] is not None and id(opt) not in jump["checked"]:
+            jump["checked"].add(id(opt))
+            resets.append((opt.count, opt.mini_step, float(opt.m.abs().max()),
+                           float(opt.v.abs().max()),
+                           0.0 if opt.acc is None else float(opt.acc.abs().max())))
+
+    rec.on_gauge, rec.on_online = on_gauge, on_online
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    with rec:
+        params = online.main(argv)
+    torch.cuda.synchronize()
+    app_s = time.perf_counter() - t0
+    counts, parts = dict(fm.launches), dict(fm.part_launches)
+
+    run_dir = os.path.join(basedir, cfg.expname, "online")
+    history = json.load(open(os.path.join(run_dir, "history.json")))
+    rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    vals = [(r["step"], r["val/psnr"], r["val/ssim"]) for r in rows if "val/psnr" in r]
+    phases = [h["phase"] for h in history]
+    log = open(os.path.join(run_dir, "run.log")).read()
+    print(f"scaled online: {len(rec.log)} steps, {len(history)} epochs in {app_s:.2f} s",
+          flush=True)
+    for h in history:
+        print(f"  epoch {h['epoch']} {h['phase']}: fine {h['fine']}, window {h['window']}, "
+              f"trans {h['trans']}, rot {h['rot']}"
+              + (f", selection score {h['score']}" if "score" in h else "")
+              + (", boundary" if h.get("boundary") else ""), flush=True)
+    for line in log.splitlines():
+        if "gauge_align" in line or "boundary best" in line or "restoring" in line:
+            print("  " + line.split(" INFO ")[-1], flush=True)
+    print("scaled online validations (step, PSNR dB, SSIM) "
+          + ", ".join(f"({s}, {p:.4f}, {q:.4f})" for s, p, q in vals), flush=True)
+    _require(phases == SCALED_PHASES, f"the phase sequence {SCALED_PHASES}, got {phases}")
+    _require(len(rec.log) == len(history) * cfg.steps_per_epoch, "every epoch took its steps")
+    fines = [h["fine"] for h in history]
+    _require(all(math.isfinite(f) for f in fines) and fines[2] < fines[0],
+             "finite fine losses that fall over the warmup")
+    _require(all(math.isfinite(p) and math.isfinite(q) for _, p, q in vals) and len(vals) == 1,
+             "a finite validation")
+    last_admit = phases.index("gauge_fit") - 1
+    _require(all(("score" in h) == (h["epoch"] >= last_admit) for h in history),
+             "a selection score on every epoch from the last admission on")
+    boundaries = [h["epoch"] for h in history if h.get("boundary")]
+    _require(boundaries == [i for i, p in enumerate(phases) if p == "polish_pose"],
+             f"a boundary row at each completed round, got {boundaries}")
+    _require("training stopped: polish budget" in log, "the run stops on the polish budget")
+
+    # the gauge applications: G^-1 ∘ p to 1e-6, then fresh optimizers
+    print(f"scaled online gauge applications: (largest error against G^-1 ∘ p, vehicles "
+          f"corrected) {jumps}; each optimizer's first step after them (count, mini_step, "
+          f"max |m|, max |v|, max |acc|) {resets}", flush=True)
+    _require(len(jumps) == 2 and all(err <= 1e-6 and n == K for err, n in jumps),
+             "two gauge applications, each G^-1 ∘ p to 1e-6 for every vehicle")
+    _require(len(resets) == 4 and all(r == (0, 0, 0.0, 0.0, 0.0) for r in resets),
+             "the field and polish optimizers reset after each application")
+
+    # the boundary best ships: restored into the returned params bitwise
+    bbest = min((h for h in history if h.get("boundary")), key=lambda h: h["score"])
+    snap_steps = sorted(int(s) for s in os.listdir(run_dir + "/ckpts_best"))
+    snap = ckpt.restore_checkpoint(run_dir + "/ckpts_best")["params"]
+    restored = f"restoring boundary best-epoch {bbest['epoch']} snapshot" in log
+    _require(snap_steps[-1] == bbest["epoch"] and (restored or bbest["epoch"] == len(history) - 1)
+             and all(torch.equal(a, b) for a, b in zip(tree_leaves(snap), tree_leaves(params))),
+             f"the boundary best (epoch {bbest['epoch']}) restored bitwise into the returned "
+             "params")
+    print(f"scaled online: boundary best epoch {bbest['epoch']} (score {bbest['score']}) "
+          f"{'restored' if restored else 'is the last epoch'}; the returned params equal its "
+          "snapshot bitwise", flush=True)
+
+    # launches by kind, the stale batches, the renders' forwards
+    design = _step_designs()
+    medians = rec.report(design, ONLINE_WARM, cfg, "scaled online", phases)
+    _require(sorted(medians) == sorted(design), f"steps of every kind, got {sorted(medians)}")
+    for kind in sorted(rec.profs):
+        print(rec.profs[kind].key_averages().table(sort_by="cuda_time_total", row_limit=10),
+              flush=True)
+    stale = {}
+    for r in rec.log:
+        per_ray = phases[r["epoch"]] in ("fieldform", "barf", "polish_field", "gauge_fit")
+        stale[phases[r["epoch"]]] = stale.get(phases[r["epoch"]], 0) + (
+            r["kind"].endswith("per_ray") != per_ray)
+    print(f"scaled online steps whose batch has the other layout (stale prefetched batches), "
+          f"by phase: {stale}", flush=True)
+    s = max(cfg.selection_stride, 1)
+    H = cfg.synth_height
+    sel_tiles, val_tiles = -(-(-(-H // s)) ** 2 // 8192), -(-H * H // 8192)
+    n_frames = sum(len(online._score_frames(cfg, 0, cfg.num_frames)) for h in history
+                   if "score" in h)
+    want = _counts(**{k: sum(r["launches"][k] for r in rec.log) for k in fm.launches})
+    want["fwd"] += (len(vals) * val_tiles + n_frames * sel_tiles) * (2 + 2 * K)
+    want_parts = {k: sum(r["launches"][k] for r in rec.log) for k in fm.part_launches}
+    print(f"scaled online launches {counts}, backward parts {parts}; the eval renders: "
+          f"{len(vals)} validations of {val_tiles} tiles, {n_frames} selection frames of "
+          f"{sel_tiles} tiles, {2 + 2 * K} fwd a tile", flush=True)
+    _require(counts == want and parts == want_parts,
+             f"the app's launches: the steps' and the renders' forwards {want}, got {counts}")
+
+    # 8c: a resume that lands mid-gauge: the round restarts, the snapshots
+    # are restored
+    mid = os.path.join(basedir, "mid_gauge")
+    for suffix in ("", "_best", "_bbound"):
+        src = run_dir + "/ckpts" + suffix
+        step = SCALED_RESUME_AT if not suffix else max(
+            int(s) for s in os.listdir(src) if int(s) <= SCALED_RESUME_AT)
+        shutil.copytree(f"{src}/{step}", f"{mid}{suffix}/{step}")
+    saved = ckpt.restore_checkpoint(mid)
+    _require(saved["polish"]["ga_stage"] == 1 and saved["polish"]["bbest_epoch"] >= 0,
+             "the resumed checkpoint is mid-gauge with a boundary best")
+    argv_resume = argv + ["--online_ckpt_path", mid, *SCALED_RESUME_CUT]
+    t0 = time.perf_counter()
+    online.main(argv_resume)
+    resume_s = time.perf_counter() - t0
+    log_r = open(os.path.join(run_dir, "run.log")).read().split("resumed online training")[-1]
+    history_r = json.load(open(os.path.join(run_dir, "history.json")))
+    print(f"scaled online resume from epoch {SCALED_RESUME_AT} ({' '.join(SCALED_RESUME_CUT)}): "
+          f"{resume_s:.2f} s, epochs {[(h['epoch'], h['phase'], h['fine']) for h in history_r]}",
+          flush=True)
+    for line in ("ga=ref_field/1", "fitting the frame-0 gauge (round 1)",
+                 f"restored boundary-best snapshot (epoch {saved['polish']['bbest_epoch']}",
+                 "restored best-epoch snapshot", "gauge_align: applied gauge"):
+        _require(line in log_r, f"the resumed run.log says '{line}'")
+    _require([h["phase"] for h in history_r] == ["gauge_fit", "gauge_fit"],
+             "the resumed run restarts the gauge round")
+
+    # 8d: the test protocol over the held-out views on the final checkpoint
+    argv_test = argv + ["--test", "true", "--online_ckpt_path", run_dir + "/ckpts"]
+    t0 = time.perf_counter()
+    online.main(argv_test)
+    test_s = time.perf_counter() - t0
+    test_dir = os.path.join(basedir, cfg.expname, "online_test")
+    got = {}
+    for r in (json.loads(line) for line in open(os.path.join(test_dir, "metrics.jsonl"))):
+        for k, v in r.items():
+            if k.startswith("test/"):
+                got.setdefault(k, []).append(v)
+    need = [f"test/view{v}_frame_psnr" for v in range(cfg.synth_val_views)] + [
+        f"test/{m}_{k}" for m in ("rpe_trans", "ate", "3d_iou") for k in range(K)]
+    summary = {k: (got[k] if len(got.get(k, [])) <= 1 else
+                   [round(min(got[k]), 5), round(max(got[k]), 5)]) for k in need if k in got}
+    print(f"scaled online test: {test_s:.2f} s; {summary} (a list of two: min and max over "
+          "frames)", flush=True)
+    _require(all(k in got and all(math.isfinite(v) for v in got[k]) for k in need),
+             f"the test metrics {need} present and finite")
+    _require(all(got[f"test/ate_{k}"][0] < 0.4 for k in range(K)), "ATE under 0.4")
+    del params
+    torch.cuda.empty_cache()
+    return counts, parts
+
+
+def phase_polishes(config_path, warm_path, basedir, cache):
+    """8b: the ref_field gauge with its guard plus multi-start, then
+    refit_anchor, through the online app's entry point on phase 7's config
+    and scene with POLISH_CUTS. Returns their launch counts (the fused
+    kernels', then the backward's GEMM and sums')."""
+    import torch
+
+    from startrax_torch.apps import online
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.utils.config import load_config
+
+    fm.reset_launch_counts()
+    for name, cut, want_phases, lines in POLISH_CUTS:
+        argv = ["--config", config_path, "--basedir", os.path.join(basedir, name),
+                "--synth_cache_dir", cache, "--appearance_ckpt_path", warm_path, *cut]
+        cfg = load_config(argv)
+        rec = _StepRecorder({})
+        t0 = time.perf_counter()
+        with rec:
+            online.main(argv)
+        torch.cuda.synchronize()
+        run_dir = os.path.join(basedir, name, cfg.expname, "online")
+        history = json.load(open(os.path.join(run_dir, "history.json")))
+        log = open(os.path.join(run_dir, "run.log")).read()
+        phases = [h["phase"] for h in history]
+        print(f"polish {name}: {' '.join(cut)}: {len(rec.log)} steps in "
+              f"{time.perf_counter() - t0:.2f} s; epochs "
+              f"{[(h['epoch'], h['phase'], h['fine'], h.get('score')) for h in history]}",
+              flush=True)
+        for line in log.splitlines():
+            if any(w in line for w in ("gauge_align", "multi_start", "refit_anchor")):
+                print("  " + line.split(" INFO ")[-1], flush=True)
+        _require(phases == want_phases, f"polish {name}: the phases {want_phases}, got {phases}")
+        _require(len(rec.log) == sum(cfg.steps_per_epoch * (
+            cfg.multi_start_candidates * cfg.multi_start_epochs if p == "multi_start" else 1)
+            for p in phases), f"polish {name}: every epoch took its steps")
+        _require(all(math.isfinite(h["fine"]) for h in history), f"polish {name}: finite losses")
+        for pattern, n in lines:
+            found = len([l for l in log.splitlines() if pattern in l])
+            _require(found == n, f"polish {name}: run.log has {n} '{pattern}' lines, got {found}")
+        rec.report(_step_designs(), 2, cfg, f"polish {name}", phases)
+    return dict(fm.launches), dict(fm.part_launches)
 
 
 def _rows(per_field, stacked, encoded, bwd_parts, part_launches):
@@ -1733,6 +2147,20 @@ def main():
                                                    app_cfg.synth_cache_dir)
         print(f"phase 7 (online app, resume, test): {time.perf_counter() - t7:.1f} s",
               flush=True)
+
+        t8 = time.perf_counter()
+        scaled_counts, scaled_parts = phase_scaled_online(
+            os.path.join(configs, SLICE_CONFIG),
+            os.path.join(tmp, "runs", app_cfg.expname, "app_init", "ckpts"),
+            os.path.join(tmp, "scaled"), app_cfg.synth_cache_dir)
+        print(f"phase 8 (scaled online app, resume mid-gauge, test): "
+              f"{time.perf_counter() - t8:.1f} s", flush=True)
+        t8 = time.perf_counter()
+        polish_counts, polish_parts = phase_polishes(online_path, warm,
+                                                     os.path.join(tmp, "polish"),
+                                                     app_cfg.synth_cache_dir)
+        print(f"phase 8b (ref_field guard and multi-start, refit_anchor): "
+              f"{time.perf_counter() - t8:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s), (worst_e, ms_e, counts_e),
@@ -1745,9 +2173,18 @@ def main():
                        "fused_mlp_stacked_bwd": online_counts["stacked_bwd"],
                        "fused_mlp_wgrad": online_parts["wgrad"],
                        "fused_mlp_sum_rows": online_parts["sum_rows"]}
+    scaled_launches, polish_launches = ({
+        "fused_mlp_fwd": c["fwd"], "fused_mlp_bwd": c["bwd"],
+        "fused_mlp_stacked_fwd": c["stacked_fwd"], "fused_mlp_stacked_bwd": c["stacked_bwd"],
+        "fused_mlp_wgrad": p["wgrad"], "fused_mlp_sum_rows": p["sum_rows"]}
+        for c, p in ((scaled_counts, scaled_parts), (polish_counts, polish_parts)))
+    for name, launched in (("phase 8", scaled_launches), ("phase 8b", polish_launches)):
+        _require(all(launched.values()), f"{name} launched every kernel of its path: {launched}")
     for row in rows:
         row["app_init_launches"] = app_launches.get(row["name"], 0)
         row["online_launches"] = online_launches.get(row["name"], 0)
+        row["scaled_online_launches"] = scaled_launches.get(row["name"], 0)
+        row["polish_launches"] = polish_launches.get(row["name"], 0)
     print(f"total: {time.perf_counter() - t0:.1f} s, the build included", flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

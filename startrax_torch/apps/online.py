@@ -2,8 +2,7 @@
 SE(3) vehicle poses by photometric self-supervision, admitting frames
 through the curriculum (PyTorch).
 
-Counterpart of startrax/apps/online.py on one device, for the recipe of
-startrax/configs/synthetic_star_online.txt:
+Counterpart of startrax/apps/online.py on one device:
 
 - init: random fields (or the static fields of an appearance checkpoint,
   ``appearance_ckpt_path``) and the noisy GT poses (``noisy_pose_init``),
@@ -15,22 +14,31 @@ startrax/configs/synthetic_star_online.txt:
   ``pose_only_every`` epochs;
 - polish, once every frame is admitted: ``alternate`` (field epochs, then
   pose epochs, each to a loss plateau or its cap) or ``interleave``, with
-  ghost and frame-0 anchor rays in the field phases;
+  ghost and frame-0 anchor rays in the field phases; ``refit_anchor``
+  (fresh dynamic fields fit from frame 0, a pose recovery, then the
+  alternation); ``gauge_align`` (a shared per-vehicle SE(3) gauge fit
+  against frame-0 reference fields, ``gauge_mode = ref_field``, or against
+  the production fields on frame-0 rays, ``frame0``; the correction goes
+  through the held-out guard or the magnitude caps, then the alternation,
+  ``gauge_rounds`` times); photometric multi-start after a completed
+  round (``multi_start_rounds``);
 - GT-free best-epoch selection on the held-out view (``photometric``,
-  ``photometric_depth``) or the GT-pose oracle (``gt_pose``);
+  ``photometric_depth``) or the GT-pose oracle (``gt_pose``), optionally
+  preferring the best round-boundary epoch (``selection_boundary_only``);
 - validation and checkpoints every ``epoch_val`` epochs (every optimizer's
-  state, the curriculum and the polish sub-state), resume from one
-  (``online_ckpt_path``), and the stop rules.
+  state, the curriculum, the polish sub-state and the best snapshots),
+  resume from one (``online_ckpt_path``), and the stop rules.
 
 The parameters are leaf tensors that every optimizer (a FusedGroupAdam per
-phase kind, all over the same leaves) updates in place; a restore copies
-into them (train.checkpoint.copy_into) and never rebinds them. The gauge
-alignment and refit polishes, multi-start and boundary-only selection
-(startrax's scaled and depth recipes), ray-axis data parallelism, LPIPS and
-the video export are not ported and raise NotImplementedError.
+phase kind, all over the same leaves) updates in place; a restore or an
+adopted correction copies into them (train.checkpoint.copy_into) and never
+rebinds them. The polishes' scratch trees (the gauge's reference fields, the
+multi-start candidates) are trees of their own leaves with optimizers of
+their own. Ray-axis data parallelism, LPIPS and the video export are not
+ported and raise NotImplementedError.
 
 Usage:
-  python -m startrax_torch.apps.online --config startrax/configs/synthetic_star_online.txt
+  python -m startrax_torch.apps.online --config startrax/configs/synthetic_star_online_scaled.txt
   python -m startrax_torch.apps.online --config ... --test true --online_ckpt_path <run>/ckpts
 """
 
@@ -50,33 +58,26 @@ from ..eval import pose as pose_mod
 from ..eval.image import psnr as psnr_fn
 from ..eval.image import ssim as ssim_fn
 from ..eval.render import render_image
+from ..models.fields import init_stacked_fields
+from ..ops import lie
 from ..train import checkpoint as ckpt
 from ..train import loop, optim
 from ..train.curriculum import CurriculumConfig, CurriculumState, advance
 from ..utils.config import Config, load_config, loss_config_from, star_config_from
-from ..utils.tree import tree_map
+from ..utils.tree import tree_leaves, tree_map
 from .common import Workspace, check_one_device, host_prng, make_dataset
 from .test_protocol import check_supported, run_test_protocol
 
-POLISH_MODES = ("alternate", "interleave")
-_NOT_PORTED = "ROADMAP queue 1, item 4b"
+POLISH_MODES = ("alternate", "interleave", "gauge_align", "refit_anchor")
 
 
 def check_supported_train(cfg: Config) -> None:
     """Raise for what the port's online app does not run: ray-axis data
-    parallelism, the polishes, multi-start and selection rule of startrax's
-    scaled and depth recipes, and an unknown polish_mode."""
+    parallelism (``data_parallel = on``), and an unknown polish_mode."""
     check_one_device(cfg)
-    if cfg.polish_epochs > 0 and cfg.polish_mode in ("gauge_align", "refit_anchor"):
-        raise NotImplementedError(f"polish_mode = {cfg.polish_mode} is not ported yet "
-                                  f"({_NOT_PORTED})")
     if cfg.polish_epochs > 0 and cfg.polish_mode not in POLISH_MODES:
         raise ValueError(f"polish_mode must be alternate, interleave, gauge_align or "
                          f"refit_anchor, got {cfg.polish_mode}")
-    if cfg.multi_start_rounds > 0:
-        raise NotImplementedError(f"multi_start_rounds > 0 is not ported yet ({_NOT_PORTED})")
-    if cfg.selection_boundary_only:
-        raise NotImplementedError(f"selection_boundary_only is not ported yet ({_NOT_PORTED})")
 
 
 def _init_params(cfg: Config, star_cfg, generator, device, train_data, rng):
@@ -112,13 +113,18 @@ def _place_batch(batch, device):
 
 
 # polish sub-state <-> checkpoint encoding (phases as ints, as startrax
-# stores them), for the alternate and interleave polishes
+# stores them)
 _ALT_PHASES = ("field", "pose")
+_REFIT_STAGES = ("field", "pose", "alternate")
+_GA_STAGES = ("ref_field", "gauge", "alternate")
 
 
 def _polish_template():
-    return {"polish_used": 0, "alt_phase": 0, "alt_rounds": 0, "best_score": 0.0,
-            "best_epoch": -1}
+    return {"polish_used": 0, "alt_phase": 0, "alt_rounds": 0,
+            "refit_stage": 0, "refit_used": 0,
+            "ga_stage": 0, "ga_used": 0, "ga_rounds": 0,
+            "best_score": 0.0, "best_epoch": -1,
+            "bbest_score": 0.0, "bbest_epoch": -1, "n_boundary": 0}
 
 
 def _loss_plateau(losses, window: int, tol: float) -> bool:
@@ -151,6 +157,44 @@ def _depth_mse(pred, gt, near: float, far: float) -> float:
     return float(err[mask].mean())
 
 
+def _held_out(cfg: Config, star_cfg, params, val_data, frames, depth_lambda, with_mass: bool,
+              view: int, device):
+    """The held-out view rendered at each of ``frames`` with the learned
+    poses (frame 0 = identity), its pixels subsampled by selection_stride:
+    the mean over the frames of the MSE, plus depth_lambda times the
+    relative-squared depth error unless depth_lambda is None; and with
+    with_mass the mean per-vehicle visibility mass [K] (1 - the dynamic
+    transmittance, over rays and frames), else None."""
+    s = max(cfg.selection_stride, 1)
+    rays_o, rays_d = val_data.view_rays(view)
+    rays_o, rays_d = rays_o[::s, ::s], rays_d[::s, ::s]
+    # N_importance = 0 renders give only the "0"-suffixed (coarse) outputs
+    suff = "" if star_cfg.n_importance > 0 else "0"
+    keys = ("rgb" + suff,)
+    if depth_lambda is not None:
+        keys += ("depth" + suff,)
+    if with_mass:
+        keys += ("dynamic_transmittance" + suff,)
+    poses = params["poses"].detach()
+    total, count = 0.0, 0
+    mass = np.zeros(star_cfg.num_vehicles)
+    for f in frames:
+        pose = loop.gather_frame_pose(poses, f, star_cfg.num_vehicles)
+        out = render_image(params["nerf"], star_cfg, rays_o, rays_d, pose=pose, keys=keys,
+                           device=device)
+        target = np.asarray(val_data.images[view, f], np.float32)[::s, ::s]
+        score = float(np.mean((out["rgb" + suff] - target) ** 2))
+        if depth_lambda is not None:
+            gt_d = np.asarray(val_data.depths[view, f], np.float32)[::s, ::s]
+            score += depth_lambda * _depth_mse(out["depth" + suff], gt_d, star_cfg.near,
+                                               star_cfg.far)
+        total += score
+        if with_mass:
+            mass += np.mean(1.0 - out["dynamic_transmittance" + suff], axis=(0, 1))
+        count += 1
+    return total / max(count, 1), (mass / max(count, 1) if with_mass else None)
+
+
 def selection_score(cfg: Config, star_cfg, params, val_data, num_frames: int, view: int = 0,
                     start_frame: int = 0, device=None) -> float:
     """GT-free best-epoch criterion: the mean MSE of a held-out val view
@@ -159,30 +203,90 @@ def selection_score(cfg: Config, star_cfg, params, val_data, num_frames: int, vi
     selection_depth_lambda times the relative-squared depth error when the
     dataset carries depth maps. selection_frames / selection_stride
     subsample the scored frames / pixels. device=None is the card."""
-    device = resolve(device)
-    s = max(cfg.selection_stride, 1)
-    rays_o, rays_d = val_data.view_rays(view)
-    rays_o, rays_d = rays_o[::s, ::s], rays_d[::s, ::s]
     use_depth = (cfg.selection == "photometric_depth"
                  and getattr(val_data, "depths", None) is not None)
-    # N_importance = 0 renders give only the "0"-suffixed (coarse) outputs
-    suff = "" if star_cfg.n_importance > 0 else "0"
-    keys = ("rgb" + suff, "depth" + suff) if use_depth else ("rgb" + suff,)
-    poses = params["poses"].detach()
-    total, count = 0.0, 0
-    for f in _score_frames(cfg, start_frame, num_frames):
-        pose = loop.gather_frame_pose(poses, f, star_cfg.num_vehicles)
-        out = render_image(params["nerf"], star_cfg, rays_o, rays_d, pose=pose, keys=keys,
-                           device=device)
-        target = np.asarray(val_data.images[view, f], np.float32)[::s, ::s]
-        score = float(np.mean((out["rgb" + suff] - target) ** 2))
-        if use_depth:
-            gt_d = np.asarray(val_data.depths[view, f], np.float32)[::s, ::s]
-            score += cfg.selection_depth_lambda * _depth_mse(
-                out["depth" + suff], gt_d, star_cfg.near, star_cfg.far)
-        total += score
-        count += 1
-    return total / max(count, 1)
+    score, _ = _held_out(cfg, star_cfg, params, val_data,
+                         _score_frames(cfg, start_frame, num_frames),
+                         cfg.selection_depth_lambda if use_depth else None, False, view,
+                         resolve(device))
+    return score
+
+
+# gauge_guard: a candidate correction must keep the vehicle at least this
+# visible (held-out mean opacity mass against the uncorrected poses). A
+# garbage fit that moves a vehicle out of the frustum can improve the
+# held-out photometric score where the reference dynamic fields explain the
+# pixels worse than the static background ("accept by vanishing"). The
+# default of the gauge_guard_min_vis flag.
+GAUGE_GUARD_MIN_VIS = 0.3
+
+
+def _gauge_accept(base_score: float, cand_score: float, base_vis: float, cand_vis: float,
+                  min_vis: float = GAUGE_GUARD_MIN_VIS, rel: float = 1e-3) -> bool:
+    """Per-vehicle gauge acceptance: the candidate correction must strictly
+    improve the held-out photometric error and keep the vehicle visible."""
+    better = cand_score < base_score * (1.0 - rel)
+    visible = base_vis < 1e-4 or cand_vis >= min_vis * base_vis
+    return bool(better and visible)
+
+
+def _guard_eval(cfg: Config, star_cfg, params, val_data, num_frames: int, view: int = 0,
+                start_frame: int = 1, device=None):
+    """The held-out photometric error (+ gauge_depth_lambda times the depth
+    error when the dataset carries depth maps) and the per-vehicle held-out
+    visibility mass [K], over the frames selection_frames scores, pixels
+    subsampled by selection_stride. device=None is the card."""
+    use_depth = (cfg.gauge_depth_lambda > 0
+                 and getattr(val_data, "depths", None) is not None)
+    return _held_out(cfg, star_cfg, params, val_data,
+                     _score_frames(cfg, start_frame, num_frames),
+                     cfg.gauge_depth_lambda if use_depth else None, True, view, resolve(device))
+
+
+def gauge_within_caps(G: np.ndarray, max_trans: float, max_rot: float):
+    """gauge_mode = frame0's magnitude caps on the correction G [K, 7]
+    (translation, quaternion x y z w): for each vehicle (within, |t|,
+    angle), the angle being 2 arccos(min(1, |q_w|)). A diverged short fit
+    cannot jump a vehicle's whole pose table. The arithmetic is in G's
+    dtype, as startrax's is."""
+    out = []
+    for g in G:
+        tnorm = float(np.linalg.norm(g[:3]))
+        ang = 2.0 * float(np.arccos(min(1.0, abs(g[6]))))
+        out.append((tnorm <= max_trans and ang <= max_rot, tnorm, ang))
+    return out
+
+
+def guard_gauge(G: np.ndarray, evaluate, min_vis: float):
+    """gauge_mode = ref_field's guard, vehicle by vehicle: evaluate(g [K, 7])
+    -> (held-out score, visibility mass [K]) of the poses corrected by g.
+    The identity's score is the base; vehicle k's row of G joins the rows
+    accepted so far when _gauge_accept holds for them plus it. Returns
+    (accepted [K, 7], [(base, score, base_vis, vis, accepted)] a vehicle)."""
+    accepted = lie.se3_identity(G.shape[0]).numpy()
+    base, base_mass = evaluate(accepted)
+    decisions = []
+    for k in range(G.shape[0]):
+        gk = accepted.copy()
+        gk[k] = G[k]
+        sk, mk = evaluate(gk)
+        ok = _gauge_accept(base, sk, base_mass[k], mk[k], min_vis=min_vis)
+        decisions.append((base, sk, base_mass[k], mk[k], ok))
+        if ok:
+            accepted[k] = G[k]
+    return accepted, decisions
+
+
+def fresh_dynamic_fields(star_cfg, names, generator, device):
+    """Newly initialised stacked dynamic fields for each of ``names``
+    ("dynamic_coarse", "dynamic_fine"), drawn from ``generator``, as leaves
+    that require grad: the fields that refit_anchor copies into the live
+    ones and that the gauge's reference fit trains."""
+    fields = {n: init_stacked_fields(star_cfg.dynamic_field(fine=n == "dynamic_fine"),
+                                     star_cfg.num_vehicles, generator, device) for n in names}
+    for leaf in tree_leaves(fields):
+        leaf.requires_grad_(True)
+    return fields
 
 
 def train(cfg: Config, device=None):
@@ -197,6 +301,7 @@ def train(cfg: Config, device=None):
     star_cfg_barf = (dataclasses.replace(star_cfg, end_barf=cfg.end_barf)
                      if cfg.end_barf > 0 else star_cfg)
     loss_cfg = loss_config_from(cfg)
+    K = star_cfg.num_vehicles
 
     train_data = make_dataset(cfg, "train", dev)
     val_data = make_dataset(cfg, "val", dev)
@@ -215,6 +320,7 @@ def train(cfg: Config, device=None):
     pose_decay = dict(pose_decay_rate=cfg.pose_lrate_decay_rate,
                       pose_decay_epochs=cfg.pose_lrate_decay,
                       pose_decay_milestones=cfg.pose_lrate_decay_steps)
+    polishing = cfg.polish_epochs > 0 and not cfg.load_gt_poses
 
     # the joint optimizer and step; the BARF warmup shares its state, with
     # the dynamic fields coarse-to-fine masked and rotations optionally
@@ -231,9 +337,11 @@ def train(cfg: Config, device=None):
             freeze_rot=cfg.barf_freeze_rot and not cfg.pose_trans_only)
 
     # fields-only steps (pose LR 0): the field-forming warmup and the
-    # alternation's field phases share one optimizer
+    # alternation's field phases share one optimizer; refit_anchor and
+    # gauge_align fall through to the alternation, so they need it too
     opt_field = None
-    if cfg.pose_delay_epochs > 0 or (cfg.polish_epochs > 0 and cfg.polish_mode == "alternate"):
+    if cfg.pose_delay_epochs > 0 or (cfg.polish_epochs > 0 and cfg.polish_mode in (
+            "alternate", "refit_anchor", "gauge_align")):
         opt_field = optim.make_fused_star_optimizer(
             params, lrate_static=cfg.lrate_static, lrate_dynamic=cfg.lrate_dynamic,
             lrate_pose=0.0, **nerf_decay, **opt_kw)
@@ -251,17 +359,32 @@ def train(cfg: Config, device=None):
                                                    trans_only=cfg.pose_trans_only)
 
     # the polish's pose refinement: pose-only, with its own decaying LR and
-    # fresh moments
+    # fresh moments; a multi-start candidate gets an optimizer of the same
+    # settings over its own tree
+    polish_kw = dict(lrate_static=0.0, lrate_dynamic=0.0, lrate_pose=pose_lr,
+                     pose_decay_rate=cfg.polish_pose_lrate_decay_rate,
+                     pose_decay_epochs=cfg.polish_pose_lrate_decay, **opt_kw)
     opt_polish = None
-    if cfg.polish_epochs > 0 and not cfg.load_gt_poses:
-        opt_polish = optim.make_fused_star_optimizer(
-            params, lrate_static=0.0, lrate_dynamic=0.0, lrate_pose=pose_lr,
-            pose_decay_rate=cfg.polish_pose_lrate_decay_rate,
-            pose_decay_epochs=cfg.polish_pose_lrate_decay, **opt_kw)
+    if polishing:
+        opt_polish = optim.make_fused_star_optimizer(params, **polish_kw)
         step_fn_polish = loop.make_online_train_step(star_cfg, loss_cfg, opt_polish,
                                                      trans_only=cfg.pose_trans_only)
     extra_opts = (("opt_state_pose", opt_pose), ("opt_state_polish", opt_polish),
                   ("opt_state_field", opt_field))
+
+    # refit_anchor / gauge_align: dynamic-fields-only (static and poses
+    # pinned) for the frame-0 (re-)fit, over the live leaves for
+    # refit_anchor, over each gauge round's scratch tree for gauge_align
+    refit_kw = dict(lrate_static=0.0, lrate_dynamic=cfg.lrate_dynamic, lrate_pose=0.0,
+                    **nerf_decay, **opt_kw)
+    if polishing and cfg.polish_mode == "refit_anchor":
+        opt_refit = optim.make_fused_star_optimizer(params, **refit_kw)
+        step_fn_refit = loop.make_online_train_step(star_cfg, loss_cfg, opt_refit)
+        step_fn_refit_pose = (
+            loop.make_online_train_step(
+                star_cfg, loss_cfg, opt_polish, trans_only=cfg.pose_trans_only,
+                freeze_rot=not cfg.pose_trans_only)
+            if cfg.refit_pose_freeze_rot else step_fn_polish)
 
     cur_cfg = CurriculumConfig(
         num_frames=cfg.num_frames, initial_num_frames=cfg.initial_num_frames,
@@ -323,10 +446,36 @@ def train(cfg: Config, device=None):
     deadline = time.time() + cfg.train_minutes * 60 if cfg.train_minutes > 0 else None
     sel_enabled = cfg.selection != "none" and (cfg.selection != "gt_pose" or has_gt)
     best = {"score": float("inf"), "epoch": -1, "params": None}
-    best_saved = -1
+    # the round-boundary best (selection_boundary_only): the best-scoring
+    # epoch among those that complete a field + pose alternation round, the
+    # settled states
+    bbest = {"score": float("inf"), "epoch": -1, "params": None}
+    n_boundary = 0
+    best_saved = bbest_saved = -1
+
+    def _active_best():
+        """The selection rule that ships: the boundary best once there are
+        at least two boundaries (one carries no comparison), else the
+        every-epoch best."""
+        if cfg.selection_boundary_only and n_boundary >= 2 and bbest["epoch"] >= 0:
+            return bbest
+        return best
+
     history = []
-    # alternation sub-state (polish_mode = "alternate")
+    # alternation sub-state
     alt_phase, alt_losses, alt_rounds = "field", [], 0
+    # refit_anchor sub-state: field (frame-0 dynamic re-fit) -> pose ->
+    # alternate for the remainder
+    refit = {"stage": "field", "used": 0}
+    # gauge_align sub-state: ref_field (fresh reference dynamics on a
+    # scratch tree) -> gauge (the shared SE(3) fit) -> alternate; re-enters
+    # ref_field after each completed round while rounds remain. The scratch
+    # tree, the gauge and their steps are not checkpointed
+    ga = {"stage": "ref_field", "used": 0, "rounds": 0, "ref_params": None, "ref_step": None,
+          "gauge": None, "gauge_step": None}
+    # photometric multi-start sub-state: restarts on resume (its result
+    # lives in the adopted poses)
+    ms = {"rounds": 0, "pending": False}
     polish_used = 0
     step = 0
     stop_reason = ""
@@ -336,24 +485,37 @@ def train(cfg: Config, device=None):
         polish_used = int(pd["polish_used"])
         alt_phase = _ALT_PHASES[int(pd["alt_phase"])]
         alt_rounds = int(pd["alt_rounds"])
-        if int(pd["best_epoch"]) >= 0:
-            best.update(score=float(pd["best_score"]), epoch=int(pd["best_epoch"]))
+        refit.update(stage=_REFIT_STAGES[int(pd["refit_stage"])], used=int(pd["refit_used"]))
+        ga.update(stage=_GA_STAGES[int(pd["ga_stage"])], used=int(pd["ga_used"]),
+                  rounds=int(pd["ga_rounds"]))
+        # an interrupted gauge round restarts from its reference fit
+        if ga["stage"] in ("ref_field", "gauge"):
+            ga.update(stage="ref_field", used=0)
+        for snap, name, suffix in ((best, "best", "_best"), (bbest, "bbest", "_bbound")):
+            if int(pd[f"{name}_epoch"]) < 0:
+                continue
+            snap.update(score=float(pd[f"{name}_score"]), epoch=int(pd[f"{name}_epoch"]))
             try:
-                b = ckpt.restore_checkpoint(cfg.online_ckpt_path + "_best", device=dev)
-                best["params"] = b["params"]
-                ws.log(f"restored best-epoch snapshot (epoch {best['epoch']}, "
-                       f"score {best['score']:.3e})")
+                snap["params"] = ckpt.restore_checkpoint(cfg.online_ckpt_path + suffix,
+                                                         device=dev)["params"]
+                ws.log(f"restored {'best-epoch' if snap is best else 'boundary-best'} snapshot "
+                       f"(epoch {snap['epoch']}, score {snap['score']:.3e})")
             except FileNotFoundError:
-                best.update(score=float("inf"), epoch=-1)
-        ws.log(f"resumed polish sub-state: used={polish_used} alt={alt_phase}/{alt_rounds}")
+                snap.update(score=float("inf"), epoch=-1)
+        n_boundary = int(pd["n_boundary"])
+        ws.log(f"resumed polish sub-state: used={polish_used} alt={alt_phase}/{alt_rounds} "
+               f"ga={ga['stage']}/{ga['rounds']}")
 
     def _polish_state():
-        state = _polish_template()
-        state.update(polish_used=polish_used, alt_phase=_ALT_PHASES.index(alt_phase),
-                     alt_rounds=alt_rounds,
-                     best_score=best["score"] if best["epoch"] >= 0 else 0.0,
-                     best_epoch=best["epoch"])
-        return state
+        return {"polish_used": polish_used, "alt_phase": _ALT_PHASES.index(alt_phase),
+                "alt_rounds": alt_rounds,
+                "refit_stage": _REFIT_STAGES.index(refit["stage"]), "refit_used": refit["used"],
+                "ga_stage": _GA_STAGES.index(ga["stage"]), "ga_used": ga["used"],
+                "ga_rounds": ga["rounds"],
+                "best_score": best["score"] if best["epoch"] >= 0 else 0.0,
+                "best_epoch": best["epoch"],
+                "bbest_score": bbest["score"] if bbest["epoch"] >= 0 else 0.0,
+                "bbest_epoch": bbest["epoch"], "n_boundary": n_boundary}
 
     def _state(epoch):
         state = {"params": params, "opt_state": opt.state_dict(),
@@ -367,17 +529,20 @@ def train(cfg: Config, device=None):
     # DS-NeRF supervision terms, averaged per epoch for the logs
     aux_losses = {}
 
-    def run_phase_epoch(fn, epoch, car, ghost, f0):
+    def run_phase_epoch(fn, epoch, car, ghost, f0, window=None, p=None, mixed=None):
+        """One epoch of fn's steps on p (default: the live params), sampling
+        from window (default: the curriculum's)."""
         nonlocal step
-        sample_state.update(
-            start=cur.start_frame, end=min(cur.current_frame, cfg.num_frames),
-            crop=epoch < cfg.precrop_iters, car=car, ghost=ghost, f0=f0,
-            mixed=cfg.mixed_frames)
+        start, end = (window if window is not None
+                      else (cur.start_frame, min(cur.current_frame, cfg.num_frames)))
+        sample_state.update(start=start, end=end, crop=epoch < cfg.precrop_iters, car=car,
+                            ghost=ghost, f0=f0, mixed=cfg.mixed_frames if mixed is None else mixed)
+        p = params if p is None else p
         fines = []
         aux_losses.clear()
         for _ in range(cfg.steps_per_epoch):
             batch = _place_batch(next(prefetcher), dev)
-            _, metrics = fn(params, batch, epoch=epoch, generator=gen)
+            _, metrics = fn(p, batch, epoch=epoch, generator=gen)
             step += 1
             fines.append(metrics["fine_loss"])  # device scalar, no sync
             for k in ("depth_loss", "sigma_loss"):
@@ -385,16 +550,146 @@ def train(cfg: Config, device=None):
                     aux_losses.setdefault(k, []).append(metrics[k])
         return float(torch.stack(fines).mean())  # one device read an epoch
 
+    def start_reference():
+        """A scratch tree for the gauge's reference fit: the live static
+        fields (pinned by the refit LRs), fresh dynamic fields, its own copy
+        of the poses (its steps renormalise their quaternions), and its own
+        optimizer and step."""
+        names = [n for n in ("dynamic_coarse", "dynamic_fine") if n in params["nerf"]]
+        ref = {"nerf": {**params["nerf"], **fresh_dynamic_fields(star_cfg, names, gen, dev)},
+               "poses": params["poses"].detach().clone().requires_grad_(True)}
+        ga.update(ref_params=ref, ref_step=loop.make_online_train_step(
+            star_cfg, loss_cfg, optim.make_fused_star_optimizer(ref, **refit_kw)))
+
+    def start_gauge():
+        """Enter the gauge stage: an identity gauge leaf [K, 7], plain Adam
+        over it and its step."""
+        gauge = lie.se3_identity(K, device=dev).requires_grad_(True)
+        ga.update(stage="gauge", used=0, gauge=gauge, gauge_step=loop.make_gauge_train_step(
+            star_cfg, optim.make_gauge_optimizer(gauge, cfg.lrate_pose),
+            freeze_rot=cfg.gauge_freeze_rot, depth_lambda=cfg.gauge_depth_lambda))
+
+    def run_gauge_epoch():
+        """One epoch of the shared gauge fit, production poses frozen.
+        ref_field: frames 1..F-1 against the scratch reference fields;
+        frame0: frame-0 rays against the production fields (frame 0's pose
+        is the identity, so the rendered pose is G itself). Per-ray mixed
+        frames: every frame contributes to the shared G each step."""
+        nonlocal step
+        frame0 = cfg.gauge_mode == "frame0"
+        sample_state.update(start=0 if frame0 else 1, end=1 if frame0 else cfg.num_frames,
+                            crop=False, car=car_pose, ghost=0.0, f0=0.0, mixed=True)
+        nerf = params["nerf"] if frame0 else ga["ref_params"]["nerf"]
+        losses = []
+        for _ in range(cfg.steps_per_epoch):
+            batch = _place_batch(next(prefetcher), dev)
+            losses.append(ga["gauge_step"](ga["gauge"], nerf, params["poses"], batch,
+                                           generator=gen))
+            step += 1
+        return float(torch.stack(losses).mean())
+
+    def decide_gauge():
+        """The correction to apply, [K, 7] numpy, and how many vehicles it
+        corrects: the fitted gauge (its inverse in frame0 mode) row by row
+        as the caps (frame0) or the guard (ref_field) accept it."""
+        G = ga["gauge"].detach().cpu()
+        frame0 = cfg.gauge_mode == "frame0"
+        if frame0:
+            # the fitted g places the drifted canonical field at frame-0
+            # truth; the pose correction is its inverse
+            G = lie.se3_inverse(G)
+        G = G.numpy()
+        if frame0:
+            accepted, n_acc = lie.se3_identity(K).numpy(), 0
+            for k, (ok, tnorm, ang) in enumerate(
+                    gauge_within_caps(G, cfg.gauge_max_trans, cfg.gauge_max_rot)):
+                if ok:
+                    accepted[k] = G[k]
+                    n_acc += 1
+                else:
+                    ws.log(f"gauge_align[frame0]: vehicle {k} correction |t|={tnorm:.4f} "
+                           f"rot={ang:.4f} exceeds cap ({cfg.gauge_max_trans}/"
+                           f"{cfg.gauge_max_rot}) — rejected")
+            if n_acc:
+                ws.log(f"gauge_align[frame0]: applying g^-1 t="
+                       f"{accepted[:, :3].round(4).tolist()} ({n_acc}/{K} within bounds; "
+                       "selection guards)")
+            return accepted, n_acc
+        if not cfg.gauge_guard:
+            return G, K
+
+        def evaluate(g):
+            cand = lie.se3_multiply(torch.from_numpy(g).to(dev)[None], params["poses"].detach())
+            return _guard_eval(cfg, star_cfg, {"nerf": ga["ref_params"]["nerf"], "poses": cand},
+                               val_data, cfg.num_frames, start_frame=1, device=dev)
+
+        accepted, decisions = guard_gauge(G, evaluate, cfg.gauge_guard_min_vis)
+        for k, (base, sk, bv, vk, ok) in enumerate(decisions):
+            ws.log(f"gauge_align guard: vehicle {k} held-out {base:.4e} -> {sk:.4e} "
+                   f"vis {bv:.4e} -> {vk:.4e} ({'accept' if ok else 'reject'})")
+        return accepted, sum(d[-1] for d in decisions)
+
+    def run_multi_start(epoch):
+        """Basin hopping over the drift subspace: per-vehicle constant
+        translation perturbations of the pose table, each given a short
+        pose-only polish with fresh moments on a tree of its own poses, all
+        scored by the selection criterion; the best strictly-improving
+        candidate's poses are adopted. Returns the adopted (or base)
+        score."""
+        rng_ms = np.random.default_rng(cfg.seed * 31 + ms["rounds"] * 7 + 5)
+        base_score = selection_score(cfg, star_cfg, params, val_data, cfg.num_frames, device=dev)
+        fields = [t.detach().clone() for t in tree_leaves(params["nerf"])]
+        best_sc, best_poses, best_c = base_score, None, -1
+        for c in range(cfg.multi_start_candidates):
+            g = lie.se3_identity(K).numpy()
+            d = rng_ms.normal(size=(K, 3))
+            d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-9)
+            g[:, :3] = cfg.multi_start_scale * d
+            # the live fields (pinned by the polish LRs) and a pose leaf of
+            # its own
+            cand = {"nerf": params["nerf"], "poses": lie.se3_multiply(
+                torch.from_numpy(g).to(dev)[None], params["poses"].detach()).requires_grad_(True)}
+            cand_step = loop.make_online_train_step(
+                star_cfg, loss_cfg, optim.make_fused_star_optimizer(cand, **polish_kw),
+                trans_only=cfg.pose_trans_only)
+            for _ in range(cfg.multi_start_epochs):
+                # per-ray mixed frames: every frame's pose gets a gradient
+                # in every step of the short budget
+                run_phase_epoch(cand_step, epoch, car_pose, 0.0, 0.0, p=cand, mixed=True)
+            sc = selection_score(cfg, star_cfg, cand, val_data, cfg.num_frames, device=dev)
+            # ~0: the candidate rolled back into the base's basin
+            resid = float((cand["poses"].detach()[..., :3]
+                           - params["poses"].detach()[..., :3]).abs().max())
+            ws.log(f"multi_start: candidate {c} |g|="
+                   f"{np.linalg.norm(g[:, :3], axis=-1).round(4).tolist()} "
+                   f"score {sc:.4e} (base {base_score:.4e}) residual_disp {resid:.4f}")
+            if sc < best_sc:
+                best_sc, best_poses, best_c = sc, cand["poses"], c
+        if not all(torch.equal(a, b) for a, b in zip(fields, tree_leaves(params["nerf"]))):
+            raise RuntimeError("multi_start: a candidate's pose-only polish changed the fields")
+        if best_poses is not None:
+            ckpt.copy_into(params["poses"], best_poses.detach())
+            # the pose jump invalidates the accumulated moments
+            opt_field.reset()
+            opt_polish.reset()
+            ws.log(f"multi_start: adopted candidate {best_c} "
+                   f"({base_score:.4e} -> {best_sc:.4e})")
+        else:
+            ws.log(f"multi_start: no candidate beat the base ({base_score:.4e})")
+        return best_sc
+
     try:
         for epoch in range(start_epoch, cfg.epochs_online):
             if deadline is not None and time.time() > deadline:
                 stop_reason = "train_minutes budget"
                 break
             aux_losses.clear()
+            # set when this epoch completes a field + pose alternation round
+            round_boundary = False
 
             in_fieldform = epoch < cfg.pose_delay_epochs and opt_field is not None
             in_barf = not in_fieldform and cfg.end_barf > 0 and epoch < cfg.end_barf
-            in_polish = cur.done and cfg.polish_epochs > 0 and not cfg.load_gt_poses
+            in_polish = cur.done and polishing
             if cur.done and not in_polish:
                 break
 
@@ -412,7 +707,83 @@ def train(cfg: Config, device=None):
                     stop_reason = "polish budget"
                     break
                 polish_used += 1
-                if cfg.polish_mode == "alternate":
+                mode = cfg.polish_mode
+                if (mode == "refit_anchor" and refit["stage"] == "alternate") or (
+                        mode == "gauge_align" and ga["stage"] == "alternate"):
+                    mode = "alternate"
+                if (mode == "gauge_align" and ga["stage"] == "ref_field"
+                        and cfg.gauge_mode == "frame0"):
+                    # the frame-0 estimator needs no reference fields
+                    start_gauge()
+                    ws.log(f"gauge_align[frame0]: fitting the frame-0 gauge "
+                           f"(round {ga['rounds']})")
+                if ms["pending"] and mode == "alternate" and ms["rounds"] < cfg.multi_start_rounds:
+                    phase = "multi_start"
+                    avg = run_multi_start(epoch)
+                    ms.update(rounds=ms["rounds"] + 1, pending=False)
+                    alt_phase, alt_losses = "field", []
+                elif mode == "gauge_align" and ga["stage"] == "ref_field":
+                    if ga["used"] == 0:
+                        # fresh dynamic fields fit from frame-0 rays carry no
+                        # canonical-frame drift by construction
+                        start_reference()
+                        ws.log(f"gauge_align: fitting frame-0 reference fields "
+                               f"(round {ga['rounds']})")
+                    phase = "gauge_ref"
+                    avg = run_phase_epoch(ga["ref_step"], epoch, car_pose, 0.0, 0.0,
+                                          window=(0, 1), p=ga["ref_params"], mixed=True)
+                    ga["used"] += 1
+                    if ga["used"] >= cfg.refit_epochs:
+                        start_gauge()
+                elif mode == "gauge_align":  # ga["stage"] == "gauge"
+                    phase = "gauge_fit"
+                    avg = run_gauge_epoch()
+                    ga["used"] += 1
+                    if ga["used"] >= cfg.gauge_epochs:
+                        accepted, n_acc = decide_gauge()
+                        if n_acc == 0:
+                            # no real drift found (or a duplicate mode): stop
+                            # gauging, poses and moments untouched
+                            ga.update(stage="alternate", used=0, rounds=cfg.gauge_rounds)
+                            ws.log("gauge_align: guard rejected every vehicle -> alternate "
+                                   "(poses unchanged)")
+                        else:
+                            ckpt.copy_into(params["poses"], lie.se3_multiply(
+                                torch.from_numpy(accepted).to(dev)[None],
+                                params["poses"].detach()))
+                            # the pose jump invalidates the accumulated moments
+                            opt_field.reset()
+                            opt_polish.reset()
+                            ga.update(stage="alternate", used=0, rounds=ga["rounds"] + 1)
+                            ws.log(f"gauge_align: applied gauge t={accepted[:, :3].tolist()} "
+                                   f"({n_acc}/{K} accepted) -> alternate re-convergence")
+                        ga.update(ref_params=None, ref_step=None, gauge=None, gauge_step=None)
+                        alt_phase, alt_losses = "field", []
+                elif mode == "refit_anchor" and refit["stage"] == "field":
+                    if refit["used"] == 0:
+                        # re-anchor: fresh canonical dynamic fields fit from
+                        # frame-0 rays (identity pose, exact by construction)
+                        names = [n for n in ("dynamic_coarse", "dynamic_fine")
+                                 if n in params["nerf"]]
+                        fresh = fresh_dynamic_fields(star_cfg, names, gen, dev)
+                        ckpt.copy_into({n: params["nerf"][n] for n in names}, fresh)
+                        opt_refit.reset()
+                        ws.log("refit_anchor: dynamic fields re-initialized, fitting from frame 0")
+                    phase = "refit_field"
+                    avg = run_phase_epoch(step_fn_refit, epoch, car_pose, 0.0, 0.0,
+                                          window=(0, max(1, min(cfg.refit_window,
+                                                                cfg.num_frames))))
+                    refit["used"] += 1
+                    if refit["used"] >= cfg.refit_epochs:
+                        refit.update(stage="pose", used=0)
+                elif mode == "refit_anchor":  # refit["stage"] == "pose"
+                    phase = "refit_pose"
+                    avg = run_phase_epoch(step_fn_refit_pose, epoch, car_pose, 0.0, 0.0)
+                    refit["used"] += 1
+                    if refit["used"] >= cfg.refit_pose_epochs:
+                        refit.update(stage="alternate", used=0)
+                        ws.log("refit_anchor: pose recovery done -> alternate")
+                elif mode == "alternate":
                     if alt_phase == "field":
                         phase = "polish_field"
                         avg = run_phase_epoch(step_fn_field, epoch, cfg.car_sample_ratio,
@@ -431,6 +802,14 @@ def train(cfg: Config, device=None):
                                                  cfg.alt_plateau_tol)):
                             alt_phase, alt_losses = "field", []
                             alt_rounds += 1
+                            round_boundary = True
+                            if cfg.polish_mode == "gauge_align" and ga["rounds"] < cfg.gauge_rounds:
+                                # another gauge round from the re-converged
+                                # fixed point
+                                ga.update(stage="ref_field", used=0)
+                            elif ms["rounds"] < cfg.multi_start_rounds:
+                                # basin-hop from the completed round's optimum
+                                ms["pending"] = True
                 else:  # interleave
                     if polish_used % max(cfg.polish_joint_every, 1) == 0:
                         phase = "polish_joint"
@@ -487,6 +866,14 @@ def train(cfg: Config, device=None):
                 if score < best["score"]:
                     best.update(score=score, epoch=epoch,
                                 params=tree_map(lambda t: t.detach().clone(), params))
+                if cfg.selection_boundary_only and round_boundary:
+                    n_boundary += 1
+                    row["boundary"] = True
+                    if score < bbest["score"]:
+                        bbest.update(score=score, epoch=epoch,
+                                     params=tree_map(lambda t: t.detach().clone(), params))
+                        ws.log(f"boundary best: epoch {epoch} (round {alt_rounds}, "
+                               f"score {score:.3e})")
 
             history.append(row)
             ws.metrics.log(logs, step)
@@ -502,6 +889,10 @@ def train(cfg: Config, device=None):
                     ckpt.save_checkpoint(ws.ckpt_dir + "_best", {"params": best["params"]},
                                          step=best["epoch"])
                     best_saved = best["epoch"]
+                if bbest["params"] is not None and bbest["epoch"] > bbest_saved:
+                    ckpt.save_checkpoint(ws.ckpt_dir + "_bbound", {"params": bbest["params"]},
+                                         step=bbest["epoch"])
+                    bbest_saved = bbest["epoch"]
                 with open(os.path.join(ws.run_dir, "history.json"), "w") as f:
                     json.dump(history, f)
 
@@ -524,17 +915,19 @@ def train(cfg: Config, device=None):
     if stop_reason:
         ws.log(f"training stopped: {stop_reason}")
 
-    if best["params"] is not None and best["epoch"] >= 0:
+    ab = _active_best()
+    if ab["params"] is not None and ab["epoch"] >= 0:
         # keep the best-selected epoch if the final one is not it
-        final_score = best["score"] + 1.0
+        final_score = ab["score"] + 1.0
         if history and "score" in history[-1]:
             final_score = history[-1]["score"]
-        if best["score"] < final_score:
-            ws.log(f"restoring every-epoch best-epoch {best['epoch']} snapshot "
-                   f"(score {best['score']:.3e}, {cfg.selection})")
-            ckpt.copy_into(params, best["params"])
-        ckpt.save_checkpoint(ws.ckpt_dir + "_best", {"params": best["params"]},
-                             step=best["epoch"])
+        if ab["score"] < final_score:
+            which = "boundary" if ab is bbest else "every-epoch"
+            ws.log(f"restoring {which} best-epoch {ab['epoch']} snapshot "
+                   f"(score {ab['score']:.3e}, {cfg.selection}"
+                   + (f", {n_boundary} boundaries" if ab is bbest else "") + ")")
+            ckpt.copy_into(params, ab["params"])
+        ckpt.save_checkpoint(ws.ckpt_dir + "_best", {"params": ab["params"]}, step=ab["epoch"])
 
     ckpt.save_checkpoint(ws.ckpt_dir, _state(cfg.epochs_online), step=cfg.epochs_online)
     with open(os.path.join(ws.run_dir, "history.json"), "w") as f:

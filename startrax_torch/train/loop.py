@@ -131,8 +131,9 @@ def init_online_params(star_cfg: StarConfig, num_frames: int,
 def make_online_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt,
                            trans_only: bool = False, freeze_rot: bool = False):
     """Returns step(params, batch, epoch=0, u_strat=None, u_pdf=None,
-    generator=None) -> (loss, metrics), updating params and opt in place.
-    batch["frame"] is an int, or an [R] tensor of per-ray frames.
+    generator=None) -> (loss, metrics), updating params and opt in place;
+    step.opt is opt. batch["frame"] is an int, or an [R] tensor of per-ray
+    frames.
 
     trans_only pins every quaternion to identity and optimises translations
     only; freeze_rot keeps each pose's current rotation. In both, the
@@ -163,6 +164,7 @@ def make_online_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt,
                 poses[..., 3:7] = lie.quat_normalize(poses[..., 3:7])
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
+    train_step.opt = opt  # what a measurement reads of the step's optimizer
     return train_step
 
 
@@ -173,21 +175,30 @@ def batch_kind(batch) -> str:
 
 
 @contextlib.contextmanager
-def wrapping_online_steps(wrap):
-    """Within the block, every step that make_online_train_step builds is
-    wrap(step): a measurement observes an app's steps through its entry
-    point."""
-    global make_online_train_step
-    make = make_online_train_step
+def _wrapping(builder: str, wrap):
+    make = globals()[builder]
 
     def wrapped(*args, **kw):
         return wrap(make(*args, **kw))
 
-    make_online_train_step = wrapped
+    globals()[builder] = wrapped
     try:
         yield
     finally:
-        make_online_train_step = make
+        globals()[builder] = make
+
+
+def wrapping_online_steps(wrap):
+    """Within the block, every step that make_online_train_step builds is
+    wrap(step): a measurement observes an app's steps through its entry
+    point."""
+    return _wrapping("make_online_train_step", wrap)
+
+
+def wrapping_gauge_steps(wrap):
+    """wrapping_online_steps for the steps that make_gauge_train_step
+    builds."""
+    return _wrapping("make_gauge_train_step", wrap)
 
 
 def make_gauge_train_step(star_cfg: StarConfig, opt, freeze_rot: bool = False,

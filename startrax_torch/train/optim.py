@@ -116,6 +116,18 @@ class FusedGroupAdam:
         self.mini_step = int(state["mini_step"])
 
     @torch.no_grad()
+    def reset(self) -> None:
+        """Return to a newly built optimizer's state over the same leaves
+        (optax's ``tx.init`` after a pose jump): zero moments and
+        accumulator, and the update count and mini-steps at 0, so the
+        schedules restart too. The buffers keep their identity."""
+        for buf in (self.m, self.v, self.acc):
+            if buf is not None:
+                buf.zero_()
+        self.count = 0
+        self.mini_step = 0
+
+    @torch.no_grad()
     def step(self) -> bool:
         """One optimizer step on the leaves' .grad; returns whether it
         updated the parameters."""

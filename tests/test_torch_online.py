@@ -189,6 +189,19 @@ def _moves(history, epochs):
 
 
 @pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test. The apps' tensors here are tiny, so a
+    thread pool buys nothing, and when the suite's worker processes run
+    side by side its spinning threads slow every one of them; one thread
+    also keeps the port's float reductions independent of the machine's
+    core count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
 def _fresh_scene_memo():
     """Each test reads its scene from its own cache directory."""
     jsyn._GEN_MEMO.clear()

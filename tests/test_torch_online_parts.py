@@ -1,5 +1,6 @@
 """The online app's parts, on the CPU: test() against startrax's, resume,
-the warm start, the refusals, selection, the optimizer state round trip,
+the warm start, the refusals (data parallelism, an unknown polish_mode, the
+video and LPIPS), selection, the optimizer state round trip,
 the gradient-isolation diagnostic, the synthetic adapter's interface and
 the step-wrapping helper that the measurement scripts use.
 
@@ -41,7 +42,8 @@ from startrax_torch.train import optim as toptim
 from startrax_torch.train.diagnostics import check_batch_gradient_isolation
 from startrax_torch.utils import config as tconfig
 from startrax_torch.utils.tree import tree_leaves
-from test_torch_online import BASE, _configs, _fresh_scene_memo, _rows  # noqa: F401
+from test_torch_online import (BASE, _configs, _fresh_scene_memo,  # noqa: F401
+                               _one_torch_thread, _rows)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # test(): the tolerance of each kind of test/* row (module docstring)
@@ -259,17 +261,11 @@ def _online_cfg(tmp_path, **kw):
     ("train", dict(data_parallel="on"), NotImplementedError, "queue 1, item 8"),
     ("test", dict(data_parallel="on"), NotImplementedError, "queue 1, item 8"),
     ("train", dict(data_parallel="sideways"), ValueError, "auto/on/off"),
-    ("train", dict(polish_epochs=2, polish_mode="gauge_align"), NotImplementedError,
-     "queue 1, item 4b"),
-    ("train", dict(polish_epochs=2, polish_mode="refit_anchor"), NotImplementedError,
-     "queue 1, item 4b"),
     ("train", dict(polish_epochs=2, polish_mode="sideways"), ValueError, "polish_mode"),
-    ("train", dict(multi_start_rounds=1), NotImplementedError, "queue 1, item 4b"),
-    ("train", dict(selection_boundary_only=True), NotImplementedError, "queue 1, item 4b"),
     ("test", dict(save_video_frames=True), NotImplementedError, "imageio"),
     ("test", dict(lpips_weights="EXISTING"), NotImplementedError, "LPIPS"),
-], ids=["data_parallel_train", "data_parallel_test", "data_parallel_value", "gauge_align",
-        "refit_anchor", "polish_mode_value", "multi_start", "boundary_only", "video", "lpips"])
+], ids=["data_parallel_train", "data_parallel_test", "data_parallel_value", "polish_mode_value",
+        "video", "lpips"])
 def test_online_refuses_before_making_a_run_dir(tmp_path, entry, kw, err, match):
     if kw.get("lpips_weights") == "EXISTING":
         weights = tmp_path / "vgg.pth"
