@@ -27,8 +27,9 @@ Phases, each printing its numbers:
      and profiler device time) beside library yardsticks (one torch.mm a
      layer and field, one torch.sum a sum) and their bounds: at one online
      step's shapes, at the online app's shared-pose step's shapes (static
-     8x128, dynamic 4x128), at the per-ray step's stacked fine call (K = 2)
-     and at nerf_time's fine call (96-row lin_in);
+     8x128, dynamic 4x128), at the per-ray step's stacked fine call (K = 2),
+     at nerf_time's fine call (96-row lin_in) and at the occgrid step's call
+     at budgets 128 and 512 (4096 rays, static 8x256);
   3d. the per-field kernel at the shapes one shared-pose step of the online
      app (startrax/configs/synthetic_star_online.txt) gives it: the static
      8x128 field and the K = 2 dynamic 4x128 fields with the in-kernel SE(3)
@@ -142,12 +143,49 @@ Phases, each printing its numbers:
      mode with its held-out guard, then multi-start (2 candidates), and
      refit_anchor; each one's phases, run.log decisions and launches by
      kind;
-  9. one JSON line per kernel (with its bound: the larger of its FLOP over
+  9. the occupancy-grid app-init (apps/occgrid_init.py) at
+     carla_star_app_init_nerfacc.txt's field, batch and grid (8x256, bf16,
+     N_rand 4096, N_samples 512, budget 128, grid 128^3) on phase 6's scene
+     (the scene keys and render_step_size, at its ratio to the march step,
+     are printed overrides; CARLA data is absent): (a) the static field's
+     kernels against their plain version at the app's shapes: 4096 rays
+     marched through a grid with 30% of its cells occupied at budgets 128,
+     256 and 512 (524,288 to 2,097,152 points; the cotangent zero on the
+     masked slots; the plain version in slices of PLAIN_ROWS rows above
+     that), and the grid update's forward over 2,097,152 cells with one
+     sample a ray under no_grad (and nothing saved), each with times and
+     bounds; (b) the app through its argv parser, cut in depth by OCC_CUT:
+     the fine loss finite and falling, mean_samples and dropped_frac per
+     epoch, a budget doubling after an epoch that cut more than 1% of its
+     occupied samples and the next steps at the doubled shape, a grid
+     update before every 16th step (1 fwd, nothing saved), each step 1 fwd
+     + 1 bwd + 1 GEMM + 2 sums, the step time by budget (CUDA events),
+     device time and idle share (profiled steps), the march and the update
+     timed alone, a {"params"} checkpoint an epoch;
+  9b. render_star_occgrid at phase 9's grid (budget 128) on 4096 rays with
+     K = 2 (pose warp, field-axis dynamic fields): kernel path against
+     plain path (rgb within 2e-2, weight and pose grads within
+     parity.LIMITS), launches 1 fwd + 1 bwd + 1 stacked fwd + 1 stacked
+     bwd, 2 GEMMs, 4 sums; joint_density_fn over the grid's cells with and
+     without the pose against the plain path;
+  10. nerf_time's app (apps/nerf_time.py) at carla_nerf_time.txt's widths
+     on phase 6's scene, cut by NT_APP_CUT: the loss finite and falling, 2 +
+     2 pre-encoded launches, 2 GEMMs and 4 sums a step, a validation PSNR an
+     epoch, the step time; then --test true from its checkpoint over
+     NT_TEST_FRAMES frames of each held-out view: finite rows;
+  10b. a CARLA-format capture (57 cameras, CARLA_FRAMES frames, 2
+     vehicles, the 24-bit depth code, semantic id 10, bboxes.npy) written
+     with utils/logging.write_png in a temporary directory: every PNG file
+     read back bit-exact with read_png, the train, val and test splits
+     loaded through make_dataset, nerf_time's app for one short epoch on it
+     and test() with test_carla_nerf_time.txt's protocol;
+  11. one JSON line per kernel (with its bound: the larger of its FLOP over
      989 TFLOP/s dense bf16, 67 TFLOP/s f32 for the sums, and its bytes,
      each input read once and each output written once, over 3.35 TB/s;
-     and the launches of it by the app-init app, the online app, the scaled
-     app of phase 8 and the polishes of 8b, each counted from 0 over its
-     run), the card's line, and the result line {"ok": true, "device":
+     the launches of it by the app-init app, the online app, the scaled
+     app of phase 8, the polishes of 8b and phases 9, 9b, 10 and 10b, each
+     counted from 0 over its run; and the times at the occgrid app's
+     shapes), the card's line, and the result line {"ok": true, "device":
      {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device or when any phase
@@ -250,6 +288,32 @@ POLISH_CUTS = (
 )
 # NVIDIA H100 SXM: dense bf16 tensor-core peak, float32 peak outside the
 # tensor cores, and memory rate (data sheet)
+# phase 9: the occgrid app's config, the scene keys taken from phase 6's
+# config (CARLA data is absent), its depth cut, 9a's budgets and rays, the
+# rows of a slice of the plain version at the largest shapes, the steps left
+# out of a budget's median and the profiled steps; 9b's plain-path slices
+OCC_CONFIG = "carla_star_app_init_nerfacc.txt"
+SCENE_KEYS = ("synth_height", "synth_views", "synth_val_views", "num_frames", "num_vehicles",
+              "near", "far", "scale_factor")
+OCC_CUT = ("--epochs_appearance", "3", "--steps_per_epoch", "48")
+OCC_BUDGETS = (128, 256, 512)
+OCC_RAYS = 4096
+PLAIN_ROWS = 524288
+OCC_WARM = 4
+OCC_PROFILED = (40, 45)
+RENDER_CHUNKS = 4
+# phase 10: nerf_time's app on phase 6's scene, cut in depth, and its test's
+# frames; 10b: the CARLA-format capture and the app's cut on it
+NT_APP_CUT = ("--epochs_online", "2", "--steps_per_epoch", "20", "--epoch_val", "1",
+              "--epoch_ckpt", "1")
+NT_TEST_FRAMES = 2
+NT_TEST_CONFIG = "test_carla_nerf_time.txt"
+CARLA_HW = (48, 64)
+CARLA_CAMS = 57
+CARLA_FRAMES = 2
+CARLA_VEHICLES = 2
+CARLA_CUT = ("--epochs_online", "1", "--steps_per_epoch", "10", "--epoch_val", "1",
+             "--epoch_ckpt", "1")
 PEAK_FLOPS = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -347,7 +411,7 @@ def _points(n, near, far, seed):
     return x, d.expand(-1, 256, -1).reshape(-1, 3)[:n].contiguous()
 
 
-def kernel_work(params, x, n_blocks, pe, input_grads, warped):
+def kernel_work(params, x, n_blocks, pe, input_grads, warped, save=True):
     """FLOP and bytes of one kernel call's work, forward and backward, as
     {"fwd": (flop, bytes), "bwd": (flop, bytes)}: the multiply-adds of every
     layer at its real widths (the encoding's padding and the PE's sin/cos
@@ -355,7 +419,8 @@ def kernel_work(params, x, n_blocks, pe, input_grads, warped):
     points (raw, or encoded with pe=None), the f32 params, the output, the
     saved bf16 activations (written forward, read backward), the cotangent,
     the param grads and, with input grads, dx and dd. params and x may be
-    stacked over K fields ([K, ...] leaves, x [K, N, C])."""
+    stacked over K fields ([K, ...] leaves, x [K, N, C]). save=False: a
+    forward that saves no activations (under no_grad)."""
     w_in = params["lin_in"]["w"]
     K = x.shape[0] if x.dim() == 3 else 1
     n = K * x.shape[-2]
@@ -369,7 +434,7 @@ def kernel_work(params, x, n_blocks, pe, input_grads, warped):
     param_bytes = 4 * sum(t.numel() for t in tree_leaves(params))
     in_bytes = 4 * ((in_ch + view_ch) if pe is None else 6)
     act_bytes = 2 * ((2 * n_blocks + 3) * W + w2)
-    fwd = (2 * macs * n, n * (in_bytes + act_bytes + 16) + param_bytes)
+    fwd = (2 * macs * n, n * (in_bytes + (act_bytes if save else 0) + 16) + param_bytes)
     bwd = (2 * (macs + data) * n,
            n * (in_bytes + act_bytes + 16 + (in_bytes if input_grads else 0)) + 2 * param_bytes)
     return {"fwd": fwd, "bwd": bwd}
@@ -501,13 +566,14 @@ def phase_kernels(star_cfg, n_rand):
 
 
 def backward_part_cases(star_cfg, n_rand, online_cfg, online_rays, slice_cfg, slice_rays, nt_cfg,
-                        nt_rays):
+                        nt_rays, occ_field):
     """The backward calls whose GEMM and sums phase 3c checks and times, as
     (path, name, width, n_blocks, lin_in's rows, fields, points per field,
     calls per step of the path): the field calls of one shared-pose online
     step at the flagship's widths and at the online app's, the per-ray
-    step's stacked fine call (K fields a launch) and the nerf_time fine call
-    (lin_in's 96 rows)."""
+    step's stacked fine call (K fields a launch), the nerf_time fine call
+    (lin_in's 96 rows) and the occgrid step's call at its first and last
+    budget (occ_field, OCC_RAYS rays)."""
     from startrax_torch.kernels.fused_mlp import EW, XW
 
     out = [(path, name, f.width, f.n_blocks, EW, 1, n, calls)
@@ -519,6 +585,8 @@ def backward_part_cases(star_cfg, n_rand, online_cfg, online_rays, slice_cfg, sl
                 slice_cfg.num_vehicles, rays * samples, calls))
     name, f, n, _, calls = nerf_time_cases(nt_cfg, nt_rays)[1]
     out.append(("nerf_time", f"pre-encoded {name}", f.width, f.n_blocks, XW, 1, n, calls))
+    out += [(f"occgrid budget {b}", f"static {occ_field.depth}x{occ_field.width}", occ_field.width,
+             occ_field.n_blocks, EW, 1, OCC_RAYS * b, 1) for b in (OCC_BUDGETS[0], OCC_BUDGETS[-1])]
     return out
 
 
@@ -1989,6 +2057,665 @@ def phase_polishes(config_path, warm_path, basedir, cache):
     return dict(fm.launches), dict(fm.part_launches)
 
 
+def _scene_flags(scene_path, cache):
+    """The argv keys that put an app on phase 6's synthetic scene (CARLA
+    data is absent): SCENE_KEYS from scene_path's config and its cache."""
+    from startrax_torch.utils.config import load_config
+
+    scene = load_config(["--config", scene_path])
+    flags = ["--dataset_type", "synthetic", "--synth_cache_dir", cache]
+    for k in SCENE_KEYS:
+        flags += [f"--{k}", str(getattr(scene, k))]
+    return flags
+
+
+def _launch_snapshot():
+    from startrax_torch.kernels import fused_mlp as fm
+
+    return dict(fm.launches) | dict(fm.part_launches)
+
+
+def _occ_inputs(train_data, occ_cfg, n_rays, budget, near, far, seed):
+    """One occgrid step's static-field inputs at `budget` samples a ray:
+    n_rays frame-0 rays of phase 6's scene marched (jittered) through a grid
+    with 30% of its cells occupied, the selected samples' points and
+    directions [n_rays * budget, 3], and the valid mask as a float [N]."""
+    import numpy as np
+    import torch
+
+    from startrax_torch.kernels import occgrid
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = occ_cfg.resolution
+    occupied = torch.rand((r, r, r), generator=g, device="cuda") < 0.3
+    grid = {"density_ema": occupied.float() * (10.0 * occ_cfg.occ_threshold
+                                                / occ_cfg.render_step_size), "step": 1}
+    b = train_data.sample_batch(np.random.default_rng(seed), n_rays, frame=0)
+    o, d = (torch.tensor(b[k], device="cuda") for k in ("rays_o", "rays_d"))
+    z, valid, _ = occgrid.march_and_select(grid, dataclasses.replace(occ_cfg, n_selected=budget),
+                                           o, d, near, far, generator=g)
+    pts = o[:, None] + d[:, None] * z[..., None]
+    dirs = torch.nn.functional.normalize(d, dim=-1)[:, None].expand(-1, budget, -1)
+    return pts.reshape(-1, 3).contiguous(), dirs.reshape(-1, 3).contiguous(), \
+        valid.reshape(-1).float()
+
+
+def _plain_chunks(x, d, weights, n_blocks, pe, cot=None):
+    """The plain version over PLAIN_ROWS-row slices: the joined outputs, and
+    with cot the summed weight grads."""
+    import torch
+
+    from startrax_torch.kernels import fused_mlp as fm
+
+    outs = []
+    for i in range(0, x.shape[0], PLAIN_ROWS):
+        rows = slice(i, i + PLAIN_ROWS)
+        o = fm.fused_mlp_plain(x[rows], d[rows], weights, n_blocks, pe)
+        if cot is not None:
+            torch.autograd.grad(o, weights, cot[rows])
+        outs.append(o.detach())
+    return torch.cat(outs)
+
+
+def phase_occgrid_kernels(field_cfg, train_data, occ_cfg, near, far, worst):
+    """9a: the static field's kernels at the occgrid app's shapes against
+    their plain version: each budget's step call (4096 rays x 128, 256, 512
+    samples; the cotangent zero on the masked slots; the plain version in
+    PLAIN_ROWS slices above that), and the grid update's forward (one
+    jittered point a cell, one sample a ray, under no_grad: nothing saved);
+    each timed with its plain version and its bound. Folds the readings
+    into worst; returns the times by shape."""
+    import torch
+
+    from startrax_torch.kernels import fused_mlp as fm, occgrid, parity
+
+    nb, pe = field_cfg.n_blocks, (field_cfg.multires, field_cfg.multires_views)
+    shapes = {}
+    for i, budget in enumerate(OCC_BUDGETS):
+        x, d, mask = _occ_inputs(train_data, occ_cfg, OCC_RAYS, budget, near, far, seed=70 + i)
+        n = x.shape[0]
+        params = _field(field_cfg, seed=70 + i)
+        errs, _ = parity.compare(params, x, d, nb, pe, cot_mask=mask,
+                                 plain_rows=PLAIN_ROWS if n > PLAIN_ROWS else None)
+        label = f"occgrid step budget {budget} {field_cfg.depth}x{field_cfg.width} N={n}"
+        print(f"kernel-vs-plain {label} ({int(mask.sum())} valid slots, cotangent 0 on the "
+              f"rest): " + ", ".join(f"{k} {errs[k]:.3e} (limit {lim})"
+                                     for k, lim in parity.LIMITS.items() if k in errs), flush=True)
+        for k in worst:
+            worst[k] = max(worst[k], errs.get(k, 0.0))
+        _require(not parity.failures(errs), f"{label}: kernel vs plain: {parity.failures(errs)}")
+        weights = fm.flatten_params(params, nb)
+
+        def kernel():
+            a, r = fm.fused_field_apply(params, x, d, nb, pe)
+            return torch.cat([a[..., None], r], -1)
+
+        out = kernel()
+        cot = (torch.cat([torch.cos(out[:, :1]), 2.0 * out[:, 1:]], -1) * mask[:, None]).detach()
+        t = {"fwd": _cuda_ms(kernel, 3),
+             "bwd": _cuda_ms(lambda: torch.autograd.grad(out, weights, cot, retain_graph=True), 3),
+             "plain_fwd": _cuda_ms(lambda: _plain_chunks(x, d, weights, nb, pe), 1)}
+        t["plain_bwd"] = _cuda_ms(lambda: _plain_chunks(x, d, weights, nb, pe, cot), 1) \
+            - t["plain_fwd"]
+        work = kernel_work(params, x, nb, pe, False, False)
+        t.update({f"bound_{s}": bound(*work[s]) for s in ("fwd", "bwd")},
+                 max_scaled_err=max(errs["fwd"], errs["w"]), max_abs_err=errs["grad_abs"])
+        shapes[f"budget {budget}"] = t
+        print(f"time {label}: " + ", ".join(f"{k} {t[k]:.3f} ms" for k in STEP_TIMES[:4])
+              + ", bound fwd {:.3f} ms ({}), bwd {:.3f} ms ({})".format(
+                  *t["bound_fwd"], *t["bound_bwd"]), flush=True)
+        del out, cot, x, d, mask, params
+        torch.cuda.empty_cache()
+
+    # the grid update's forward: every cell's jittered centre, along (0, 0, -1)
+    g = torch.Generator(device="cuda").manual_seed(79)
+    centers = occgrid._cell_centers(occ_cfg, "cuda")
+    cell = (occ_cfg.aabb_max[0] - occ_cfg.aabb_min[0]) / occ_cfg.resolution
+    x = (centers + (torch.rand(centers.shape, generator=g, device="cuda") - 0.5) * cell)
+    x = x.reshape(-1, 3).contiguous()
+    n = x.shape[0]
+    d = x.new_tensor([[0.0, 0.0, -1.0]]).expand(n, 3).contiguous()
+    params = _field(field_cfg, seed=79)
+    weights = fm.flatten_params(params, nb)
+
+    def kernel():
+        a, r = fm.fused_field_apply(params, x, d, nb, pe)
+        return torch.cat([a[..., None], r], -1)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k = kernel()
+        extra = torch.cuda.max_memory_allocated() - base
+        p = _plain_chunks(x, d, weights, nb, pe)
+        errs = {"fwd": max(parity._max_rel(k[:, :1], p[:, :1]), parity._max_rel(k[:, 1:], p[:, 1:])),
+                "fwd_rms": max(parity._rms_rel(k[:, :1], p[:, :1]),
+                               parity._rms_rel(k[:, 1:], p[:, 1:])),
+                "fwd_abs": float((k - p).abs().max())}
+        t = {"fwd": _cuda_ms(kernel, 3), "plain_fwd": _cuda_ms(
+            lambda: _plain_chunks(x, d, weights, nb, pe), 1)}
+    save_bytes = n * field_cfg.width * 2  # one [N, W] bf16 buffer
+    work = kernel_work(params, x, nb, pe, False, False, save=False)
+    t.update(bound_fwd=bound(*work["fwd"]), max_scaled_err=errs["fwd"], max_abs_err=errs["fwd_abs"])
+    shapes["grid update"] = t
+    label = f"occgrid grid update forward {field_cfg.depth}x{field_cfg.width} N={n} (1 sample a ray)"
+    print(f"kernel-vs-plain {label}: fwd {errs['fwd']:.3e} (limit {parity.LIMITS['fwd']}), "
+          f"fwd_rms {errs['fwd_rms']:.3e} (limit {parity.LIMITS['fwd_rms']}); memory beyond the "
+          f"inputs {extra / 1e9:.3f} GB (one [N, W] bf16 scratch: {save_bytes / 1e9:.3f} GB; "
+          f"saved activations would take {(2 * nb + 3.5) * save_bytes / 1e9:.3f})", flush=True)
+    print(f"time {label}: fwd {t['fwd']:.3f} ms, plain_fwd {t['plain_fwd']:.3f} ms, bound "
+          "{:.3f} ms ({})".format(*t["bound_fwd"]), flush=True)
+    _require(errs["fwd"] <= parity.LIMITS["fwd"] and errs["fwd_rms"] <= parity.LIMITS["fwd_rms"]
+             and bool(torch.isfinite(k).all()), f"{label}: kernel vs plain")
+    _require(extra < 2 * save_bytes, f"{label}: saves nothing under no_grad")
+    for key in ("fwd", "fwd_rms"):
+        worst[key] = max(worst[key], errs[key])
+    del x, d, k, p, params, centers
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_occgrid(config_path, scene_path, cache, basedir, worst):
+    """9: the occgrid app-init through its entry point at config_path's
+    field, batch and grid on phase 6's scene (module docstring). Returns
+    (the app's launches, the kernel times by shape of 9a, what 9b needs: the
+    app's config, final grid and grid config)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from startrax_torch.apps import occgrid_init
+    from startrax_torch.apps.common import make_dataset
+    from startrax_torch.kernels import fused_mlp as fm, occgrid
+    from startrax_torch.train import checkpoint as ckpt
+    from startrax_torch.utils.config import load_config
+    from startrax_torch.utils.tree import tree_leaves
+
+    published = load_config(["--config", config_path])
+    scene = load_config(["--config", scene_path])
+    # render_step_size keeps its ratio to the march step
+    step_pub = (published.far - published.near) * published.scale_factor / published.N_samples
+    rss = published.render_step_size / step_pub * (scene.far - scene.near) / published.N_samples
+    argv = ["--config", config_path, "--basedir", basedir, *_scene_flags(scene_path, cache),
+            "--render_step_size", f"{rss:.6g}", *OCC_CUT]
+    cfg = load_config(argv)
+    print(f"occgrid_init: python -m startrax_torch.apps.occgrid_init {' '.join(argv)} (scene "
+          f"overrides from {os.path.basename(scene_path)}: CARLA data is absent; render_step_size "
+          f"{published.render_step_size} on a {step_pub:.6g} march step -> {rss:.6g} on "
+          f"{(scene.far - scene.near) / published.N_samples:.6g}; depth cut: epochs_appearance "
+          f"{published.epochs_appearance} -> {cfg.epochs_appearance}, steps_per_epoch "
+          f"{published.steps_per_epoch} -> {cfg.steps_per_epoch}); field "
+          f"{cfg.netdepth}x{cfg.netwidth}, N_rand {cfg.N_rand}, N_samples {cfg.N_samples}, grid "
+          f"{cfg.grid_resolution}^3, mixed_precision {cfg.mixed_precision}", flush=True)
+    field_cfg, occ_cfg = occgrid_init.field_config(cfg), occgrid_init.occgrid_config(cfg)
+    train_data = make_dataset(cfg, "train")
+    shapes = phase_occgrid_kernels(field_cfg, train_data, occ_cfg, cfg.near, cfg.far, worst)
+
+    steps, updates = [], []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    make_step, update = occgrid_init.make_train_step, occgrid.update_grid
+
+    def timed_make(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def timed(params, grid, batch, occ, generator=None):
+            i = len(steps)
+            if i == OCC_PROFILED[0]:
+                torch.cuda.synchronize()
+                prof.start()
+            before = _launch_snapshot()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(params, grid, batch, occ, generator=generator)
+            end.record()
+            torch.cuda.synchronize()
+            if i == OCC_PROFILED[1] - 1:
+                prof.stop()
+            steps.append({"budget": occ.n_selected, "ms": start.elapsed_time(end),
+                          "launches": _deltas(_launch_snapshot(), before)})
+            return out
+
+        return timed
+
+    def timed_update(grid, fn, occ, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = _launch_snapshot()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = update(grid, fn, occ, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        updates.append({"before_step": len(steps), "ms": start.elapsed_time(end),
+                        "extra": torch.cuda.max_memory_allocated() - base,
+                        "launches": _deltas(_launch_snapshot(), before)})
+        return out
+
+    occgrid_init.make_train_step, occgrid.update_grid = timed_make, timed_update
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        params, grid = occgrid_init.main(argv)
+    finally:
+        occgrid_init.make_train_step, occgrid.update_grid = make_step, update
+    app_s = time.perf_counter() - t0
+    counts, parts = dict(fm.launches), dict(fm.part_launches)
+
+    run_dir = os.path.join(basedir, cfg.expname, "occgrid_init")
+    rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    raised = [line.split(" INFO ", 1)[1].strip()
+              for line in open(os.path.join(run_dir, "run.log")) if "sample budget" in line]
+    n = len(steps)
+    print(f"occgrid_init: {n} steps, {len(updates)} grid updates in {app_s:.2f} s; per epoch "
+          "(fine loss, mean_samples, dropped_frac): " + ", ".join(
+              f"({r['train/fine_loss']:.6f}, {r['train/mean_samples']:.2f}, "
+              f"{r['train/dropped_frac']:.4f})" for r in rows) + f"; run.log: {raised}",
+          flush=True)
+    losses = [r["train/fine_loss"] for r in rows]
+    _require(n == cfg.epochs_appearance * cfg.steps_per_epoch and len(rows) == cfg.epochs_appearance,
+             "every epoch trained and logged")
+    _require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+             "the occgrid fine loss is finite and falls")
+    # the budget of each epoch's steps: doubled after an epoch that cut > 1%
+    budget, want, doublings = occ_cfg.n_selected, [], 0
+    for r in rows:
+        want += [budget] * cfg.steps_per_epoch
+        if r["train/dropped_frac"] > 0.01 and budget < occ_cfg.n_march:
+            budget, doublings = min(2 * budget, occ_cfg.n_march), doublings + 1
+    got = [s["budget"] for s in steps]
+    _require(got == want and len(raised) == doublings and len(set(got)) >= 2
+             and rows[0]["train/dropped_frac"] > 0.01,
+             f"a budget doubling after an epoch that cut > 1%, the next steps at the doubled "
+             f"budget: {sorted(set(got))}")
+    step_design = _counts(fwd=1, bwd=1) | _part_counts("static")
+    update_design = _counts(fwd=1) | _part_counts()
+    _require(all(s["launches"] == step_design for s in steps),
+             f"every occgrid step launches {step_design}")
+    _require([u["before_step"] for u in updates] == list(range(0, n, occgrid_init.GRID_UPDATE_EVERY))
+             and len(updates) == math.ceil(n / occgrid_init.GRID_UPDATE_EVERY),
+             "a grid update before every 16th step, the first included")
+    _require(all(u["launches"] == update_design for u in updates),
+             f"every grid update launches {update_design}")
+    save_bytes = occ_cfg.resolution ** 3 * cfg.netwidth * 2
+    extra = max(u["extra"] for u in updates)
+    print(f"occgrid grid updates: launches {updates[0]['launches']} each, memory beyond their "
+          f"inputs at most {extra / 1e9:.3f} GB (one [N, W] bf16 scratch {save_bytes / 1e9:.3f} "
+          f"GB), median {statistics.median(u['ms'] for u in updates):.3f} ms (CUDA events)",
+          flush=True)
+    _require(extra < 2 * save_bytes, "the grid update saves nothing")
+    want_counts = _counts(fwd=n + len(updates), bwd=n)
+    _require(counts == want_counts and parts == {k: n * v for k, v in _part_counts("s").items()},
+             f"the app's launches {want_counts}, got {counts} {parts}")
+
+    by_budget = {}
+    for i, s in enumerate(steps):
+        if not OCC_PROFILED[0] <= i < OCC_PROFILED[1]:
+            by_budget.setdefault(s["budget"], []).append(s["ms"])
+    n_prof = OCC_PROFILED[1] - OCC_PROFILED[0]
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / n_prof
+    medians = {b: statistics.median(v[OCC_WARM:] or v) for b, v in by_budget.items()}
+    prof_budget = steps[OCC_PROFILED[0]]["budget"]
+    for b, med in sorted(medians.items()):
+        line = (f"occgrid step at budget {b}: median {med:.3f} ms over {len(by_budget[b])} steps "
+                f"(CUDA events, the first {OCC_WARM} of each budget and the profiled window left "
+                f"out), {cfg.N_rand / med * 1e3:.1f} rays/s")
+        if b == prof_budget:
+            line += (f"; device time {busy:.3f} ms a step (profiler, steps {OCC_PROFILED[0] + 1}-"
+                     f"{OCC_PROFILED[1]}), idle share {1 - busy / med:.3f}")
+        print(line, flush=True)
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
+
+    # the march and the grid update alone, at the final grid and budget
+    occ = dataclasses.replace(occ_cfg, n_selected=budget)
+    b = train_data.sample_batch(np.random.default_rng(1), cfg.N_rand, frame=0)
+    o, d = (torch.tensor(b[k], device="cuda") for k in ("rays_o", "rays_d"))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    march_ms = _cuda_ms(lambda: occgrid.march_and_select(grid, occ, o, d, cfg.near, cfg.far,
+                                                         generator=g), 5)
+    update_ms = _cuda_ms(lambda: occgrid.update_grid(
+        grid, occgrid_init.density_fn(params, field_cfg), occ, generator=g), 3)
+    z, valid, n_occ = occgrid.march_and_select(grid, occ, o, d, cfg.near, cfg.far, generator=g)
+    occupied = float(occgrid.occupancy(grid, occ).float().mean())
+    print(f"occgrid alone (CUDA events): march_and_select {march_ms:.3f} ms ({cfg.N_rand} rays x "
+          f"{occ.n_march} steps, budget {occ.n_selected}; {float(valid.float().sum(-1).mean()):.1f} "
+          f"valid slots a ray, {float(n_occ.float().mean()):.1f} occupied samples a ray), "
+          f"update_grid {update_ms:.3f} ms ({occ.resolution ** 3} cells, {occupied:.4f} occupied)",
+          flush=True)
+    shapes["alone"] = {"march_ms": march_ms, "update_grid_ms": update_ms}
+
+    ckpts = os.path.join(run_dir, "ckpts")
+    restored = ckpt.restore_checkpoint(ckpts)
+    _require(list(restored) == ["params"] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(restored["params"]), tree_leaves(params)))
+        and sorted(int(s) for s in os.listdir(ckpts)) == list(range(cfg.epochs_appearance)),
+        "a {params} checkpoint an epoch, the last one the returned params bitwise")
+    return counts, parts, shapes, (cfg, grid, occ)
+
+
+def phase_occgrid_render(cfg, grid, occ_cfg):
+    """9b: render_star_occgrid at phase 9's grid on a 4096-ray batch of its
+    scene with K = 2 (pose warp, field-axis dynamic fields), kernel path
+    against plain path: the renders, and the kernels on the inputs the
+    render gives them (the static field on the selected samples, the
+    dynamic fields on the warped samples with input grads; the cotangent
+    zero on the masked slots) within parity.LIMITS. The render's own weight
+    and pose grads are printed: its loss sum(rgb * w) reaches the fields
+    through the compositing as a zero-mean cotangent, under which bf16 relu
+    flips move a weight grad by up to 3.5e-2 of its largest entry
+    (ROADMAP, port-side facts). Then joint_density_fn over the grid's cells
+    with and without the pose. Returns the kernel path's launches."""
+    import numpy as np
+    import torch
+
+    from startrax_torch import convert
+    from startrax_torch.apps.common import make_dataset
+    from startrax_torch.kernels import occgrid, parity
+    from startrax_torch.models import star_occgrid
+    from startrax_torch.utils.config import star_config_from
+    from startrax_torch.utils.tree import tree_leaves
+
+    star = dataclasses.replace(star_config_from(cfg), num_vehicles=2)
+    g = torch.Generator().manual_seed(90)
+    params = star_occgrid.init_star_occgrid(star, g, device="cpu")
+    for f in (params["static"], params["dynamic"]):  # nonzero fc1: every block carries gradient
+        for blk in f["blocks"]:
+            blk["fc1"]["w"] = 0.02 * torch.randn(blk["fc1"]["w"].shape, generator=g)
+    params = convert.params_from_numpy(convert.params_to_numpy(params), device="cuda",
+                                       requires_grad=True)
+    q = torch.nn.functional.normalize(torch.tensor([[0.0, 0.1, 0.0, 0.995],
+                                                    [0.05, 0.0, -0.05, 0.9975]]), dim=-1)
+    pose = torch.cat([torch.tensor([[0.05, -0.02, 0.1], [-0.1, 0.03, -0.05]]), q], -1)
+    pose = pose.cuda().requires_grad_(True)
+    data = make_dataset(cfg, "train")
+    b = data.sample_batch(np.random.default_rng(5), OCC_RAYS, frame=0)
+    o, d = (torch.tensor(b[k], device="cuda") for k in ("rays_o", "rays_d"))
+    u = torch.rand((OCC_RAYS, occ_cfg.n_march), generator=torch.Generator(device="cuda")
+                   .manual_seed(6), device="cuda")
+    w = torch.randn((OCC_RAYS, 3), generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda")
+    leaves = tree_leaves(params) + [pose]
+    outs, grads, launched = [], [], None
+    # the plain path in RENDER_CHUNKS slices of the rays (for its memory): the
+    # loss sums over rays, so its grads are the slices' grads summed
+    for use_fused, chunks in ((True, 1), (False, RENDER_CHUNKS)):
+        c = dataclasses.replace(star, use_fused=use_fused)
+        before = _launch_snapshot()
+        parts, grad = [], None
+        for rows in torch.arange(OCC_RAYS, device="cuda").chunk(chunks):
+            out = star_occgrid.render_star_occgrid(params, c, grid, occ_cfg, o[rows], d[rows],
+                                                   pose=pose, u=u[rows], with_test_outputs=True)
+            g_rows = torch.autograd.grad((out["rgb"] * w[rows]).sum(), leaves)
+            grad = g_rows if grad is None else [a + b for a, b in zip(grad, g_rows)]
+            parts.append({k: out[k].detach() for k in ("rgb", "valid")})
+        torch.cuda.synchronize()
+        if use_fused:
+            launched = _deltas(_launch_snapshot(), before)
+        outs.append({k: torch.cat([p[k] for p in parts]) for k in ("rgb", "valid")})
+        grads.append(grad)
+    design = _counts(fwd=1, bwd=1, stacked_fwd=1, stacked_bwd=1) | _part_counts("s", "d")
+    rgb_err = float((outs[0]["rgb"] - outs[1]["rgb"]).abs().max())
+    w_err = max(parity._max_rel(a, b) for a, b in zip(grads[0][:-1], grads[1][:-1]))
+    pose_err = parity._max_rel(grads[0][-1], grads[1][-1])
+    valid = outs[0]["valid"]
+    print(f"render_star_occgrid K=2, {OCC_RAYS} rays, budget {occ_cfg.n_selected} "
+          f"({float(valid.float().sum(-1).mean()):.1f} valid slots a ray): kernel path vs plain "
+          f"path rgb max abs err {rgb_err:.3e} (tol 2e-2); the render's weight grads "
+          f"{w_err:.3e}, pose grad {pose_err:.3e} (scaled, under its zero-mean cotangent); "
+          f"launches {launched}, design {design}", flush=True)
+    _require(all(bool(torch.isfinite(out["rgb"]).all()) for out in outs)
+             and torch.equal(outs[0]["valid"], outs[1]["valid"]), "finite renders, one march")
+    _require(rgb_err <= 2e-2, "render_star_occgrid: kernel path vs plain path")
+    _require(launched == design, f"render_star_occgrid launches {design}, got {launched}")
+
+    # the kernels on the render's own inputs
+    from startrax_torch.models.star import warp_to_vehicle_frames
+
+    nb, pe = star.static_field().n_blocks, (star.multires, star.multires_views)
+    with torch.no_grad():
+        z, valid, _ = occgrid.march_and_select(grid, occ_cfg, o, d, star.near, star.far, u=u)
+        dirs = torch.nn.functional.normalize(d, dim=-1)
+        pts = o[:, None] + d[:, None] * z[..., None]
+        pts_dyn, dirs_dyn = warp_to_vehicle_frames(pose, pts, dirs)
+    S, K = z.shape[1], star.num_vehicles
+    mask = valid.reshape(-1).float()
+    cases = (("static", params["static"], pts.reshape(-1, 3),
+              dirs[:, None].expand(-1, S, -1).reshape(-1, 3), False),
+             ("dynamic K=2, input grads", params["dynamic"], pts_dyn.reshape(K, -1, 3),
+              dirs_dyn[:, :, None].expand(-1, -1, S, -1).reshape(K, -1, 3), True))
+    for name, p, x, dd, stacked in cases:
+        x, dd = (t.contiguous().requires_grad_(stacked) for t in (x, dd))
+        errs, _ = parity.compare(p, x, dd, nb, pe, stacked=stacked, cot_mask=mask)
+        print(f"kernel-vs-plain render_star_occgrid {name} on its {x.shape[-2]} samples a field "
+              f"(cotangent 0 on the masked slots): " + ", ".join(
+                  f"{k} {errs[k]:.3e} (limit {lim})" for k, lim in parity.LIMITS.items()
+                  if k in errs), flush=True)
+        _require(not parity.failures(errs),
+                 f"render_star_occgrid {name}: kernel vs plain {parity.failures(errs)}")
+        del x, dd
+        torch.cuda.empty_cache()
+
+    centers = occgrid._cell_centers(occ_cfg, "cuda").reshape(-1, 3)
+    with torch.no_grad():
+        for p in (None, pose.detach()):
+            before = _launch_snapshot()
+            k = star_occgrid.joint_density_fn(params, star, p)(centers)
+            delta = _deltas(_launch_snapshot(), before)
+            plain_fn = star_occgrid.joint_density_fn(
+                params, dataclasses.replace(star, use_fused=False), p)
+            pl = torch.cat([plain_fn(centers[i:i + PLAIN_ROWS])
+                            for i in range(0, centers.shape[0], PLAIN_ROWS)])
+            err = parity._max_rel(k, pl)
+            want = _counts(fwd=1, stacked_fwd=0 if p is None else 1) | _part_counts()
+            print(f"joint_density_fn {'with' if p is not None else 'without'} pose on "
+                  f"{centers.shape[0]} cell centres: kernel vs plain {err:.3e} (limit "
+                  f"{parity.LIMITS['fwd']}), launches {delta}", flush=True)
+            _require(err <= parity.LIMITS["fwd"] and delta == want,
+                     "joint_density_fn: kernel path vs plain path and its launches")
+    del params, outs, grads, centers
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_nerf_time_app(config_path, scene_path, cache, basedir):
+    """10: nerf_time's app at config_path's widths on phase 6's scene, then
+    --test true from its checkpoint. Returns the launches of both runs."""
+    import torch
+
+    from startrax_torch.apps import nerf_time
+    from startrax_torch.apps.common import make_dataset
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.train import loop
+    from startrax_torch.utils.config import load_config
+
+    argv = ["--config", config_path, "--basedir", basedir, *_scene_flags(scene_path, cache),
+            *NT_APP_CUT]
+    cfg = load_config(argv)
+    published = load_config(["--config", config_path])
+    print(f"nerf_time: python -m startrax_torch.apps.nerf_time {' '.join(argv)} (scene "
+          f"overrides: CARLA data is absent; depth cut: epochs_online "
+          f"{published.epochs_online} -> {cfg.epochs_online}, steps_per_epoch "
+          f"{published.steps_per_epoch} -> {cfg.steps_per_epoch}, epoch_val "
+          f"{published.epoch_val} -> {cfg.epoch_val})", flush=True)
+    steps = []
+    make = loop.make_nerf_time_train_step
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(*a, **k):
+            before = _launch_snapshot()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            steps.append({"ms": start.elapsed_time(end),
+                          "launches": _deltas(_launch_snapshot(), before)})
+            return out
+
+        return timed
+
+    loop.make_nerf_time_train_step = timed_make
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        nerf_time.main(argv)
+    finally:
+        loop.make_nerf_time_train_step = make
+    app_s = time.perf_counter() - t0
+    counts = _launch_snapshot()
+    run_dir = os.path.join(basedir, cfg.expname, "nerf_time")
+    rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    losses = [r["train/fine_loss"] for r in rows if "train/fine_loss" in r]
+    vals = [(r["val/psnr"], r["val/ssim"]) for r in rows if "val/psnr" in r]
+    n = len(steps)
+    val = make_dataset(cfg, "val")
+    tiles = -(-val.H * val.W // 8192)
+    design = _counts(enc_fwd=2, enc_bwd=2) | _part_counts("coarse", "fine")
+    med = statistics.median(s["ms"] for s in steps[2:])
+    print(f"nerf_time app: {n} steps in {app_s:.2f} s; fine loss per epoch {losses}; val (PSNR, "
+          f"SSIM) {vals}; median step {med:.3f} ms (CUDA events, steps 3-{n}), "
+          f"{cfg.N_rand / med * 1e3:.1f} rays/s; launches {counts}", flush=True)
+    _require(n == cfg.epochs_online * cfg.steps_per_epoch and len(losses) == cfg.epochs_online
+             and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+             "nerf_time app: every epoch trained, a finite fine loss that falls")
+    _require(len(vals) == len(losses) and all(math.isfinite(p) for p, _ in vals),
+             "nerf_time app: a finite validation PSNR each epoch")
+    _require(all(s["launches"] == design for s in steps), f"every nerf_time step launches {design}")
+    want = _counts(enc_fwd=2 * n + 2 * tiles * len(vals), enc_bwd=2 * n) | {
+        k: n * v for k, v in _part_counts("c", "f").items()}
+    _require(counts == want, f"the nerf_time app's launches {want}, got {counts}")
+
+    test_argv = argv + ["--test", "true", "--online_ckpt_path", os.path.join(run_dir, "ckpts"),
+                        "--eval_last_frame", str(NT_TEST_FRAMES)]
+    t0 = time.perf_counter()
+    nerf_time.main(test_argv)
+    test_rows = [json.loads(line) for line in open(os.path.join(
+        basedir, cfg.expname, "nerf_time_test", "metrics.jsonl"))]
+    means = {k: v for r in test_rows for k, v in r.items()
+             if k.startswith("test/") and "_frame_" not in k}
+    n_views = make_dataset(cfg, "test").rays_o.shape[0]
+    print(f"nerf_time --test true: {len(test_rows)} rows in {time.perf_counter() - t0:.2f} s "
+          f"({n_views} views x {NT_TEST_FRAMES} frames); view means {means}", flush=True)
+    _require(len(test_rows) == n_views * (NT_TEST_FRAMES + 1) and all(
+        math.isfinite(v) for r in test_rows for k, v in r.items() if k.startswith("test/")),
+        "nerf_time test: a finite row a view and frame and a mean a view")
+    return _launch_snapshot()
+
+
+def _write_carla_capture(root, seed):
+    """A CARLA-format capture in root (the layout of tests/test_data.py's
+    carla_dir) written with the port's PNG writer; returns {path: array}
+    of every PNG file written."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    from startrax_torch.utils.logging import write_png
+
+    rng = np.random.default_rng(seed)
+    H, W = CARLA_HW
+    np.save(os.path.join(root, "intrinsics.npy"), {"h": H, "w": W, "fov": 90.0})
+    extrinsics, written = {}, {}
+    code = int(500.0 / 1000.0 * (256 ** 3 - 1))  # 500 m in the 24-bit depth code
+    for i in range(CARLA_CAMS):
+        ang = 2 * np.pi * i / CARLA_CAMS
+        pose = np.eye(4)
+        pose[:3, :3] = Rotation.from_euler("z", ang).as_matrix()
+        pose[:3, 3] = [10 * np.cos(ang), 10 * np.sin(ang), 2.0]
+        extrinsics[i] = pose
+        cam = os.path.join(root, f"camera{i}")
+        os.makedirs(cam)
+        for f in range(CARLA_FRAMES):
+            sem = np.full((H, W, 3), 7, np.uint8)
+            sem[:H // 3, :W // 3] = 10  # "car" pixels
+            depth = np.zeros((H, W, 3), np.uint8)
+            depth[..., 0], depth[..., 1], depth[..., 2] = (code % 256, (code // 256) % 256,
+                                                           code // 65536)
+            for name, arr in ((f"{f}.png", rng.integers(0, 256, (H, W, 3), dtype=np.uint8)),
+                              (f"{f}_semantic.png", sem), (f"{f}_depth.png", depth)):
+                path = os.path.join(cam, name)
+                write_png(path, arr)
+                written[path] = arr
+    np.save(os.path.join(root, "extrinsics.npy"), extrinsics)
+    for k in range(CARLA_VEHICLES):
+        vdir = os.path.join(root, "poses", f"vehicle{k}")
+        os.makedirs(vdir)
+        for f in range(CARLA_FRAMES):
+            pose = np.eye(4)
+            pose[:3, :3] = Rotation.from_euler("z", 0.1 * f + 0.2 * k).as_matrix()
+            pose[:3, 3] = [f * 2.0 + k, 0.5, 1.0]
+            np.save(os.path.join(vdir, f"{f}.npy"), pose)
+    corners = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
+                       np.float64) * [2.0, 1.0, 0.8]
+    np.save(os.path.join(root, "bboxes.npy"),
+            np.array([{"local_vertices": corners}] * CARLA_VEHICLES, dtype=object),
+            allow_pickle=True)
+    return written
+
+
+def phase_carla(train_config, test_config, basedir):
+    """10b: a CARLA-format capture written with write_png, read back
+    bit-exact, loaded through make_dataset, and nerf_time's app trained on
+    it for one short epoch and tested with the test_carla_nerf_time.txt
+    protocol. Returns the launches of both runs."""
+    import numpy as np
+
+    from startrax_torch.apps import nerf_time
+    from startrax_torch.apps.common import make_dataset
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.utils.config import load_config
+    from startrax_torch.utils.logging import read_png
+
+    root = os.path.join(basedir, "carla")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    written = _write_carla_capture(root, seed=11)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    same = sum(np.array_equal(read_png(p), a) for p, a in written.items())
+    read_s = time.perf_counter() - t0
+    print(f"CARLA capture: {CARLA_CAMS} cameras x {CARLA_FRAMES} frames, {CARLA_VEHICLES} "
+          f"vehicles, {CARLA_HW[0]}x{CARLA_HW[1]}: {len(written)} PNG files written in "
+          f"{write_s:.2f} s, read back bit-exact: {same} of {len(written)} in {read_s:.2f} s",
+          flush=True)
+    _require(same == len(written), "every PNG file reads back bit-exact")
+    flags = ["--datadir", root, "--basedir", basedir, "--num_frames", str(CARLA_FRAMES),
+             "--num_vehicles", str(CARLA_VEHICLES)]
+    cfg = load_config(["--config", train_config, *flags])
+    views = {}
+    for split in ("train", "val", "test"):
+        s = make_dataset(cfg, split)
+        views[split] = s.images.shape[0]
+        _require(s.images.shape[1:] == (CARLA_FRAMES, *CARLA_HW, 3)
+                 and np.allclose(s.depths, 5.0, rtol=1e-4) and (s.semantic == 10).any()
+                 and s.gt_relative_poses().shape == (CARLA_VEHICLES, CARLA_FRAMES, 7),
+                 f"the {split} split: images, depths (500 m x 0.01), semantics and poses")
+    print(f"make_dataset(dataset_type = carla): views by split {views}", flush=True)
+    _require(views == {"train": 50, "val": 6, "test": 1}, "the view split 50 / 6 / 1")
+
+    fm.reset_launch_counts()
+    nerf_time.main(["--config", train_config, *flags, *CARLA_CUT])
+    run_dir = os.path.join(basedir, cfg.expname, "nerf_time")
+    rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    test = load_config(["--config", test_config, *flags])
+    nerf_time.main(["--config", test_config, *flags, "--online_ckpt_path",
+                    os.path.join(run_dir, "ckpts"), "--eval_last_frame", str(CARLA_FRAMES)])
+    test_rows = [json.loads(line) for line in open(os.path.join(
+        basedir, test.expname, "nerf_time_test", "metrics.jsonl"))]
+    print(f"nerf_time on the capture: rows {[{k: v for k, v in r.items() if k != 'time'} for r in rows]}; "
+          f"test rows {len(test_rows)}, view 0 means "
+          f"{ {k: v for r in test_rows for k, v in r.items() if k.startswith('test/view0_') and '_frame_' not in k} }",
+          flush=True)
+    _require(all(math.isfinite(v) for r in rows for k, v in r.items() if "/" in k)
+             and any("val/psnr" in r for r in rows), "finite train and val rows")
+    _require(len(test_rows) == views["test"] * (CARLA_FRAMES + 1) and all(
+        math.isfinite(v) for r in test_rows for k, v in r.items() if k.startswith("test/")),
+        "finite test rows, a view and frame each and a mean a view")
+    return _launch_snapshot()
+
+
 def _rows(per_field, stacked, encoded, bwd_parts, part_launches):
     """The JSON kernel rows. per_field, stacked and encoded are (worst,
     step_ms, launches) of the per-field kernel (the flagship step's times),
@@ -2101,6 +2828,7 @@ def main():
     slice_star = dataclasses.replace(slice_star, end_barf=-1)
     slice_star_barf = dataclasses.replace(slice_star, end_barf=slice_cfg.end_barf)
     nt_cfg, nt_star, nt_loss = load(NT_CONFIG)
+    _, occ_star, _ = load(OCC_CONFIG)
     # the online app's main steps, as apps/online.py builds them
     on_cfg, on_star, _ = load(ONLINE_CONFIG)
     on_star = dataclasses.replace(on_star, end_barf=-1)
@@ -2108,7 +2836,7 @@ def main():
     worst, step_ms = phase_kernels(star_cfg, cfg.N_rand)
     bwd_parts = phase_backward_parts(backward_part_cases(
         star_cfg, cfg.N_rand, on_star, on_cfg.N_rand, slice_star, slice_cfg.N_rand, nt_star,
-        nt_cfg.N_rand))
+        nt_cfg.N_rand, occ_star.static_field()))
     worst_s, ms_s, worst_f, _ = phase_field_axis(slice_star_barf, slice_cfg.N_rand, star_cfg,
                                                  cfg.N_rand)
     worst_o = phase_online_kernels(on_star, on_cfg.N_rand)
@@ -2161,6 +2889,31 @@ def main():
                                                      app_cfg.synth_cache_dir)
         print(f"phase 8b (ref_field guard and multi-start, refit_anchor): "
               f"{time.perf_counter() - t8:.1f} s", flush=True)
+
+        t9 = time.perf_counter()
+        slice_path = os.path.join(configs, SLICE_CONFIG)
+        occ_counts, occ_parts, occ_shapes, (occ_app, occ_grid, occ_grid_cfg) = phase_occgrid(
+            os.path.join(configs, OCC_CONFIG), slice_path, app_cfg.synth_cache_dir,
+            os.path.join(tmp, "occgrid"), worst)
+        print(f"phase 9 (occgrid kernels at the app's shapes, occgrid app-init): "
+              f"{time.perf_counter() - t9:.1f} s", flush=True)
+        t9 = time.perf_counter()
+        render_launches = phase_occgrid_render(
+            occ_app, occ_grid, dataclasses.replace(occ_grid_cfg, n_selected=OCC_BUDGETS[0]))
+        del occ_grid
+        print(f"phase 9b (render_star_occgrid, joint_density_fn): "
+              f"{time.perf_counter() - t9:.1f} s", flush=True)
+        t10 = time.perf_counter()
+        nt_app_launches = phase_nerf_time_app(os.path.join(configs, NT_CONFIG), slice_path,
+                                              app_cfg.synth_cache_dir, os.path.join(tmp, "nt"))
+        print(f"phase 10 (nerf_time app and its test): {time.perf_counter() - t10:.1f} s",
+              flush=True)
+        t10 = time.perf_counter()
+        carla_launches = phase_carla(os.path.join(configs, NT_CONFIG),
+                                     os.path.join(configs, NT_TEST_CONFIG),
+                                     os.path.join(tmp, "carla_runs"))
+        print(f"phase 10b (CARLA-format capture through the PNG reader, nerf_time on it): "
+              f"{time.perf_counter() - t10:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s), (worst_e, ms_e, counts_e),
@@ -2180,11 +2933,28 @@ def main():
         for c, p in ((scaled_counts, scaled_parts), (polish_counts, polish_parts)))
     for name, launched in (("phase 8", scaled_launches), ("phase 8b", polish_launches)):
         _require(all(launched.values()), f"{name} launched every kernel of its path: {launched}")
+    later = {"occgrid_launches": (dict(occ_counts) | occ_parts, ("fwd", "bwd", "wgrad", "sum_rows")),
+             "occgrid_render_launches": (render_launches, ("fwd", "bwd", "stacked_fwd",
+                                                           "stacked_bwd", "wgrad", "sum_rows")),
+             "nerf_time_app_launches": (nt_app_launches, ("enc_fwd", "enc_bwd", "wgrad",
+                                                          "sum_rows")),
+             "carla_launches": (carla_launches, ("enc_fwd", "enc_bwd", "wgrad", "sum_rows"))}
+    for name, (launched, path) in later.items():
+        _require(all(launched[k] > 0 for k in path),
+                 f"{name}: every kernel of its path launched: {launched}")
     for row in rows:
         row["app_init_launches"] = app_launches.get(row["name"], 0)
         row["online_launches"] = online_launches.get(row["name"], 0)
         row["scaled_online_launches"] = scaled_launches.get(row["name"], 0)
         row["polish_launches"] = polish_launches.get(row["name"], 0)
+        for name, (launched, _) in later.items():
+            row[name] = launched[row["name"].removeprefix("fused_mlp_")]
+    for row, side in ((rows[0], "fwd"), (rows[1], "bwd")):
+        row["occgrid_shapes"] = {
+            shape: {"ms": t[side], "plain_ms": t["plain_" + side], "bound_ms": t["bound_" + side][0],
+                    "bound_by": t["bound_" + side][1], "max_scaled_err": t["max_scaled_err"]}
+            for shape, t in occ_shapes.items() if "bound_" + side in t}
+    rows[0]["occgrid_alone"] = occ_shapes["alone"]
     print(f"total: {time.perf_counter() - t0:.1f} s, the build included", flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

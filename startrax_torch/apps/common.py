@@ -1,8 +1,8 @@
 """Shared app scaffolding: run workspace, dataset construction and the host
 random generators of the training entry points (PyTorch).
 
-Counterpart of startrax/apps/common.py. Of its datasets only the synthetic
-scene is ported; carla and blender raise.
+Counterpart of startrax/apps/common.py. Of its datasets the CARLA loader
+and the synthetic scene are ported; blender raises.
 """
 
 from __future__ import annotations
@@ -35,12 +35,16 @@ class Workspace:
 
 
 def make_dataset(cfg: Config, split: str, device=None):
-    """Dataset factory over dataset_type. A synthetic scene that is neither
-    in memory nor in cfg.synth_cache_dir is generated on ``device`` (None:
-    the card)."""
+    """Dataset factory over dataset_type. A CARLA capture is read on the
+    host; a synthetic scene that is neither in memory nor in
+    cfg.synth_cache_dir is generated on ``device`` (None: the card)."""
     if cfg.dataset_type == "carla":
-        raise NotImplementedError("the CARLA loader (data/carla.py) is not ported yet: "
-                                  "ROADMAP queue 1, item 5")
+        from ..data.carla import CarlaConfig, CarlaScene
+
+        return CarlaScene(CarlaConfig(
+            datadir=cfg.datadir, num_frames=cfg.num_frames, num_vehicles=cfg.num_vehicles,
+            has_depth_data=cfg.has_depth_data, scale_factor=cfg.scale_factor, near=cfg.near,
+            far=cfg.far, eval_last_frame=cfg.eval_last_frame), split)
     if cfg.dataset_type == "blender":
         raise NotImplementedError("the Blender loader (data/blender.py) is not ported yet: "
                                   "ROADMAP queue 1, item 7")

@@ -321,11 +321,18 @@ def sum_rows(src):
 
 
 # wgrad_kernel's tiling in csrc/fused_mlp.cu: output rows (columns of X) a
-# CTA, and the most layers of its table; and an H100's SMs, which the split
-# rule fills about twice with one CTA each.
+# CTA, and the most layers of its table; an H100's SMs, which the split
+# rule fills about twice with one CTA each; and the most points a split
+# sums (WG_SPLIT_ROWS).
 WG_ROWS = 128
 WG_MAXL = 2 * MAX_BLOCKS + 5
 SMS = 132
+# A CTA accumulates its split's points in the wgmma f32 accumulators, whose
+# error against an exact sum grows with the points: 5.3e-5 of the largest
+# entry at 47,663 points a split, 2.1e-4 at 190,651 (H100, chip_smoke.py
+# phase 3c, against the plain version's cuBLAS f32 sums). Above this many
+# points a split the rule adds splits.
+WG_SPLIT_ROWS = 49152
 
 
 class _WgLayer(ctypes.Structure):
@@ -345,9 +352,11 @@ class _WgTable(ctypes.Structure):
 def wgrad_splits(n: int, tiles: int) -> int:
     """Splits of the n points for a launch of `tiles` CTAs a split (row
     tiles of every layer and field): about two waves of one CTA on each of
-    an H100's SMS SMs, and at least 1,024 points a split. A function of the
-    shapes alone, so that wgrad_plain partitions the points the same way."""
-    return max(1, min(2 * SMS // tiles, n // 1024))
+    an H100's SMS SMs, and at least 1,024 points a split; more splits where
+    a split would sum more than WG_SPLIT_ROWS points (n above 540,000 at
+    8x256). A function of the shapes alone, so that wgrad_plain partitions
+    the points the same way."""
+    return max(1, min(2 * SMS // tiles, n // 1024), -(-n // WG_SPLIT_ROWS))
 
 
 def wgrad_split_bounds(n: int, splits: int):

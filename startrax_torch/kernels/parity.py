@@ -87,30 +87,54 @@ def _rms_rel(a, b):
 
 
 def compare(params, x, d, n_blocks: int, pe=None, pe_masks=None, warp=None, pose=None,
-            stacked: bool = False):
+            stacked: bool = False, cot_mask=None, plain_rows=None):
     """Kernels against plain version on x, d [N, 3] (one field), on
     pre-encoded x [N, in_ch], d [N, view_ch] (pe=None), or on x, d [K, N, 3]
     with stacked params (stacked=True). warp is the packed
     [16] warp made from the 7-vector leaf ``pose`` (one field), or None; or
     ``pose`` is a per-ray pose leaf [R, K, 7] from which x and d were made.
+    cot_mask [N] (0 or 1) multiplies the cotangent, as a render's masked
+    slots zero it. plain_rows runs the plain version of one field with
+    weight grads only in slices of that many rows (its outputs joined, its
+    grads summed), for calls too large for its memory.
     Returns (errors, run): errors maps each measure above (plus ``fwd_abs``
     and ``grad_abs``, the largest absolute differences, and ``finite``) to
     its reading, and ``encoded`` to whether pe is None; run holds the
     outputs, the cotangent and the
-    differentiated leaves, for timing."""
+    differentiated leaves, for timing (without plain_rows)."""
     weights = flatten_params(params, n_blocks)
     inputs = [t for t in (x, d) if t.requires_grad]
     leaves = list(weights) + inputs + ([pose] if pose is not None else [])
+
+    def cot_of(out, rows=slice(None)):
+        cot = torch.cat([torch.cos(out[..., :1]), 2.0 * out[..., 1:]], -1).detach()
+        return cot if cot_mask is None else cot * cot_mask[rows, None]
+
     if stacked:
         a, r = fused_stacked_apply(params, x, d, n_blocks, pe, pe_masks=pe_masks)
-        out_p = fused_stacked_plain(x, d, weights, n_blocks, pe, masks=pe_masks)
     else:
         a, r = fused_field_apply(params, x, d, n_blocks, pe, pe_masks=pe_masks, warp=warp)
-        out_p = fused_mlp_plain(x, d, weights, n_blocks, pe, warp=warp, masks=pe_masks)
     out_k = torch.cat([a[..., None], r], -1)
-    cot = torch.cat([torch.cos(out_p[..., :1]), 2.0 * out_p[..., 1:]], -1).detach()
+    if plain_rows is None:
+        out_p = (fused_stacked_plain(x, d, weights, n_blocks, pe, masks=pe_masks) if stacked
+                 else fused_mlp_plain(x, d, weights, n_blocks, pe, warp=warp, masks=pe_masks))
+        cot = cot_of(out_p)
+        g_p = torch.autograd.grad(out_p, leaves, cot, retain_graph=True)
+    else:
+        if stacked or len(leaves) != len(weights):
+            raise ValueError("plain_rows takes one field with weight grads only")
+        outs, cots, g_p = [], [], None
+        for i in range(0, x.shape[0], plain_rows):
+            rows = slice(i, i + plain_rows)
+            o = fused_mlp_plain(x[rows], d[rows], weights, n_blocks, pe, warp=warp,
+                                masks=pe_masks)
+            c = cot_of(o, rows)
+            g = torch.autograd.grad(o, leaves, c)
+            g_p = g if g_p is None else [u + v for u, v in zip(g_p, g)]
+            outs.append(o.detach())
+            cots.append(c)
+        out_p, cot = torch.cat(outs), torch.cat(cots)
     g_k = torch.autograd.grad(out_k, leaves, cot, retain_graph=True)
-    g_p = torch.autograd.grad(out_p, leaves, cot, retain_graph=True)
     k, p = out_k.detach(), out_p.detach()
 
     def worst(fn, u, v):  # per field when stacked

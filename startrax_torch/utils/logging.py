@@ -3,8 +3,9 @@
 Counterpart of startrax/utils/logging.py, with the same ``metrics.jsonl``
 rows and image file names: metrics land in <run_dir>/metrics.jsonl and
 images under <run_dir>/images/. The images are 8-bit RGB PNG files that
-this module writes itself with zlib and struct (``write_png``), so the port
-needs no image library. The JAX package's optional wandb sink is not ported.
+this module writes itself with zlib and struct (``write_png``); the
+loaders read PNG files with ``read_png``, numpy and zlib, so the port needs
+no image library. The JAX package's optional wandb sink is not ported.
 """
 
 from __future__ import annotations
@@ -68,6 +69,87 @@ def write_png(path: str, rgb: np.ndarray):
         f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(rows.tobytes())))
         f.write(chunk(b"IEND", b""))
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # grey, RGB, grey + alpha, RGBA
+
+
+def _unfilter(data, filters, bpp):
+    """Undo the PNG row filters of data [H, W, C] (int16 filtered bytes)
+    with one filter type a row. Each byte depends on its left, upper and
+    upper-left neighbours (Sub, Up, Average, Paeth), so the bytes of one
+    anti-diagonal y + x = s are decoded together: skewed, with row s
+    holding that diagonal, every neighbour is a slice of a row before."""
+    h, w, _ = data.shape
+    if not filters.any():  # filter type None on every row
+        return data
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    raw = np.zeros((h + w, h, bpp), np.int16)
+    raw[yy + xx, yy] = data
+    out = np.zeros((h + w + 2, h + 1, bpp), np.int16)  # two diagonals before, a zero row above
+    sub, up, avg, paeth = ((filters == k)[:, None].astype(np.int16) for k in (1, 2, 3, 4))
+    has_paeth = paeth.any()
+    for s in range(h + w - 1):
+        y0, y1 = max(0, s - w + 1), min(h - 1, s) + 1
+        a = out[s + 1, y0 + 1:y1 + 1]  # left
+        b = out[s + 1, y0:y1]  # up
+        c = out[s, y0:y1]  # up-left
+        pred = a * sub[y0:y1] + b * up[y0:y1] + ((a + b) >> 1) * avg[y0:y1]
+        if has_paeth:
+            pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+            pred += np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c)) * paeth[y0:y1]
+        out[s + 2, y0 + 1:y1 + 1] = (raw[s, y0:y1] + pred) & 255
+    return out[yy + xx + 2, yy + 1]
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit, non-interlaced PNG file: grey [H, W], grey + alpha
+    [H, W, 2], RGB [H, W, 3] or RGBA [H, W, 4] uint8, with any of the five
+    row filters. Raises ValueError naming what it does not read (other bit
+    depths, palette colour, interlacing), and on a corrupt file."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if buf[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 12 <= len(buf):
+        length, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        body = buf[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", buf[pos + 8 + length:pos + 12 + length])
+        if len(body) != length or zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: corrupt {kind!r} chunk")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError(f"{path}: no IHDR or IDAT chunk")
+    w, h, depth, ctype, compression, filtering, interlace = header
+    if depth != 8:
+        raise ValueError(f"{path}: {depth}-bit PNG is not supported (8-bit only)")
+    if ctype == 3:
+        raise ValueError(f"{path}: palette PNG (colour type 3) is not supported")
+    if ctype not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: unknown PNG colour type {ctype}")
+    if interlace:
+        raise ValueError(f"{path}: interlaced (Adam7) PNG is not supported")
+    if compression or filtering:
+        raise ValueError(f"{path}: unknown PNG compression or filter method")
+    ch = _PNG_CHANNELS[ctype]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if rows.size != h * (w * ch + 1):
+        raise ValueError(f"{path}: {rows.size} image bytes for a {w}x{h}x{ch} image")
+    rows = rows.reshape(h, w * ch + 1)
+    filters = rows[:, 0].astype(np.int32)
+    if (filters > 4).any():
+        raise ValueError(f"{path}: unknown PNG row filter {int(filters.max())}")
+    img = _unfilter(rows[:, 1:].reshape(h, w, ch).astype(np.int16), filters, ch)
+    img = img.astype(np.uint8)
+    return img[..., 0] if ch == 1 else img
 
 
 class MetricsLogger:

@@ -1,12 +1,14 @@
 """The port stands alone and runs on the card by default.
 
-- No module of startrax_torch, and not chip_smoke.py, imports jax or the JAX
-  package (an ast scan of every import statement).
+- No module of startrax_torch, and not chip_smoke.py, imports jax, the JAX
+  package or an image library (imageio, PIL, cv2; the port reads and writes
+  PNG files itself): an ast scan of every import statement.
 - The port's own config parser reads every file in startrax/configs/ into
   the same field values as startrax.utils.config, except that an
   Optional[bool] flag (use_fused) is parsed strictly.
 - Every entry point that makes tensors raises without a device where there
-  is no CUDA device, and runs with device="cpu".
+  is no CUDA device, and runs with device="cpu"; so do the apps' train and
+  test functions, before they make a run directory.
 """
 
 import ast
@@ -20,8 +22,11 @@ import torch
 
 from startrax.utils import config as jconfig
 from startrax_torch import convert
+from startrax_torch.apps import nerf_time as nerf_time_app
+from startrax_torch.apps import occgrid_init
 from startrax_torch.eval import render
-from startrax_torch.models import fields, nerf_time, star
+from startrax_torch.kernels import occgrid
+from startrax_torch.models import fields, nerf_time, star, star_occgrid
 from startrax_torch.ops import rays
 from startrax_torch.train import loop
 from startrax_torch.utils import config as tconfig
@@ -46,8 +51,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     assert len(files) > 20
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imported_modules(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "startrax", "optax", "chex", "flax")]
+           if m.split(".")[0] in ("jax", "jaxlib", "startrax", "optax", "chex", "flax", "imageio",
+                                  "PIL", "cv2")]
     assert bad == []
+    for module in ("kernels/occgrid.py", "models/star_occgrid.py", "apps/occgrid_init.py",
+                   "apps/nerf_time.py", "data/carla.py"):
+        assert os.path.join(ROOT, "startrax_torch", module) in files, module
 
 
 def test_config_fields_match_startrax():
@@ -93,6 +102,9 @@ ENTRY_POINTS = {
     "init_star": lambda device: star.init_star(TINY, device=device),
     "init_online_params": lambda device: loop.init_online_params(TINY, 3, device=device),
     "init_nerf_time": lambda device: nerf_time.init_nerf_time(TINY, device=device),
+    "init_star_occgrid": lambda device: star_occgrid.init_star_occgrid(TINY, device=device),
+    "init_grid": lambda device: occgrid.init_grid(occgrid.OccGridConfig(resolution=4),
+                                                  device=device)["density_ema"],
     "params_from_numpy": lambda device: convert.params_from_numpy(
         {"w": np.ones((2, 3), np.float32)}, device=device),
     "get_rays": lambda device: rays.get_rays(4, 5, np.eye(3, dtype=np.float32),
@@ -115,3 +127,18 @@ def test_entry_points_default_to_the_card(name, monkeypatch):
     from startrax_torch.utils.tree import tree_leaves
 
     assert all(t.device.type == "cpu" for t in tree_leaves(list(leaves)))
+
+
+APPS = {"occgrid_init.train": occgrid_init.train, "nerf_time.train": nerf_time_app.train,
+        "nerf_time.test": nerf_time_app.test}
+
+
+@pytest.mark.parametrize("name", sorted(APPS))
+def test_app_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
+    """An app run without a device asks for the card: where there is none it
+    raises, names device="cpu" and makes no run directory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfig.Config(basedir=str(tmp_path), dataset_type="synthetic")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        APPS[name](cfg)
+    assert os.listdir(tmp_path) == []

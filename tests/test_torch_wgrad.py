@@ -187,3 +187,22 @@ def test_sum_chunks_fill_the_card_within_their_limits(rows, cols, fields):
     src = torch.tensor(np.random.default_rng(rows).normal(size=(fields, rows, cols)),
                        dtype=torch.float32)
     torch.testing.assert_close(fm.sum_rows(src), src.double().sum(1).float(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [524288, 1048576, 2097152])
+def test_long_calls_cap_the_points_a_split(n):
+    """Above WG_SPLIT_ROWS points a split the rule adds splits, so that no
+    split's f32 accumulation runs longer than at the shapes the GEMM was
+    held at (the occgrid app's 256- and 512-sample budgets, 4096 rays);
+    the splits still partition the points."""
+    for width, n_blocks, in_rows, fields, _ in PATHS + [(256, 4, 64, 2, n)]:
+        lay = fm.wgrad_layout(fm.wgrad_shapes(width, n_blocks, in_rows), n, fields)
+        bounds = fm.wgrad_split_bounds(n, lay["splits"])
+        assert max(b - a for a, b in bounds) <= lay["per_split"] <= fm.WG_SPLIT_ROWS
+        assert bounds[0][0] == 0 and bounds[-1][1] == n
+        assert all(b0[1] == b1[0] for b0, b1 in zip(bounds, bounds[1:]))
+    # the paths the two-wave rule set are unchanged
+    for width, n_blocks, in_rows, fields, m in PATHS:
+        tiles = fields * fm.wgrad_layout(fm.wgrad_shapes(width, n_blocks, in_rows), m,
+                                         fields)["tiles"]
+        assert fm.wgrad_splits(m, tiles) == max(1, min(2 * fm.SMS // tiles, m // 1024))
