@@ -35,6 +35,16 @@ Phases, each printing its numbers:
      8x128 field and the K = 2 dynamic 4x128 fields with the in-kernel SE(3)
      warp and the pose sums, on 131,072 coarse and 262,144 fine points,
      against its plain version within the limits of parity.py, with times;
+  3e. the stacked kernels' pre-encoded mode (fused_stacked_apply with
+     pe=None, fwd_kernel<true, true> / bwd_kernel<true, true>): K = 2
+     time-conditioned fields at carla_nerf_time.txt's widths (8x256, 84 +
+     27 encoded columns) on the coarse pass's 256,000 and the fine pass's
+     512,000 points a field and on 3,000 ragged points, with input grads,
+     against its plain version within parity.ENC_LIMITS, with times and
+     bound; K = 1 through fused_stacked_apply against fused_field_apply's
+     pre-encoded mode, bit for bit; then STACKED_ENC_CALLS forward and
+     backward calls of the fine case, each exactly one stacked_enc_fwd, one
+     stacked_enc_bwd, one GEMM and two sums (run after 3d);
   4. the main path: StarConfig and LossConfig from
      startrax/configs/carla_star_online_multi.txt, random weights from a
      seed, app-init steps then online training steps on one fixed batch of
@@ -179,12 +189,33 @@ Phases, each printing its numbers:
      read back bit-exact with read_png, the train, val and test splits
      loaded through make_dataset, nerf_time's app for one short epoch on it
      and test() with test_carla_nerf_time.txt's protocol;
-  11. one JSON line per kernel (with its bound: the larger of its FLOP over
+  11. a Blender-format capture (BLENDER_VIEWS views a split of lego's
+     800x800 RGBA: a sphere coloured by its normal on a transparent
+     background, seen from cameras on a sphere of radius 4, so that the
+     views agree) written with write_png in a temporary directory and every
+     file read back bit-exact, then startrax_torch.apps.lego.main through
+     its argv parser on lego.txt at its published widths (8x256, 64 + 128
+     samples, N_rand 1024, white background, half_res to 400x400), cut in
+     epochs and steps by LEGO_CUT: the fine loss finite and falling, a
+     finite val PSNR an epoch, each step 2 fwd + 2 bwd + 2 GEMMs + 4 sums,
+     the median step by CUDA events;
+  12. startrax_torch.apps.mip.main on carla_star_app_init_mip.txt (8x256,
+     24 + 4 IPE frequencies, N_rand 1000, 256 + 512 samples, bf16), then on
+     carla_star_online_mip.txt (256 + 256 samples) warm-started from its
+     checkpoint, then --test true on the online checkpoint, on phase 6's
+     scene (the scene keys are printed overrides), each cut in depth and
+     schedule (MIP_APP_CUT, MIP_ONLINE_CUT with the accumulation cut from
+     50 to 4, MIP_TEST_CUT; printed): finite losses, the app-init loss
+     falling, unit quaternions, pose-error and val rows, finite test rows,
+     no fused-kernel launch; the median step by CUDA events and the peak
+     memory of each app;
+  13. one JSON line per kernel (with its bound: the larger of its FLOP over
      989 TFLOP/s dense bf16, 67 TFLOP/s f32 for the sums, and its bytes,
      each input read once and each output written once, over 3.35 TB/s;
      the launches of it by the app-init app, the online app, the scaled
-     app of phase 8, the polishes of 8b and phases 9, 9b, 10 and 10b, each
-     counted from 0 over its run; and the times at the occgrid app's
+     app of phase 8, the polishes of 8b and phases 9, 9b, 10, 10b, 11 and
+     12, each counted from 0 over its run; the stacked pre-encoded rows'
+     launches are phase 3e's path's; and the times at the occgrid app's
      shapes), the card's line, and the result line {"ok": true, "device":
      {...}} last.
 
@@ -314,6 +345,26 @@ CARLA_FRAMES = 2
 CARLA_VEHICLES = 2
 CARLA_CUT = ("--epochs_online", "1", "--steps_per_epoch", "10", "--epoch_val", "1",
              "--epoch_ckpt", "1")
+# phase 3e: the stacked pre-encoded mode's fields, and its path's calls
+STACKED_ENC_K = 2
+STACKED_ENC_CALLS = 3
+# phase 11: the Blender-format capture (lego's published 800x800, halved by
+# half_res), its views a split, lego's cut in epochs and steps, and the
+# steps the median skips
+BLENDER_HW = (800, 800)
+BLENDER_VIEWS = {"train": 16, "val": 2, "test": 2}
+LEGO_CONFIG = "lego.txt"
+LEGO_CUT = ("--epochs_appearance", "2", "--steps_per_epoch", "60", "--epoch_val", "1")
+LEGO_WARM = 5
+# phase 12: the mip configs, each app's cut in depth and schedule, the
+# test's frames, and the steps a median skips
+MIP_APP_CONFIG = "carla_star_app_init_mip.txt"
+MIP_ONLINE_CONFIG = "carla_star_online_mip.txt"
+MIP_APP_CUT = ("--epochs_appearance", "2", "--steps_per_epoch", "8", "--epoch_ckpt", "1")
+MIP_ONLINE_CUT = ("--epochs_online", "2", "--steps_per_epoch", "8", "--accumulate_grad_batches",
+                  "4", "--epoch_val", "1", "--epoch_ckpt", "1")
+MIP_TEST_CUT = ("--eval_last_frame", "2")
+MIP_WARM = 2
 PEAK_FLOPS = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -2521,8 +2572,6 @@ def phase_occgrid_render(cfg, grid, occ_cfg):
 def phase_nerf_time_app(config_path, scene_path, cache, basedir):
     """10: nerf_time's app at config_path's widths on phase 6's scene, then
     --test true from its checkpoint. Returns the launches of both runs."""
-    import torch
-
     from startrax_torch.apps import nerf_time
     from startrax_torch.apps.common import make_dataset
     from startrax_torch.kernels import fused_mlp as fm
@@ -2539,25 +2588,7 @@ def phase_nerf_time_app(config_path, scene_path, cache, basedir):
           f"{published.steps_per_epoch} -> {cfg.steps_per_epoch}, epoch_val "
           f"{published.epoch_val} -> {cfg.epoch_val})", flush=True)
     steps = []
-    make = loop.make_nerf_time_train_step
-
-    def timed_make(*args, **kw):
-        step = make(*args, **kw)
-
-        def timed(*a, **k):
-            before = _launch_snapshot()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step(*a, **k)
-            end.record()
-            torch.cuda.synchronize()
-            steps.append({"ms": start.elapsed_time(end),
-                          "launches": _deltas(_launch_snapshot(), before)})
-            return out
-
-        return timed
-
-    loop.make_nerf_time_train_step = timed_make
+    make = _timing_steps(loop, "make_nerf_time_train_step", steps)
     fm.reset_launch_counts()
     t0 = time.perf_counter()
     try:
@@ -2716,21 +2747,364 @@ def phase_carla(train_config, test_config, basedir):
     return _launch_snapshot()
 
 
-def _rows(per_field, stacked, encoded, bwd_parts, part_launches):
-    """The JSON kernel rows. per_field, stacked and encoded are (worst,
-    step_ms, launches) of the per-field kernel (the flagship step's times),
-    the field-axis kernel (the per-ray step's times) and the pre-encoded
-    mode (the nerf_time step's times); bwd_parts and part_launches are
-    phase 3c's readings and the flagship path's launches of the backward's
-    GEMM and sums."""
+def stacked_enc_cases(star_cfg, n_rand):
+    """3e: the stacked pre-encoded cases, as (name, field config, points a
+    field, calls summed into the timed pair): K = STACKED_ENC_K
+    time-conditioned fields at the coarse and the fine pass's points, with
+    input grads (dx_emb, dd_emb, as the JAX package's stacked backward
+    writes them), then 3,000 ragged points, checked, not timed."""
+    from startrax_torch.models.nerf_time import time_field_cfg
+
+    coarse, fine = time_field_cfg(star_cfg, False), time_field_cfg(star_cfg, True)
+    return [("coarse", coarse, n_rand * star_cfg.n_samples, 1),
+            ("fine", fine, n_rand * (star_cfg.n_samples + star_cfg.n_importance), 1),
+            ("ragged", fine, 3000, 0)]
+
+
+def stacked_enc_inputs(star_cfg, fcfg, n_points, seed, num_frames, K=STACKED_ENC_K):
+    """K fields' pre-encoded inputs [K, N, 84], [K, N, 27] (each field its
+    own bench-style rays at frame FRAME's time, encoded as
+    models.fields.apply_field encodes them) with input grads, and stacked
+    params, as parity.compare takes them."""
+    import torch
+
+    from startrax_torch.ops.encoding import positional_encoding
+
+    xs, ds = [], []
+    for k in range(K):
+        x, d = _points(n_points, star_cfg.near, star_cfg.far, seed=80 + 10 * seed + k)
+        x = torch.cat([x, torch.full_like(x[:, :1], FRAME / (num_frames - 1))], -1)
+        xs.append(positional_encoding(x, fcfg.multires))
+        ds.append(positional_encoding(d, fcfg.multires_views))
+    return {"params": _field(fcfg, seed=90 + seed, n=K),
+            "x": torch.stack(xs).contiguous().requires_grad_(True),
+            "d": torch.stack(ds).contiguous().requires_grad_(True), "n_blocks": fcfg.n_blocks,
+            "pe": None, "pe_masks": None, "warp": None}
+
+
+def phase_stacked_enc(cfg, star_cfg):
+    """3e: the stacked kernels' pre-encoded mode (fused_stacked_apply with
+    pe=None, fwd_kernel<true, true> / bwd_kernel<true, true>) at
+    carla_nerf_time.txt's widths: each case against its plain version
+    within parity.ENC_LIMITS and timed; K = 1 through the field-axis
+    wrapper against fused_field_apply's pre-encoded mode, bit for bit; then
+    the mode's own path: STACKED_ENC_CALLS forward and backward calls of
+    the fine case with the counts set to 0 just before, each exactly one
+    stacked_enc_fwd, one stacked_enc_bwd, one GEMM and two sums. Returns
+    (worst, times summed over the coarse and fine calls, the path's
+    launches)."""
+    import torch
+
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.utils.tree import tree_leaves, tree_map
+
+    worst, ms = dict.fromkeys(MEASURES, 0.0), dict.fromkeys(STEP_TIMES, 0.0)
+    cases = stacked_enc_cases(star_cfg, cfg.N_rand)
+    for i, (name, fcfg, n_points, calls) in enumerate(cases):
+        _check_and_time(f"stacked pre-encoded {name} K={STACKED_ENC_K} {fcfg.depth}x{fcfg.width} "
+                        f"in_ch {fcfg.input_ch} N={n_points}/field, input grads",
+                        stacked_enc_inputs(star_cfg, fcfg, n_points, i, cfg.num_frames), True,
+                        calls, worst, ms)
+        torch.cuda.empty_cache()
+    print(f"time of the stacked pre-encoded calls (K={STACKED_ENC_K}, coarse + fine): "
+          + ", ".join(f"{k} {ms[k]:.3f} ms" for k in STEP_TIMES[:4])
+          + ", bound fwd {:.3f} ms ({}), bwd {:.3f} ms ({})".format(
+              *bound(ms["fwd_flop"], ms["fwd_bytes"]), *bound(ms["bwd_flop"], ms["bwd_bytes"])),
+          flush=True)
+
+    # K = 1 through the field-axis wrapper is the per-field pre-encoded kernel
+    _, fcfg, _, _ = cases[2]
+    one = stacked_enc_inputs(star_cfg, fcfg, 3000, 7, cfg.num_frames, K=1)
+    field = tree_map(lambda t: t[0].detach().requires_grad_(True), one["params"])
+    outs, grads = [], []
+    for params, x, d, wrap in ((one["params"], one["x"], one["d"], fm.fused_stacked_apply),
+                               (field, one["x"][0], one["d"][0], fm.fused_field_apply)):
+        a, r = wrap(params, x, d, fcfg.n_blocks)
+        out = torch.cat([a.reshape(-1, 1), r.reshape(-1, 3)], -1)
+        outs.append(out)
+        grads.append([g.reshape(-1) for g in torch.autograd.grad(
+            (torch.sin(out[:, 0])).sum() + (out[:, 1:] ** 2).sum(),
+            tree_leaves(params) + [one["x"], one["d"]])])
+    same = torch.equal(outs[0], outs[1]) and all(torch.equal(u, v) for u, v in zip(*grads))
+    print(f"stacked pre-encoded K=1 vs fused_field_apply(pe=None) on 3000 points: outputs and "
+          f"grads bit for bit equal: {same}", flush=True)
+    _require(same, "K = 1 through fused_stacked_apply(pe=None) is the per-field pre-encoded mode")
+
+    # the mode's path: forward and backward calls through fused_stacked_apply
+    name, fcfg, n_points, _ = cases[1]
+    inp = stacked_enc_inputs(star_cfg, fcfg, n_points, 1, cfg.num_frames)
+    fm.reset_launch_counts()
+    for _ in range(STACKED_ENC_CALLS):
+        before = _launch_snapshot()
+        a, r = fm.fused_stacked_apply(inp["params"], inp["x"], inp["d"], fcfg.n_blocks)
+        torch.autograd.grad(a.sum() + (r ** 2).sum(),
+                            tree_leaves(inp["params"]) + [inp["x"], inp["d"]])
+        delta = _deltas(_launch_snapshot(), before)
+        want = _counts(stacked_enc_fwd=1, stacked_enc_bwd=1) | _part_counts(fcfg)
+        _require(delta == want, f"a stacked pre-encoded call launches {want}, got {delta}")
+    torch.cuda.synchronize()
+    launches = _launch_snapshot()
+    print(f"stacked pre-encoded path: {STACKED_ENC_CALLS} forward + backward calls of the {name} "
+          f"case, launches {launches}", flush=True)
+    del inp
+    torch.cuda.empty_cache()
+    return worst, ms, launches
+
+
+def _write_blender_capture(root):
+    """A Blender-format capture in root, written with the port's PNG writer:
+    BLENDER_HW RGBA views of an opaque sphere coloured by its normal on a
+    transparent background, from cameras on a sphere of radius 4 around it
+    (lego's camera_angle_x), so that every view agrees with the others;
+    BLENDER_VIEWS views a split. Returns {path: array} of every PNG file."""
+    import numpy as np
+
+    from startrax_torch.ops import rays as ray_ops
+    from startrax_torch.utils.logging import write_png
+
+    H, W = BLENDER_HW
+    angle_x = 0.6911112070083618
+    K = ray_ops.intrinsics_matrix(H, W, 0.5 * W / np.tan(0.5 * angle_x))
+    written = {}
+    for s, (split, views) in enumerate(BLENDER_VIEWS.items()):
+        os.makedirs(os.path.join(root, split))
+        frames = []
+        for i in range(views):
+            az, el = 2 * np.pi * (i + 0.37 * s) / views, 0.3 + 0.4 * ((i * 7) % views) / views
+            eye = 4.0 * np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)])
+            fwd = -eye / np.linalg.norm(eye)
+            right = np.cross(fwd, [0.0, 0.0, 1.0])
+            right /= np.linalg.norm(right)
+            c2w = np.eye(4)
+            c2w[:3, :3] = np.stack([right, np.cross(right, fwd), -fwd], 1)
+            c2w[:3, 3] = eye
+            o, d = ray_ops.get_rays_np(H, W, K, c2w[:3, :4])
+            d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+            b = (o * d).sum(-1)
+            disc = b * b - ((o * o).sum(-1) - 1.0)  # the unit sphere
+            hit = disc > 0
+            t = -b - np.sqrt(np.maximum(disc, 0.0))
+            normal = o + d * t[..., None]
+            rgba = np.zeros((H, W, 4), np.uint8)
+            rgba[..., :3] = np.clip(255 * (0.5 + 0.5 * normal), 0, 255).astype(np.uint8)
+            rgba[..., 3] = np.where(hit, 255, 0)
+            name = f"{split}/r_{i}"
+            path = os.path.join(root, name + ".png")
+            write_png(path, rgba)
+            written[path] = rgba
+            frames.append({"file_path": name, "transform_matrix": c2w.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as fp:
+            json.dump({"camera_angle_x": angle_x, "frames": frames}, fp)
+    return written
+
+
+def _timing_steps(module, name, steps):
+    """Wrap module.name (a step factory) so that each step it builds is
+    timed by CUDA events and its launches recorded into steps; returns the
+    original, for restoring."""
+    import torch
+
+    make = getattr(module, name)
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(*a, **k):
+            before = _launch_snapshot()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            steps.append({"ms": start.elapsed_time(end),
+                          "launches": _deltas(_launch_snapshot(), before)})
+            return out
+
+        return timed
+
+    setattr(module, name, timed_make)
+    return make
+
+
+def phase_lego(config_path, basedir):
+    """11: a Blender-format capture written with write_png and read back
+    bit-exact, then startrax_torch.apps.lego.main through its argv parser
+    on lego.txt at its published widths, cut in epochs and steps by
+    LEGO_CUT: the fine loss finite and falling, a finite val PSNR an epoch,
+    each step 2 fwd + 2 bwd + 2 GEMMs + 4 sums, the median step by CUDA
+    events. Returns the app's launches."""
+    import numpy as np
+    import torch
+
+    from startrax_torch.apps import lego
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.train import loop
+    from startrax_torch.utils.config import load_config
+    from startrax_torch.utils.logging import read_png
+
+    root = os.path.join(basedir, "nerf_synthetic_lego")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    written = _write_blender_capture(root)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    same = sum(np.array_equal(read_png(p), a) for p, a in written.items())
+    print(f"Blender capture: {BLENDER_VIEWS} views of {BLENDER_HW[0]}x{BLENDER_HW[1]} RGBA, "
+          f"{len(written)} PNG files written in {write_s:.2f} s, read back bit-exact: {same} of "
+          f"{len(written)} in {time.perf_counter() - t0:.2f} s", flush=True)
+    _require(same == len(written), "every Blender PNG file reads back bit-exact")
+
+    argv = ["--config", config_path, "--datadir", root, "--basedir", basedir, *LEGO_CUT]
+    cfg, published = load_config(argv), load_config(["--config", config_path])
+    print(f"lego: python -m startrax_torch.apps.lego {' '.join(argv)} (cut: epochs_appearance "
+          f"{published.epochs_appearance} -> {cfg.epochs_appearance}, steps_per_epoch "
+          f"{published.steps_per_epoch} -> {cfg.steps_per_epoch}, epoch_val {published.epoch_val} "
+          f"-> {cfg.epoch_val}); field {cfg.netdepth}x{cfg.netwidth}, samples {cfg.N_samples} + "
+          f"{cfg.N_importance}, N_rand {cfg.N_rand}, white_bkgd {cfg.white_bkgd}, half_res "
+          f"{cfg.half_res}, mixed_precision {cfg.mixed_precision}", flush=True)
+    steps = []
+    make = _timing_steps(loop, "make_appinit_train_step", steps)
+    fm.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        lego.main(argv)
+    finally:
+        loop.make_appinit_train_step = make
+    app_s = time.perf_counter() - t0
+    counts = _launch_snapshot()
+    rows = [json.loads(line) for line in open(os.path.join(basedir, cfg.expname, "app_init",
+                                                           "metrics.jsonl"))]
+    losses = [r["train/fine_loss"] for r in rows if "train/fine_loss" in r]
+    vals = [(r["val/psnr"], r["val/ssim"]) for r in rows if "val/psnr" in r]
+    n = len(steps)
+    med = statistics.median(s["ms"] for s in steps[LEGO_WARM:])
+    design = _counts(fwd=2, bwd=2) | _part_counts("coarse", "fine")
+    print(f"lego app: {n} steps in {app_s:.2f} s; fine loss per epoch {losses}; val (PSNR, SSIM) "
+          f"{vals}; median step {med:.3f} ms (CUDA events, steps {LEGO_WARM + 1}-{n}), "
+          f"{cfg.N_rand / med * 1e3:.1f} rays/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts}", flush=True)
+    _require(n == cfg.epochs_appearance * cfg.steps_per_epoch
+             and len(losses) == cfg.epochs_appearance
+             and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+             "lego app: every epoch trained, a finite fine loss that falls")
+    _require(len(vals) == len(losses) and all(math.isfinite(p) for p, _ in vals),
+             "lego app: a finite validation PSNR each epoch")
+    _require(all(s["launches"] == design for s in steps), f"every lego step launches {design}")
+    return counts
+
+
+def phase_mip(app_config, online_config, scene_path, cache, basedir):
+    """12: startrax_torch.apps.mip.main on app_config (app init), then on
+    online_config warm-started from its checkpoint, then --test true on the
+    online checkpoint, each at the config's published field and batch on
+    phase 6's scene (scene keys overridden), cut in depth and schedule by
+    MIP_APP_CUT, MIP_ONLINE_CUT and MIP_TEST_CUT (printed): the losses
+    finite and the app-init loss falling, the quaternions unit-norm, pose
+    errors and val rows logged, the test rows finite, no fused-kernel
+    launch; the median step by CUDA events and the peak memory of each
+    app. Returns the launches (all zero)."""
+    import torch
+
+    from startrax_torch.apps import mip
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.train import checkpoint as ckpt
+    from startrax_torch.utils.config import load_config
+
+    fm.reset_launch_counts()
+    runs = {}
+    for label, config_path, cut in (("app_init", app_config, MIP_APP_CUT),
+                                    ("online", online_config, MIP_ONLINE_CUT)):
+        argv = ["--config", config_path, "--basedir", basedir, *_scene_flags(scene_path, cache),
+                *cut]
+        if label == "online":
+            argv += ["--appearance_ckpt_path", os.path.join(runs["app_init"]["dir"], "ckpts")]
+        cfg, published = load_config(argv), load_config(["--config", config_path])
+        cuts = {k: (getattr(published, k), getattr(cfg, k)) for k in
+                ("epochs_appearance", "epochs_online", "steps_per_epoch", "epoch_val",
+                 "accumulate_grad_batches") if getattr(published, k) != getattr(cfg, k)}
+        print(f"mip {label}: python -m startrax_torch.apps.mip {' '.join(argv)} (scene overrides "
+              f"from {os.path.basename(scene_path)}: CARLA data is absent; cut {cuts}); field "
+              f"{cfg.netdepth}x{cfg.netwidth}, IPE {cfg.num_freqs_pos} + {cfg.num_freqs_dir} "
+              f"frequencies, N_rand {cfg.N_rand}, samples {cfg.N_samples} + {cfg.N_importance}, "
+              f"K={cfg.num_vehicles}, mixed_precision {cfg.mixed_precision}", flush=True)
+        steps = []
+        make = _timing_steps(mip, "make_train_step", steps)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            mip.main(argv)
+        finally:
+            mip.make_train_step = make
+        run_dir = os.path.join(basedir, cfg.expname, f"mip_{label}")
+        rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+        losses = [r["train/fine_loss"] for r in rows if "train/fine_loss" in r]
+        med = statistics.median(s["ms"] for s in steps[MIP_WARM:])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        runs[label] = {"dir": run_dir, "rows": rows, "cfg": cfg}
+        print(f"mip {label}: {len(steps)} steps in {time.perf_counter() - t0:.2f} s; fine loss "
+              f"per epoch {losses}; median step {med:.3f} ms (CUDA events, steps "
+              f"{MIP_WARM + 1}-{len(steps)}), {cfg.N_rand / med * 1e3:.1f} rays/s; peak memory "
+              f"{peak:.2f} GB", flush=True)
+        _require(len(losses) >= 2 and all(math.isfinite(v) for v in losses),
+                 f"mip {label}: a finite fine loss each epoch")
+        _require(all(not any(s["launches"].values()) for s in steps),
+                 f"mip {label}: no fused-kernel launch in a step")
+    app_losses = [r["train/fine_loss"] for r in runs["app_init"]["rows"] if "train/fine_loss" in r]
+    _require(app_losses[-1] < app_losses[0], "mip app init: the fine loss falls")
+    online = runs["online"]
+    K = online["cfg"].num_vehicles
+    keys = set().union(*online["rows"])
+    _require({f"train/trans_error_{k}" for k in range(K)} <= keys and "val/psnr" in keys
+             and all(math.isfinite(r[k]) for r in online["rows"] for k in r if "/" in k),
+             "mip online: finite pose-error and val rows")
+    state = ckpt.restore_checkpoint(os.path.join(online["dir"], "ckpts"))
+    qn = torch.linalg.norm(state["params"]["poses"][..., 3:7], dim=-1)
+    vals = [(r["val/psnr"], r["val/ssim"]) for r in online["rows"] if "val/psnr" in r]
+    errors = {k: v for r in online["rows"] for k, v in r.items() if "error" in k}
+    print(f"mip online: val rows {vals}; final pose errors {errors}; |q| - 1 at most "
+          f"{float((qn - 1).abs().max()):.2e}", flush=True)
+    _require(float((qn - 1).abs().max()) < 1e-5, "mip online: unit quaternions")
+
+    argv = ["--config", online_config, "--basedir", basedir, *_scene_flags(scene_path, cache),
+            "--test", "true", "--online_ckpt_path", os.path.join(online["dir"], "ckpts"),
+            *MIP_TEST_CUT]
+    cfg = load_config(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mip.main(argv)
+    test_rows = [json.loads(line) for line in open(os.path.join(basedir, cfg.expname, "mip_test",
+                                                                "metrics.jsonl"))]
+    means = {k: v for r in test_rows for k, v in r.items()
+             if k.startswith("test/view0_") and "_frame_" not in k}
+    print(f"mip --test true ({' '.join(MIP_TEST_CUT)}): {len(test_rows)} rows in "
+          f"{time.perf_counter() - t0:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; view 0 means {means}", flush=True)
+    _require(test_rows and all(math.isfinite(v) for r in test_rows for k, v in r.items()
+                               if k.startswith("test/")), "mip test: finite rows")
+    launches = _launch_snapshot()
+    _require(not any(launches.values()), f"the mip apps launch no fused kernel, got {launches}")
+    return launches
+
+
+def _rows(per_field, stacked, encoded, stacked_enc, bwd_parts, part_launches):
+    """The JSON kernel rows. per_field, stacked, encoded and stacked_enc are
+    (worst, step_ms, launches) of the per-field kernel (the flagship step's
+    times), the field-axis kernel (the per-ray step's times), the
+    pre-encoded mode (the nerf_time step's times) and the stacked
+    pre-encoded mode (phase 3e's coarse and fine calls, its path's
+    launches); bwd_parts and part_launches are phase 3c's readings and the
+    flagship path's launches of the backward's GEMM and sums."""
     from startrax_torch.kernels import parity
 
     rows = []
     for prefix, (worst, ms, launches), fwd_at, bwd_at in (
             ("fused_mlp", per_field, "291", "343"), ("fused_mlp_stacked", stacked, "1027", "1040"),
-            ("fused_mlp_enc", encoded, "291", "343")):
-        kind = {"fused_mlp": "", "fused_mlp_stacked": "stacked_", "fused_mlp_enc": "enc_"}[prefix]
-        lim = parity.ENC_LIMITS if kind == "enc_" else parity.LIMITS
+            ("fused_mlp_enc", encoded, "291", "343"),
+            ("fused_mlp_stacked_enc", stacked_enc, "1027", "1040")):
+        kind = prefix.removeprefix("fused_mlp").lstrip("_")
+        kind = kind + "_" if kind else ""
+        lim = parity.ENC_LIMITS if kind.endswith("enc_") else parity.LIMITS
         for side in ("fwd", "bwd"):
             bound_ms, bound_by = bound(ms[side + "_flop"], ms[side + "_bytes"])
             row = {"name": f"{prefix}_{side}", "route": "cuda", "source": SRC,
@@ -2758,6 +3132,15 @@ def _rows(per_field, stacked, encoded, bwd_parts, part_launches):
                    "when the inputs need a grad",
                    max_input_rel_err=encoded[0]["input"], tol_input=lim["input"],
                    rms_input_err=encoded[0]["input_rms"], tol_input_rms=lim["input_rms"])
+    rows[6].update(note="the pe=None (pre-encoded input) mode of _stacked_fwd_kernel "
+                   "(startrax/kernels/fused_mlp.py:1033), K fields on [K, N, in_ch], [K, N, "
+                   "view_ch]; times summed over K = 2 fields' coarse and fine calls")
+    rows[7].update(note="the pe=None mode of _stacked_bwd_kernel (startrax/kernels/fused_mlp.py:"
+                   "1061, :1129): dx_emb, dd_emb and per-field weight grads; ms, plain_ms and "
+                   "bound: the whole backward call (bwd_kernel<true, true>, then "
+                   "fused_mlp_wgrad and fused_mlp_sum_rows)",
+                   max_input_rel_err=stacked_enc[0]["input"], tol_input=lim["input"],
+                   rms_input_err=stacked_enc[0]["input_rms"], tol_input_rms=lim["input_rms"])
     parts_ms = sum(bwd_parts[k]["ms"] for k in bwd_parts)
     rows[1].update(note="ms, plain_ms and bound: the whole backward call (per-tile bwd_kernel, "
                    "then fused_mlp_wgrad and fused_mlp_sum_rows); per_tile_ms subtracts phase "
@@ -2840,6 +3223,9 @@ def main():
     worst_s, ms_s, worst_f, _ = phase_field_axis(slice_star_barf, slice_cfg.N_rand, star_cfg,
                                                  cfg.N_rand)
     worst_o = phase_online_kernels(on_star, on_cfg.N_rand)
+    t3e = time.perf_counter()
+    worst_se, ms_se, counts_se = phase_stacked_enc(nt_cfg, nt_star)
+    print(f"phase 3e (stacked pre-encoded mode): {time.perf_counter() - t3e:.1f} s", flush=True)
     worst = {k: max(worst[k], worst_f[k], worst_o[k]) for k in worst}
     counts, part_counts = phase_main_path(cfg, star_cfg, loss_cfg)
     counts_s = phase_per_ray_path(slice_cfg, slice_star, slice_star_barf, slice_loss)
@@ -2914,10 +3300,21 @@ def main():
                                      os.path.join(tmp, "carla_runs"))
         print(f"phase 10b (CARLA-format capture through the PNG reader, nerf_time on it): "
               f"{time.perf_counter() - t10:.1f} s", flush=True)
+        t11 = time.perf_counter()
+        lego_launches = phase_lego(os.path.join(configs, LEGO_CONFIG),
+                                   os.path.join(tmp, "lego"))
+        print(f"phase 11 (Blender capture, lego app): {time.perf_counter() - t11:.1f} s",
+              flush=True)
+        t12 = time.perf_counter()
+        mip_launches = phase_mip(os.path.join(configs, MIP_APP_CONFIG),
+                                 os.path.join(configs, MIP_ONLINE_CONFIG), slice_path,
+                                 app_cfg.synth_cache_dir, os.path.join(tmp, "mip"))
+        print(f"phase 12 (mip app init, online and test): {time.perf_counter() - t12:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s), (worst_e, ms_e, counts_e),
-                 bwd_parts, part_counts)
+                 (worst_se, ms_se, counts_se), bwd_parts, part_counts)
     app_launches = {"fused_mlp_fwd": app_counts["fwd"], "fused_mlp_bwd": app_counts["bwd"],
                     "fused_mlp_wgrad": app_parts["wgrad"],
                     "fused_mlp_sum_rows": app_parts["sum_rows"]}
@@ -2938,7 +3335,9 @@ def main():
                                                            "stacked_bwd", "wgrad", "sum_rows")),
              "nerf_time_app_launches": (nt_app_launches, ("enc_fwd", "enc_bwd", "wgrad",
                                                           "sum_rows")),
-             "carla_launches": (carla_launches, ("enc_fwd", "enc_bwd", "wgrad", "sum_rows"))}
+             "carla_launches": (carla_launches, ("enc_fwd", "enc_bwd", "wgrad", "sum_rows")),
+             "lego_launches": (lego_launches, ("fwd", "bwd", "wgrad", "sum_rows")),
+             "mip_launches": (mip_launches, ())}
     for name, (launched, path) in later.items():
         _require(all(launched[k] > 0 for k in path),
                  f"{name}: every kernel of its path launched: {launched}")

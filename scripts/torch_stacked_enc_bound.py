@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The least time one H100 could take for the stacked field kernels'
 pre-encoded mode (startrax/kernels/fused_mlp.py, _stacked_fwd_kernel and
-_stacked_bwd_kernel with pe=None), a mode the port has not ported.
+_stacked_bwd_kernel with pe=None; the port's fused_stacked_apply with
+pe=None, which chip_smoke.py phase 3e times against this bound).
 
     python3 scripts/torch_stacked_enc_bound.py
 

@@ -2,7 +2,8 @@
 images, with early stopping on the fine photometric loss (PyTorch).
 
 Counterpart of startrax/apps/app_init.py on one device: pseudo-epochs of
-steps_per_epoch steps of N_rand random rays (car-balanced, frame 0), Adam
+steps_per_epoch steps of N_rand random rays (car-balanced, frame 0; on a
+Blender capture, of every view), Adam
 with its schedule and gradient accumulation, early stopping when the
 epoch's fine MSE <= appearance_init_thres, a validation render and a
 checkpoint every epoch_val epochs, and a final checkpoint at step
@@ -59,10 +60,14 @@ def train(cfg: Config, device=None):
     )
     step_fn = loop.make_appinit_train_step(star_cfg, loss_cfg, opt)
 
-    # car-balanced sampling covers the reference's semantic app-init variant
-    def sample_fn(r, st):
-        return train_data.sample_batch(r, cfg.N_rand, frame=0,
-                                       car_sample_ratio=cfg.car_sample_ratio)
+    if cfg.dataset_type == "blender":
+        def sample_fn(r, st):
+            return train_data.sample_batch(r, cfg.N_rand)
+    else:
+        # car-balanced sampling covers the reference's semantic app-init variant
+        def sample_fn(r, st):
+            return train_data.sample_batch(r, cfg.N_rand, frame=0,
+                                           car_sample_ratio=cfg.car_sample_ratio)
 
     prefetcher = BatchPrefetcher(sample_fn, {}, seed=cfg.seed * 7919 + 2,
                                  depth=6, workers=max(cfg.num_workers, 1))
@@ -102,10 +107,11 @@ def train(cfg: Config, device=None):
 
 def _validate(ws: Workspace, params, star_cfg, val_data, rng, step, device):
     """Render one held-out view (drawn from rng), log its PSNR and SSIM and
-    the rendered and target images."""
+    the rendered and target images (frame 0; a Blender capture's images
+    [views, H, W, 3] have no frame axis)."""
     view = int(rng.integers(0, val_data.rays_o.shape[0]))
     rays_o, rays_d = val_data.view_rays(view)
-    target = val_data.images[view, 0]
+    target = val_data.images[view] if val_data.images.ndim == 4 else val_data.images[view, 0]
     out = render_image(params, star_cfg, rays_o, rays_d, pose=None, device=device)
     rgb, tgt = torch.from_numpy(out["rgb"]), torch.tensor(np.asarray(target))
     p = float(psnr_fn(rgb, tgt))

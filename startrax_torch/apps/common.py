@@ -1,8 +1,8 @@
 """Shared app scaffolding: run workspace, dataset construction and the host
 random generators of the training entry points (PyTorch).
 
-Counterpart of startrax/apps/common.py. Of its datasets the CARLA loader
-and the synthetic scene are ported; blender raises.
+Counterpart of startrax/apps/common.py, with its three datasets: CARLA and
+Blender captures (read on the host) and the synthetic scene.
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ class Workspace:
 
 
 def make_dataset(cfg: Config, split: str, device=None):
-    """Dataset factory over dataset_type. A CARLA capture is read on the
-    host; a synthetic scene that is neither in memory nor in
+    """Dataset factory over dataset_type. A CARLA or Blender capture is read
+    on the host; a synthetic scene that is neither in memory nor in
     cfg.synth_cache_dir is generated on ``device`` (None: the card)."""
     if cfg.dataset_type == "carla":
         from ..data.carla import CarlaConfig, CarlaScene
@@ -46,8 +46,11 @@ def make_dataset(cfg: Config, split: str, device=None):
             has_depth_data=cfg.has_depth_data, scale_factor=cfg.scale_factor, near=cfg.near,
             far=cfg.far, eval_last_frame=cfg.eval_last_frame), split)
     if cfg.dataset_type == "blender":
-        raise NotImplementedError("the Blender loader (data/blender.py) is not ported yet: "
-                                  "ROADMAP queue 1, item 7")
+        from ..data.blender import BlenderScene
+
+        return BlenderScene(cfg.datadir, split=split, half_res=cfg.half_res,
+                            testskip=cfg.testskip, white_bkgd=cfg.white_bkgd, near=cfg.near,
+                            far=cfg.far)
     if cfg.dataset_type == "synthetic":
         from ..data.synthetic import SyntheticAdapter, SyntheticScene
 

@@ -1,7 +1,8 @@
 """Tiled full-frame rendering for validation and test (PyTorch).
 
 Counterpart of startrax/eval/render.py (``render_image``,
-``render_image_nerf_time``), without the device mesh: H*W rays go through
+``render_image_nerf_time``, ``render_image_mip``), without the device
+mesh: H*W rays go through
 the eval render (for ``render_image``, train.loop.make_eval_render) in
 tiles of ``tile`` rays under ``torch.no_grad``, so no graph is kept and
 the fused kernels save no activations (kernels/fused_mlp: each tile's
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..models.mip import MipConfig, render_star_mip
 from ..models.nerf_time import render_nerf_time
 from ..models.star import StarConfig
 from ..train.loop import make_eval_render
@@ -68,5 +70,20 @@ def render_image_nerf_time(params, cfg: StarConfig, rays_o, rays_d, frame, num_f
 
     def tile_render(o, d):
         return render_nerf_time(params, cfg, o, d, frame, num_frames, train=False)
+
+    return _render_tiles(tile_render, rays_o, rays_d, tile, keys, device)
+
+
+def render_image_mip(params, cfg: MipConfig, rays_o, rays_d, pose=None, tile: int = 8192,
+                     with_test_outputs: bool = False, keys=DEFAULT_KEYS,
+                     device=None) -> Dict[str, np.ndarray]:
+    """render_image for the mip (IPE) variant (models.mip.render_star_mip,
+    eval mode): params and pose [K, 7] (or None) as the mip render takes
+    them."""
+    device = resolve(device)
+
+    def tile_render(o, d):
+        return render_star_mip(params, cfg, o, d, pose=pose, train=False,
+                               with_test_outputs=with_test_outputs)
 
     return _render_tiles(tile_render, rays_o, rays_d, tile, keys, device)

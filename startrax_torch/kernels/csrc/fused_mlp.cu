@@ -28,8 +28,11 @@
 // EW, staged to shared memory as bf16 with the pad columns zeroed, and lin_in
 // streams an [XW, W] weight whose rows past in_ch are zero. No warp, mask or
 // pose sums in that mode; its input-gradient mode writes dx_emb = dh W_in^T
-// [n, in_ch] and dd_emb = dhv_in Wv_bot^T [n, view_ch] f32. One field a
-// launch: the field-axis launch refuses it.
+// [n, in_ch] and dd_emb = dhv_in Wv_bot^T [n, view_ch] f32. On the field
+// axis (`_stacked_fwd_kernel` / `_stacked_bwd_kernel` with pe=None,
+// startrax/kernels/fused_mlp.py:1033, :1061, :1129) the same code runs with
+// field k's blocks [K, n, in_ch], [K, n, view_ch], [K, XW, W] lin_in and
+// [K, n, XW] encodings, k block sizes in.
 //
 // What it computes, per point: optional SE(3) warp M p + t, M d (packed [16]);
 // NeRF positional encoding of points (multires 10 -> 63 columns) and view
@@ -1543,10 +1546,10 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The pre-encoded mode takes one field, no warp or mask, and encoded widths
-// within the padded ones.
+// The pre-encoded mode takes no warp or mask, and encoded widths within the
+// padded ones.
 bool enc_inputs_ok(const Inputs& in) {
-  return in.fields == 1 && in.warp == nullptr && in.mask_x == nullptr && in.mask_d == nullptr &&
+  return in.warp == nullptr && in.mask_x == nullptr && in.mask_d == nullptr &&
          in.fx > 0 && in.fx <= XW && in.fd > 0 && in.fd <= EW;
 }
 
@@ -1568,8 +1571,8 @@ int stx_fused_fwd(void** ptrs, const int* ints, void* stream) {
   const bool enc = ints[6] != 0;
   if (enc && !enc_inputs_ok(in)) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem(in.width);
-  const auto kernel = enc ? fwd_kernel<false, true>
-                          : in.fields > 1 ? fwd_kernel<true, false> : fwd_kernel<false, false>;
+  const auto kernel = in.fields > 1 ? (enc ? fwd_kernel<true, true> : fwd_kernel<true, false>)
+                                     : (enc ? fwd_kernel<false, true> : fwd_kernel<false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((in.n + T - 1) / T, in.fields);
   if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, out);
@@ -1595,8 +1598,8 @@ int stx_fused_bwd(void** ptrs, const int* ints, void* stream) {
   const bool enc = ints[6] != 0;
   if (enc && !enc_inputs_ok(in)) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem(in.width);
-  const auto kernel = enc ? bwd_kernel<false, true>
-                          : in.fields > 1 ? bwd_kernel<true, false> : bwd_kernel<false, false>;
+  const auto kernel = in.fields > 1 ? (enc ? bwd_kernel<true, true> : bwd_kernel<true, false>)
+                                     : (enc ? bwd_kernel<false, true> : bwd_kernel<false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((in.n + T - 1) / T, in.fields);
   if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, g, gr);

@@ -19,7 +19,9 @@ what bounds the kernels on the card and how the design answers it.
 - ``launches`` counts the wrappers' kernel launches: "fwd" and "bwd" for
   ``fused_field_apply`` on raw points, "enc_fwd" and "enc_bwd" on
   pre-encoded features, "stacked_fwd" and "stacked_bwd" for
-  ``fused_stacked_apply``; once per forward call and once per backward call
+  ``fused_stacked_apply`` on raw points, "stacked_enc_fwd" and
+  "stacked_enc_bwd" on pre-encoded features; once per forward call and once
+  per backward call
   (one backward call launches the per-tile backward and, when a weight
   needs a grad, one weight-gradient GEMM over every wide layer and two
   ordered sums, of the per-tile and of the per-split partials (one when
@@ -38,12 +40,16 @@ Input modes. With ``pe = (multires, multires_views)`` the kernels take raw
 points and directions and encode them inside. With ``pe=None`` they take
 pre-encoded features (``_fwd_kernel`` / ``_bwd_kernel`` with pe=None in the
 JAX package): x_emb [N, in_ch] with in_ch <= XW and d_emb [N, view_ch] with
-view_ch <= EW, one field a launch, no warp or mask. nerf_time's 4-D points
-with time take this mode (models/fields.apply_field with ``time``), counted
-as "enc_fwd" and "enc_bwd". Its backward writes dx_emb and dd_emb only when
-they need a grad. The JAX package writes them always (``apply_field``'s
+view_ch <= EW, no warp or mask. nerf_time's 4-D points with time take this
+mode (models/fields.apply_field with ``time``), counted as "enc_fwd" and
+"enc_bwd". Its backward writes dx_emb and dd_emb only when they need a
+grad. The JAX package writes them always (``apply_field``'s
 ``input_grads=True``), but on the nerf_time path they flow into points that
-carry no gradient, so leaving them out changes no result.
+carry no gradient, so leaving them out changes no result. K fields on
+pre-encoded features [K, N, in_ch], [K, N, view_ch] go through
+``fused_stacked_apply`` with pe=None (``_stacked_fwd_kernel`` /
+``_stacked_bwd_kernel`` with pe=None, the default mode of the JAX package's
+``fused_stacked_apply``), one launch for all K fields.
 
 Under ``torch.no_grad`` (an eval render) the forward saves nothing: every
 activation it would save for the backward goes to one [N, W] scratch
@@ -67,7 +73,8 @@ XW = 96  # padded width of pre-encoded point features (nerf_time: 84 columns)
 KC = 32  # weight rows per chunk of the kernels' weight ring
 MAX_BLOCKS = 8
 
-launches = {"fwd": 0, "bwd": 0, "stacked_fwd": 0, "stacked_bwd": 0, "enc_fwd": 0, "enc_bwd": 0}
+launches = {"fwd": 0, "bwd": 0, "stacked_fwd": 0, "stacked_bwd": 0, "enc_fwd": 0, "enc_bwd": 0,
+            "stacked_enc_fwd": 0, "stacked_enc_bwd": 0}
 # launches of the backward's two further kernels, by wgrad() and sum_rows()
 part_launches = {"wgrad": 0, "sum_rows": 0}
 
@@ -188,10 +195,11 @@ def fused_mlp_plain(x, d, weights: Sequence[torch.Tensor], n_blocks: int, pe=Non
     return torch.cat([alpha, rgb], dim=-1)
 
 
-def fused_stacked_plain(x, d, weights: Sequence[torch.Tensor], n_blocks: int, pe, masks=None,
-                        compute_dtype=torch.bfloat16):
+def fused_stacked_plain(x, d, weights: Sequence[torch.Tensor], n_blocks: int, pe=None,
+                        masks=None, compute_dtype=torch.bfloat16):
     """Plain version of the stacked kernels: K calls of fused_mlp_plain. x, d:
-    [K, N, 3]; weights: flat stacked params ([K, ...] leaves); masks as for
+    raw [K, N, 3], or with pe=None pre-encoded [K, N, in_ch], [K, N,
+    view_ch]; weights: flat stacked params ([K, ...] leaves); masks as for
     fused_mlp_plain, shared by the fields. Returns [K, N, 4]."""
     return torch.stack([fused_mlp_plain(x[k], d[k], [w[k] for w in weights], n_blocks, pe,
                                         masks=masks, compute_dtype=compute_dtype)
@@ -523,15 +531,16 @@ def _param_shapes(width: int, n_blocks: int, in_ch: int, view_ch: int):
 
 class _FusedMLP(torch.autograd.Function):
     """K fields of one shape through the kernels, on x, d [K, N, 3] (or, with
-    pe=None, one field's pre-encoded x_emb [1, N, in_ch], d_emb [1, N,
-    view_ch]), an optional packed warp [K, 16] and stacked weights [K, ...].
+    pe=None, pre-encoded x_emb [K, N, in_ch], d_emb [K, N, view_ch]), an
+    optional packed warp [K, 16] and stacked weights [K, ...].
     Forward: the forward kernel, saving bf16 activations when ``save``.
     Backward: the per-tile backward kernel; then, when a weight needs a grad,
     one grouped split-N GEMM over the wide layers and the deterministic
     partial sums. When
     x or d needs a grad the backward writes per-point dx, dd; otherwise a
     warp's grad is dM = M G, dt = M s from the kernel's pose sums.
-    ``counter`` names the launch counters ("", "stacked_" or "enc_")."""
+    ``counter`` names the launch counters ("", "stacked_", "enc_" or
+    "stacked_enc_")."""
 
     @staticmethod
     def forward(ctx, counter, save, x, d, warp, mask_x, mask_d, n_blocks, pe, *weights):
@@ -655,16 +664,16 @@ def _kernel_ints(x, d, width: int, n_blocks: int, pe):
 
 def _check_cuda_inputs(x, d, weights, n_blocks, pe, warp, masks):
     """Device, dtype, shape and contiguity of a stacked launch's operands.
-    With pe=None, x and d are one field's encoded features [1, N, in_ch],
-    [1, N, view_ch], without warp or masks."""
+    With pe=None, x and d are the fields' encoded features [K, N, in_ch],
+    [K, N, view_ch], without warp or masks."""
     dev = x.device
     if x.dim() != 3 or d.dim() != 3:
         raise ValueError(f"x, d must be [K, N, C], got {list(x.shape)}, {list(d.shape)}")
     K, n = x.shape[0], x.shape[1]
     if pe is None:
         in_ch, view_ch = x.shape[2], d.shape[2]
-        if K != 1 or warp is not None or masks is not None:
-            raise ValueError("the pre-encoded mode takes one field, without a warp or masks")
+        if warp is not None or masks is not None:
+            raise ValueError("the pre-encoded mode takes no warp or masks")
         if not (0 < in_ch <= XW and 0 < view_ch <= EW):
             raise ValueError(f"fused MLP kernel pads encoded inputs to {XW} and {EW} columns, "
                              f"got {in_ch}, {view_ch}")
@@ -731,24 +740,24 @@ def fused_field_apply(params: Dict[str, Any], x, d, n_blocks: int, pe=None,
     return out[:, 0], out[:, 1:4]
 
 
-def fused_stacked_apply(params_stacked: Dict[str, Any], x, d, n_blocks: int, pe,
+def fused_stacked_apply(params_stacked: Dict[str, Any], x, d, n_blocks: int, pe=None,
                         pe_masks=None):
-    """K stacked fields (leaves with a leading [K] axis) on per-field raw
-    points x [K, N, 3] and directions d [K, N, 3] -> (raw_alpha [K, N],
-    raw_rgb [K, N, 3]), differentiable in the params and in x and d. The BARF
-    masks, if any, are shared by the fields. Raw points only: no path runs
-    K pre-encoded fields, so pe=None raises.
+    """K stacked fields (leaves with a leading [K] axis) -> (raw_alpha [K,
+    N], raw_rgb [K, N, 3]), differentiable in the params and in x and d.
+    With pe = (multires, multires_views), x [K, N, 3] and d [K, N, 3] are
+    per-field raw points and directions, and the BARF masks, if any, are
+    shared by the fields. With pe=None (the JAX package's default), x [K,
+    N, in_ch] and d [K, N, view_ch] are pre-encoded features, without masks;
+    their grads are dx_emb and dd_emb.
 
     CPU tensors take the plain version (fused_stacked_plain); CUDA tensors
     launch the kernels once for all K fields."""
-    if pe is None:
-        raise ValueError("the field-axis launch takes raw points (pe); pre-encoded features "
-                         "go through fused_field_apply, one field a launch")
     weights = flatten_params(params_stacked, n_blocks)
     if x.device.type == "cpu":
         out = fused_stacked_plain(x, d, weights, n_blocks, pe, masks=pe_masks)
     elif x.device.type == "cuda":
-        out = _launch("stacked_", x, d, None, weights, n_blocks, pe, pe_masks)
+        out = _launch("stacked_enc_" if pe is None else "stacked_", x, d, None, weights,
+                      n_blocks, pe, pe_masks)
     else:
         raise ValueError(f"fused MLP: unsupported device {x.device}")
     return out[..., 0], out[..., 1:4]

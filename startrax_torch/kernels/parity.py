@@ -1,8 +1,8 @@
 """The fused-MLP kernels held against their plain version on the same inputs.
 
-``compare`` runs the kernels (``fused_field_apply`` for one field, on raw
-points or, with pe=None, on pre-encoded features; ``fused_stacked_apply``
-for a stack of K fields; on CUDA tensors) and the
+``compare`` runs the kernels (``fused_field_apply`` for one field,
+``fused_stacked_apply`` for a stack of K fields, each on raw points or,
+with pe=None, on pre-encoded features; on CUDA tensors) and the
 plain version (``fused_mlp_plain``, ``fused_stacked_plain``) on one batch,
 differentiates both with the cotangent of the JAX kernel tests' loss,
 sum(sin(alpha)) + sum(rgb^2), taken from the plain output, and measures how
@@ -90,7 +90,8 @@ def compare(params, x, d, n_blocks: int, pe=None, pe_masks=None, warp=None, pose
             stacked: bool = False, cot_mask=None, plain_rows=None):
     """Kernels against plain version on x, d [N, 3] (one field), on
     pre-encoded x [N, in_ch], d [N, view_ch] (pe=None), or on x, d [K, N, 3]
-    with stacked params (stacked=True). warp is the packed
+    (pre-encoded [K, N, in_ch], [K, N, view_ch]) with stacked params
+    (stacked=True). warp is the packed
     [16] warp made from the 7-vector leaf ``pose`` (one field), or None; or
     ``pose`` is a per-ray pose leaf [R, K, 7] from which x and d were made.
     cot_mask [N] (0 or 1) multiplies the cotangent, as a render's masked

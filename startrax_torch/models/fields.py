@@ -31,7 +31,7 @@ from ..kernels.fused_mlp import (
     pe_mask_row,
 )
 from ..ops.encoding import barf_weights, encoding_dim, positional_encoding
-from ..utils.tree import tree_map
+from ..utils.tree import tree_map, tree_stack
 
 Params = Dict[str, Any]
 
@@ -108,17 +108,7 @@ def init_field(cfg: FieldConfig, generator: Optional[torch.Generator] = None,
 def init_stacked_fields(cfg: FieldConfig, n: int, generator=None, device=None) -> Params:
     """n independently initialised fields, leaves stacked on axis 0."""
     device = resolve(device)
-    fields = [init_field(cfg, generator, device) for _ in range(n)]
-
-    def stack(trees):
-        first = trees[0]
-        if isinstance(first, dict):
-            return {k: stack([t[k] for t in trees]) for k in first}
-        if isinstance(first, list):
-            return [stack([t[i] for t in trees]) for i in range(len(first))]
-        return torch.stack(trees)
-
-    return stack(fields)
+    return tree_stack([init_field(cfg, generator, device) for _ in range(n)])
 
 
 def resolve_use_fused(cfg: FieldConfig, device) -> bool:
@@ -204,7 +194,9 @@ def apply_stacked_fields(params: Params, cfg: FieldConfig, pts, viewdirs, step=N
     n, R, S = pts.shape[0], pts.shape[1], pts.shape[2]
     assert tuple(pts.shape) == (n, R, S, 3) and tuple(viewdirs.shape) == (n, R, 3)
     if cfg.input_dims != 3:
-        raise NotImplementedError("time-conditioned (4-D input) fields are not ported yet")
+        # the JAX package's apply_stacked_fields takes no time either
+        raise NotImplementedError("stacked fields take 3-D points: there is no time-conditioned "
+                                  "stack of fields")
     x = pts.reshape(n, R * S, 3)
     dirs = viewdirs[:, :, None, :].expand(n, R, S, 3).reshape(n, R * S, 3)
     pe = (cfg.multires, cfg.multires_views)

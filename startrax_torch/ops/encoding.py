@@ -2,7 +2,9 @@
 
 Counterpart of startrax/ops/encoding.py. The layout is the reference
 Embedder's: [x, sin(x f0), cos(x f0), sin(x f1), cos(x f1), ...], with each
-sin/cos group three columns wide. The mip-NeRF IPE is not ported yet.
+sin/cos group three columns wide. The mip-NeRF integrated positional
+encoding (IPE) of a conical frustum's Gaussian has the same sin/cos layout
+without the raw input.
 """
 
 from __future__ import annotations
@@ -41,3 +43,35 @@ def positional_encoding(x, num_freqs: int, include_input: bool = True, step=None
     if include_input:
         enc = torch.cat([x, enc], dim=-1)
     return enc
+
+
+def integrated_positional_encoding(mean, cov_diag, num_freqs: int, min_deg: int = 0):
+    """mip-NeRF IPE of a Gaussian (mean, diagonal covariance) [..., d] ->
+    [..., 2 * num_freqs * d]: E[sin(f x)] for x ~ N(mu, sigma^2) is
+    sin(f mu) exp(-f^2 sigma^2 / 2), f = 2^min_deg .. 2^(min_deg +
+    num_freqs - 1); a sin block and a cos block per frequency."""
+    scales = 2.0 ** torch.arange(min_deg, min_deg + num_freqs, dtype=mean.dtype,
+                                 device=mean.device)
+    sm = mean[..., None, :] * scales[:, None]  # [..., F, d]
+    damp = torch.exp(-0.5 * (cov_diag[..., None, :] * (scales[:, None] ** 2)))
+    enc = torch.stack([torch.sin(sm) * damp, torch.cos(sm) * damp], dim=-2)
+    return enc.reshape(mean.shape[:-1] + (2 * num_freqs * mean.shape[-1],))
+
+
+def conical_frustum_to_gaussian(origins, directions, t0, t1, base_radius):
+    """The Gaussian of a conical frustum along a ray (mip-NeRF eq. 7):
+    origins, directions [..., 3]; t0, t1 [...]; base_radius the radius at
+    unit distance -> (mean [..., 3], cov_diag [..., 3])."""
+    mu = (t0 + t1) / 2.0
+    hw = (t1 - t0) / 2.0
+    mu2, hw2 = mu * mu, hw * hw
+    denom = 3.0 * mu2 + hw2
+    t_mean = mu + (2.0 * mu * hw2) / denom
+    t_var = hw2 / 3.0 - (4.0 / 15.0) * ((hw2 * hw2) * (12.0 * mu2 - hw2)) / (denom * denom)
+    r_var = base_radius ** 2 * (mu2 / 4.0 + (5.0 / 12.0) * hw2 - (4.0 / 15.0) * (hw2 * hw2) / denom)
+    mean = origins + directions * t_mean[..., None]
+    d_outer_diag = directions * directions
+    d2 = torch.clamp(d_outer_diag.sum(-1, keepdim=True), min=1e-10)
+    null_outer_diag = 1.0 - d_outer_diag / d2
+    cov_diag = t_var[..., None] * d_outer_diag + r_var[..., None] * null_outer_diag
+    return mean, cov_diag

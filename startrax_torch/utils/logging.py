@@ -3,7 +3,8 @@
 Counterpart of startrax/utils/logging.py, with the same ``metrics.jsonl``
 rows and image file names: metrics land in <run_dir>/metrics.jsonl and
 images under <run_dir>/images/. The images are 8-bit RGB PNG files that
-this module writes itself with zlib and struct (``write_png``); the
+this module writes itself with zlib and struct (``write_png``, which also
+writes RGBA); the
 loaders read PNG files with ``read_png``, numpy and zlib, so the port needs
 no image library. The JAX package's optional wandb sink is not ported.
 """
@@ -52,21 +53,22 @@ def configure_logger(run_dir: str, name: str = "startrax") -> logging.Logger:
 
 
 def write_png(path: str, rgb: np.ndarray):
-    """Write an [H, W, 3] uint8 array as an 8-bit RGB PNG (no filtering,
-    one zlib stream)."""
+    """Write an [H, W, 3] or [H, W, 4] uint8 array as an 8-bit RGB or RGBA
+    PNG (colour type 2 or 6; no filtering, one zlib stream)."""
     rgb = np.ascontiguousarray(rgb)
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"write_png takes [H, W, 3] uint8, got {rgb.dtype} {rgb.shape}")
-    h, w, _ = rgb.shape
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] not in (3, 4):
+        raise ValueError(f"write_png takes [H, W, 3] or [H, W, 4] uint8, got {rgb.dtype} "
+                         f"{rgb.shape}")
+    h, w, ch = rgb.shape
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, 3 * w)], axis=1)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, ch * w)], axis=1)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2 if ch == 3 else 6, 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(rows.tobytes())))
         f.write(chunk(b"IEND", b""))
 

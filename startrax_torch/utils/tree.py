@@ -6,6 +6,8 @@ tensors, with K dynamic fields stacked on a leading axis.
 
 from __future__ import annotations
 
+import torch
+
 
 def tree_map(fn, tree):
     if isinstance(tree, dict):
@@ -22,3 +24,14 @@ def tree_leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_stack(trees):
+    """Trees of one structure -> one tree whose leaves stack theirs on a new
+    leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_stack([t[i] for t in trees]) for i in range(len(first)))
+    return torch.stack(trees)

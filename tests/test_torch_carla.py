@@ -320,7 +320,9 @@ def test_carla_helpers_match_startrax(carla_dir):
 
 def test_make_dataset_loads_carla(carla_dir):
     """apps/common.make_dataset's carla branch: the config's fields reach
-    the scene as startrax's factory passes them; blender still raises."""
+    the scene as startrax's factory passes them; the blender branch reads
+    a Blender capture, so on the CARLA capture it raises for
+    transforms_train.json."""
     kw = dict(dataset_type="carla", datadir=carla_dir, num_frames=N_FRAMES,
               num_vehicles=N_VEHICLES, has_depth_data=True, eval_last_frame=2)
     from startrax.utils import config as jconfig
@@ -331,6 +333,6 @@ def test_make_dataset_loads_carla(carla_dir):
         assert isinstance(t, tcarla.CarlaScene) and dataclasses.asdict(t.cfg) == \
             dataclasses.asdict(j.cfg)
         np.testing.assert_array_equal(t.images, j.images)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcommon.make_dataset(tconfig.Config(dataset_type="blender"), "train")
+    with pytest.raises(FileNotFoundError, match="transforms_train.json"):
+        tcommon.make_dataset(tconfig.Config(dataset_type="blender", datadir=carla_dir), "train")
     assert os.path.isdir(carla_dir)

@@ -295,13 +295,14 @@ def test_workspace_and_host_prng(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kind", ["carla", "blender", "nope"])
 def test_make_dataset_raises_for_what_is_not_ported(kind, tmp_path):
-    """Blender raises NotImplementedError naming its ROADMAP item and an
-    unknown kind ValueError. The CARLA loader is ported: on a directory that
-    holds no capture it is the loader that raises, reading intrinsics.npy
-    (tests/test_torch_carla.py holds it against startrax's on a capture)."""
+    """An unknown kind raises ValueError. The CARLA and Blender loaders are
+    ported: on a directory that holds no capture it is the loader that
+    raises, reading intrinsics.npy or transforms_train.json
+    (tests/test_torch_carla.py and tests/test_torch_blender.py hold them
+    against startrax's on a capture)."""
     cfg = tconfig.Config(dataset_type=kind, datadir=str(tmp_path))
     err, match = {"carla": (FileNotFoundError, "intrinsics.npy"),
-                  "blender": (NotImplementedError, "ROADMAP queue 1"),
+                  "blender": (FileNotFoundError, "transforms_train.json"),
                   "nope": (ValueError, "unknown")}[kind]
     with pytest.raises(err, match=match):
         tcommon.make_dataset(cfg, "train", device="cpu")

@@ -14,7 +14,9 @@ samples. Tolerances:
   frequency, 2^9).
 - bf16: the port's fused wrapper on CPU tensors (the kernels' plain
   version) against the Pallas kernel in its pre-encoded mode (pe=None),
-  interpret mode, tile 32 on 80 ragged points. Both round matmul operands to
+  interpret mode, tile 32 on 80 ragged points; and the stacked wrapper
+  (fused_stacked_apply, pe=None) on K = 2 fields against the stacked Pallas
+  kernel likewise. Both round matmul operands to
   bf16 and accumulate in f32 in different orders, so forward within 1e-2 and
   gradients (params and the encoded inputs) within 2e-2 of the largest
   magnitude, as tests/test_torch_fields.py.
@@ -143,6 +145,61 @@ def test_fused_pre_encoded_bf16_matches_pallas_interpret():
     _assert_scaled(grads, jax.tree.leaves(gj[0]) + [gj[1], gj[2]], atol=2e-2)
 
 
+def test_fused_stacked_pre_encoded_bf16_matches_pallas_interpret():
+    """The stacked pre-encoded mode (fused_stacked_apply with pe=None, K = 2
+    fields) against the stacked Pallas kernel with pe=None in interpret
+    mode, on 80 ragged points a field (tile 32): forward, every field's
+    weight grads and dx_emb, dd_emb. No launch is counted on the CPU."""
+    trees = [_field_setup(seed=s, n_samples=10)[0] for s in (3, 4)]
+    params_np = jax.tree.map(lambda *xs: np.stack(xs), *trees)
+    rng = np.random.default_rng(5)
+    x = np.concatenate([rng.normal(size=(2, 80, 3)), np.full((2, 80, 1), 0.4)], -1)
+    d = rng.normal(size=(2, 80, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    x_emb = np.asarray(jenc.positional_encoding(jnp.asarray(x, jnp.float32), JCFG.multires))
+    d_emb = np.asarray(jenc.positional_encoding(jnp.asarray(d, jnp.float32), JCFG.multires_views))
+    assert x_emb.shape == (2, 80, 84) and d_emb.shape == (2, 80, 27)
+
+    def jloss(p, xe, de):
+        a, r = jfused.fused_stacked_apply(p, xe, de, JCFG.n_blocks, tile=32, interpret=True)
+        return _loss(jnp, a, r), (a, r)
+
+    (_, (aj, rj)), gj = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jax.tree.map(jnp.asarray, params_np), jnp.asarray(x_emb), jnp.asarray(d_emb))
+    tp = convert.params_from_numpy(params_np, device="cpu", requires_grad=True)
+    txe = torch.tensor(x_emb, requires_grad=True)
+    tde = torch.tensor(d_emb, requires_grad=True)
+    tfused.reset_launch_counts()
+    a, r = tfused.fused_stacked_apply(tp, txe, tde, TCFG.n_blocks)
+    assert set(tfused.launches.values()) == {0}
+    assert a.shape == (2, 80) and r.shape == (2, 80, 3)
+    scale = max(np.abs(np.asarray(aj)).max(), np.abs(np.asarray(rj)).max())
+    np.testing.assert_allclose(a.detach().numpy() / scale, np.asarray(aj) / scale, atol=1e-2)
+    np.testing.assert_allclose(r.detach().numpy() / scale, np.asarray(rj) / scale, atol=1e-2)
+    grads = torch.autograd.grad(_loss(torch, a, r), tree_leaves(tp) + [txe, tde])
+    want = jax.tree.leaves(gj[0]) + [gj[1], gj[2]]
+    for k in range(2):  # each field against its own scale
+        _assert_scaled([g[k] for g in grads], [np.asarray(w)[k] for w in want], atol=2e-2)
+
+
+def test_fused_stacked_pre_encoded_one_field_is_the_per_field_mode():
+    """K = 1 through fused_stacked_apply(pe=None) gives fused_field_apply's
+    pre-encoded result and grads on the CPU, bit for bit."""
+    params_np, pts, dirs = _field_setup(seed=6)
+    tp = convert.params_from_numpy(params_np, device="cpu", requires_grad=True)
+    ts = convert.params_from_numpy(jax.tree.map(lambda v: v[None], params_np), device="cpu",
+                                   requires_grad=True)
+    rng = np.random.default_rng(6)
+    xe = torch.tensor(rng.normal(size=(30, 84)).astype(np.float32))
+    de = torch.tensor(rng.normal(size=(30, 27)).astype(np.float32))
+    a1, r1 = tfused.fused_field_apply(tp, xe, de, TCFG.n_blocks)
+    a2, r2 = tfused.fused_stacked_apply(ts, xe[None], de[None], TCFG.n_blocks)
+    assert torch.equal(a1, a2[0]) and torch.equal(r1, r2[0])
+    g1 = torch.autograd.grad(_loss(torch, a1, r1), tree_leaves(tp))
+    g2 = torch.autograd.grad(_loss(torch, a2, r2), tree_leaves(ts))
+    assert all(torch.equal(u, v[0]) for u, v in zip(g1, g2))
+
+
 def test_pre_encoded_mode_refuses_warp_masks_and_field_axis():
     params_np, pts, dirs = _field_setup(seed=2)
     tp = convert.params_from_numpy(params_np, device="cpu")
@@ -150,8 +207,6 @@ def test_pre_encoded_mode_refuses_warp_masks_and_field_axis():
     de = torch.zeros(4, 27)
     with pytest.raises(ValueError, match="warp or BARF masks"):
         tfused.fused_field_apply(tp, xe, de, TCFG.n_blocks, warp=torch.zeros(16))
-    with pytest.raises(ValueError, match="field-axis"):
-        tfused.fused_stacked_apply(tp, xe[None], de[None], TCFG.n_blocks, None)
     with pytest.raises(ValueError, match="only supported for 3-d"):
         tfields.apply_field(tp, TCFG, torch.tensor(pts), torch.tensor(dirs), time=0.5,
                             warp=torch.zeros(16))

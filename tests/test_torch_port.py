@@ -22,11 +22,12 @@ import torch
 
 from startrax.utils import config as jconfig
 from startrax_torch import convert
+from startrax_torch.apps import mip as mip_app
 from startrax_torch.apps import nerf_time as nerf_time_app
 from startrax_torch.apps import occgrid_init
 from startrax_torch.eval import render
 from startrax_torch.kernels import occgrid
-from startrax_torch.models import fields, nerf_time, star, star_occgrid
+from startrax_torch.models import fields, mip, nerf_time, star, star_occgrid
 from startrax_torch.ops import rays
 from startrax_torch.train import loop
 from startrax_torch.utils import config as tconfig
@@ -35,6 +36,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "startrax", "configs", "*.txt")))
 TINY = star.StarConfig(num_vehicles=2, netdepth=2, netdepth_fine=2, netwidth=16,
                        netwidth_fine=16, n_samples=4, n_importance=4)
+TINY_MIP = mip.MipConfig(num_vehicles=2, depth=2, width=16, num_freqs_pos=2, num_freqs_dir=2,
+                         n_samples=4, n_importance=4)
 
 
 def _imported_modules(path):
@@ -55,7 +58,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                   "PIL", "cv2")]
     assert bad == []
     for module in ("kernels/occgrid.py", "models/star_occgrid.py", "apps/occgrid_init.py",
-                   "apps/nerf_time.py", "data/carla.py"):
+                   "apps/nerf_time.py", "data/carla.py", "data/blender.py", "apps/lego.py",
+                   "models/mip.py", "apps/mip.py"):
         assert os.path.join(ROOT, "startrax_torch", module) in files, module
 
 
@@ -112,6 +116,10 @@ ENTRY_POINTS = {
     "render_image_nerf_time": lambda device: torch.as_tensor(render.render_image_nerf_time(
         nerf_time.init_nerf_time(TINY, device="cpu"), TINY,
         *rays.get_rays_np(2, 3, np.eye(3), np.eye(4)), 1, 4, device=device)["rgb"]),
+    "init_star_mip": lambda device: mip.init_star_mip(TINY_MIP, device=device),
+    "render_image_mip": lambda device: torch.as_tensor(render.render_image_mip(
+        mip.init_star_mip(TINY_MIP, device="cpu"), TINY_MIP,
+        *rays.get_rays_np(2, 3, np.eye(3), np.eye(4)), device=device)["rgb"]),
 }
 
 
@@ -130,7 +138,8 @@ def test_entry_points_default_to_the_card(name, monkeypatch):
 
 
 APPS = {"occgrid_init.train": occgrid_init.train, "nerf_time.train": nerf_time_app.train,
-        "nerf_time.test": nerf_time_app.test}
+        "nerf_time.test": nerf_time_app.test, "mip.train_app_init": mip_app.train_app_init,
+        "mip.train_online": mip_app.train_online, "mip.test": mip_app.test}
 
 
 @pytest.mark.parametrize("name", sorted(APPS))
