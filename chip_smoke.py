@@ -209,15 +209,45 @@ Phases, each printing its numbers:
      falling, unit quaternions, pose-error and val rows, finite test rows,
      no fused-kernel launch; the median step by CUDA events and the peak
      memory of each app;
-  13. one JSON line per kernel (with its bound: the larger of its FLOP over
+  13. ray-axis data parallelism, DP_WORLD ranks on the one card over gloo
+     (spawned by startrax_torch.parallel.mesh.run_ranks; NCCL refuses two
+     ranks on one device, so this is correctness, not a speed-up): (a) the
+     online step at carla_star_online_multi.txt's widths on bench.py's 1000
+     rays padded to 1008, shared-pose at frame 3 and per-ray frames from [0,
+     8), depth and sigma losses on masks that count differently on the two
+     halves, accumulation 4: each rank against the one-process step on the
+     same batch, weights and draws (loss within DP_LOSS_RTOL before the
+     first update, the summed field grads within PART_TOL["wgrad"] of the
+     largest and the pose grads within parity.LIMITS["pose"], the ranks'
+     parameters equal after every step, the one-process step's launches);
+     (b) apps.app_init on phase 6's config and scene, 2 epochs, over the
+     ranks against one rank (epoch losses within DP_APP_RTOL, one
+     run directory, its checkpoint restored in this process to rank 0's
+     tree); (c) apps.online on phase 7's config, warmup and one curriculum
+     epoch (ONLINE_PHASES' first five; the warmup epochs' losses within
+     DP_ONLINE_RTOL of one rank, the later ones, whose stale prefetched
+     batches depend on timing, finite), then --test true over the ranks on
+     the one-rank run's checkpoint with save_video_frames: the rows within
+     DP_TEST_ATOL, view0.gif written; (d) the 2-rank step's median against
+     the one-process step's, and the step's collectives alone;
+  14. the eval-only utilities: (a) utils/mesh.extract_mesh's grid over
+     models.fields.query_density of phase 11's trained fine field at
+     startrax's defaults (256^3 over [-0.8, 0.8]^3, sigma 50; one fused
+     forward a 65,536-point chunk), the marching on the host, the OBJ parsed
+     back, non-empty (where the short-trained field stays under sigma 50 the
+     surface at MESH_FALLBACK of its largest density instead, and said), the kernel
+     path's grid against the plain path's on 64^3 within parity.LIMITS; (b)
+     utils/profiling.trace around one app-init step (the Chrome trace names
+     fwd_kernel and bwd_kernel) and StepTimer over 20 steps;
+  15. one JSON line per kernel (with its bound: the larger of its FLOP over
      989 TFLOP/s dense bf16, 67 TFLOP/s f32 for the sums, and its bytes,
      each input read once and each output written once, over 3.35 TB/s;
      the launches of it by the app-init app, the online app, the scaled
-     app of phase 8, the polishes of 8b and phases 9, 9b, 10, 10b, 11 and
-     12, each counted from 0 over its run; the stacked pre-encoded rows'
-     launches are phase 3e's path's; and the times at the occgrid app's
-     shapes), the card's line, and the result line {"ok": true, "device":
-     {...}} last.
+     app of phase 8, the polishes of 8b and phases 9, 9b, 10, 10b, 11, 12,
+     13 (rank 0) and 14, each counted from 0 over its run; the stacked
+     pre-encoded rows' launches are phase 3e's path's; and the times at the
+     occgrid app's shapes), the card's line, and the result line {"ok":
+     true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device or when any phase
 fails. Imports nothing of JAX or of the JAX package: only torch, numpy,
@@ -227,6 +257,7 @@ Float32 matmuls and convolutions on the plain paths run in full float32
 """
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -317,6 +348,37 @@ POLISH_CUTS = (
      (("refit_anchor: dynamic fields re-initialized", 1),
       ("refit_anchor: pose recovery done", 1))),
 )
+# phase 13: ranks on the one card (gloo), 13a's batch (bench.py's rays padded
+# to the world size), steps a layout, frames of the per-ray layout and the
+# accumulation (two updates in the steps), and the tolerances against the
+# one-process runs: 13a's loss before the first update; 13b's epoch losses
+# and 13c's warmup epoch losses (bf16 kernels: the grads' f32 sums run in
+# another order over half the rows, and Adam amplifies it; read 5.8e-4 and
+# up to 5.8e-3); 13c's test rows (one checkpoint, the renders' tiles
+# split); the cuts of the apps
+DP_WORLD = 2
+DP_RAYS = 1000
+DP_STEPS = 8
+DP_FRAMES = 8
+DP_ACCUMULATE = 4
+DP_LOSS_RTOL = 1e-5
+DP_APP_RTOL = 2e-2
+DP_ONLINE_RTOL = 2e-2
+DP_TEST_ATOL = 1e-4
+DP_APP_CUT = ("--epochs_appearance", "2", "--steps_per_epoch", "100", "--epoch_val", "1")
+DP_ONLINE_CUT = tuple(v if ONLINE_CUT[i - 1] not in ("--epochs_online", "--steps_per_epoch")
+                      else {"--epochs_online": "5", "--steps_per_epoch": "20"}[ONLINE_CUT[i - 1]]
+                      for i, v in enumerate(ONLINE_CUT))
+DP_ONLINE_PHASES = ONLINE_PHASES[:5]
+# phase 14: the mesh grid at startrax's defaults (resolution, sigma), the
+# share of the field's largest density that stands in for sigma where the
+# field stays under it, the grid the kernel path is held on against the
+# plain path, StepTimer's steps
+MESH_RES = 256
+MESH_SIGMA = 50.0
+MESH_FALLBACK = 0.9
+MESH_CHECK = 64
+TIMER_STEPS = 20
 # NVIDIA H100 SXM: dense bf16 tensor-core peak, float32 peak outside the
 # tensor cores, and memory rate (data sheet)
 # phase 9: the occgrid app's config, the scene keys taken from phase 6's
@@ -353,6 +415,7 @@ STACKED_ENC_CALLS = 3
 # steps the median skips
 BLENDER_HW = (800, 800)
 BLENDER_VIEWS = {"train": 16, "val": 2, "test": 2}
+BLENDER_RADIUS = 0.5
 LEGO_CONFIG = "lego.txt"
 LEGO_CUT = ("--epochs_appearance", "2", "--steps_per_epoch", "60", "--epoch_val", "1")
 LEGO_WARM = 5
@@ -2853,7 +2916,8 @@ def phase_stacked_enc(cfg, star_cfg):
 
 def _write_blender_capture(root):
     """A Blender-format capture in root, written with the port's PNG writer:
-    BLENDER_HW RGBA views of an opaque sphere coloured by its normal on a
+    BLENDER_HW RGBA views of an opaque sphere of radius BLENDER_RADIUS (inside
+    the box phase 14 extracts a mesh from) coloured by its normal on a
     transparent background, from cameras on a sphere of radius 4 around it
     (lego's camera_angle_x), so that every view agrees with the others;
     BLENDER_VIEWS views a split. Returns {path: array} of every PNG file."""
@@ -2881,10 +2945,10 @@ def _write_blender_capture(root):
             o, d = ray_ops.get_rays_np(H, W, K, c2w[:3, :4])
             d = d / np.linalg.norm(d, axis=-1, keepdims=True)
             b = (o * d).sum(-1)
-            disc = b * b - ((o * o).sum(-1) - 1.0)  # the unit sphere
+            disc = b * b - ((o * o).sum(-1) - BLENDER_RADIUS ** 2)
             hit = disc > 0
             t = -b - np.sqrt(np.maximum(disc, 0.0))
-            normal = o + d * t[..., None]
+            normal = (o + d * t[..., None]) / BLENDER_RADIUS
             rgba = np.zeros((H, W, 4), np.uint8)
             rgba[..., :3] = np.clip(255 * (0.5 + 0.5 * normal), 0, 255).astype(np.uint8)
             rgba[..., 3] = np.where(hit, 255, 0)
@@ -3085,6 +3149,370 @@ def phase_mip(app_config, online_config, scene_path, cache, basedir):
     launches = _launch_snapshot()
     _require(not any(launches.values()), f"the mip apps launch no fused kernel, got {launches}")
     return launches
+
+
+def _dp_batches(n, star_cfg, num_frames):
+    """Phase 13a's two global batches of n rays (bench.py's rays, a uniform
+    target): shared-pose at frame FRAME and per-ray frames from [0,
+    num_frames); a target depth inside (near, far) on a fifth of the first
+    half's rays and four fifths of the second's, 0 (outside) elsewhere, so
+    that the ranks' depth and sigma masks count differently."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    rays_o = rng.normal(size=(n, 3)).astype(np.float32)
+    rays_d = rng.normal(size=(n, 3)).astype(np.float32)
+    rays_d /= np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    depth = np.zeros(n, np.float32)
+    half = n // 2
+    span = star_cfg.far - star_cfg.near
+    for lo, count in ((0, half // 5), (half, 4 * half // 5)):
+        depth[lo:lo + count] = star_cfg.near + span * rng.uniform(0.05, 0.95, count)
+    base = {"rays_o": rays_o, "rays_d": rays_d,
+            "target": rng.uniform(size=(n, 3)).astype(np.float32), "target_depth": depth}
+    return {"shared": dict(base, frame=np.int32(FRAME)),
+            "per_ray": dict(base, frame=rng.integers(0, num_frames, n).astype(np.int32))}
+
+
+def _launch_sum(per_step):
+    return {k: sum(s[k] for s in per_step) for k in per_step[0]}
+
+
+def phase_data_parallel(cfg, star_cfg, loss_cfg, app_config, online_config, warm, cache, basedir,
+                        card):
+    """13: ray-axis data parallelism, DP_WORLD gloo ranks on the one card
+    (parallel.mesh.run_ranks; NCCL refuses two ranks on one device). (a)
+    the online step at cfg's widths on DP_RAYS rays padded to the world
+    size, both layouts, depth and sigma losses on masks that count
+    differently on the two halves: each rank against the one-process step
+    on the same batch, weights and draws (the loss within DP_LOSS_RTOL
+    before the first update; the summed field grads within
+    PART_TOL["wgrad"] of the largest field grad, as the GEMM's f32 partials
+    run in another order; the pose grads, sums over every point with
+    cancellation, within parity.LIMITS["pose"] of the largest; the ranks'
+    parameters equal after every one of DP_STEPS steps, each rank's
+    launches those of the one-process step); (b) the
+    app-init app (app_config, DP_APP_CUT) over the ranks against one rank:
+    epoch losses within DP_APP_RTOL, one run directory, its checkpoints
+    restoring in this process to rank 0's tree; (c) the online app
+    (online_config, DP_ONLINE_CUT, warm-started from warm) over the ranks:
+    ONLINE_PHASES' first epochs, the warmup's losses within DP_ONLINE_RTOL
+    of one rank (after a phase change the stale prefetched batches depend
+    on timing); then test() over the ranks on the one-rank
+    run's checkpoint, its rows within DP_TEST_ATOL of the one-rank test's,
+    view0.gif written; (d) the 2-rank step's median against the
+    one-process step's, and the collectives of one step alone. Returns rank
+    0's launches over (a)-(c)."""
+    import numpy as np
+    import torch
+
+    from startrax_torch import convert
+    from startrax_torch.kernels.parity import LIMITS
+    from startrax_torch.parallel import dryrun, mesh
+    from startrax_torch.train import checkpoint as ckpt
+    from startrax_torch.train import loop
+    from startrax_torch.utils.config import load_config
+    from startrax_torch.utils.tree import tree_leaves
+
+    print(f"phase 13: {DP_WORLD} ranks over gloo on the one card ({card}): nccl takes a card a "
+          "rank and refuses two ranks on one device; this measures correctness, not a "
+          "speed-up", flush=True)
+    n = mesh.pad_rays_to_multiple(DP_RAYS, DP_WORLD)
+    step_cfg = dataclasses.replace(loss_cfg, use_depth_loss=True, depth_lambda=0.1,
+                                   use_sigma_loss=True, sigma_lambda=1e-3)
+    params = convert.params_to_numpy(loop.init_online_params(
+        star_cfg, DP_FRAMES, torch.Generator().manual_seed(11), "cpu"))
+    opt = dict(lrate_static=cfg.lrate_static, lrate_dynamic=cfg.lrate_dynamic,
+               lrate_pose=cfg.lrate_pose, steps_per_epoch=100,
+               decay_milestones=cfg.lrate_decay_steps, grad_clip=1.0,
+               accumulate_steps=DP_ACCUMULATE)
+    batches = _dp_batches(n, star_cfg, DP_FRAMES)
+    specs = {kind: {"kind": "online", "star_cfg": star_cfg, "loss_cfg": step_cfg,
+                    "params": params, "opt": opt, "batches": [b] * DP_STEPS, "seed": 12,
+                    "time": True, "device": "cuda"}
+             for kind, b in batches.items()}
+    print(f"13a: online step at {star_cfg.netdepth}x{star_cfg.netwidth} static, "
+          f"{star_cfg.netdepth // 2}x{star_cfg.netwidth} dynamic, K={star_cfg.num_vehicles}, "
+          f"{star_cfg.n_samples} + {star_cfg.n_importance} samples, {DP_RAYS} rays padded to "
+          f"{n} (pad_rays_to_multiple), {DP_STEPS} steps a layout, accumulation "
+          f"{cfg.accumulate_grad_batches} -> {DP_ACCUMULATE} (two updates in {DP_STEPS} steps), "
+          f"depth and sigma losses on; depth masks {n // 10} + {2 * n // 5} of {n // 2} + "
+          f"{n // 2} rays",
+          flush=True)
+    one = {kind: dryrun.replay(None, spec) for kind, spec in specs.items()}
+
+    # the one-rank runs the apps over the ranks are held against
+    app_argv = ["--config", app_config, "--synth_cache_dir", cache, *DP_APP_CUT]
+    online_argv = ["--config", online_config, "--synth_cache_dir", cache,
+                   "--appearance_ckpt_path", warm, *DP_ONLINE_CUT]
+    one_dir, two_dir = os.path.join(basedir, "one"), os.path.join(basedir, "two")
+    t0 = time.perf_counter()
+    dryrun.run_app(None, "app_init", "train", app_argv + ["--basedir", one_dir], "cuda")
+    dryrun.run_app(None, "online", "train", online_argv + ["--basedir", one_dir], "cuda")
+    online_name = load_config(online_argv).expname
+    ckpts = os.path.join(one_dir, online_name, "online", "ckpts")
+    test_argv = online_argv + ["--test", "true", "--online_ckpt_path", ckpts,
+                               "--save_video_frames", "true"]
+    dryrun.run_app(None, "online", "test", test_argv + ["--basedir", one_dir], "cuda")
+    one_s = time.perf_counter() - t0
+
+    jobs = [(dryrun.replay, (specs["shared"],)), (dryrun.replay, (specs["per_ray"],)),
+            (dryrun.run_app, ("app_init", "train", app_argv + ["--basedir", two_dir,
+                                                              "--data_parallel", "on"])),
+            (dryrun.run_app, ("online", "train", online_argv + ["--basedir", two_dir,
+                                                               "--data_parallel", "on"])),
+            (dryrun.run_app, ("online", "test", test_argv + ["--basedir", two_dir,
+                                                            "--data_parallel", "on"]))]
+    # the ranks are processes of their own on this card: hand them the
+    # memory this process's allocator holds cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"13: this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of the card "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated) as the ranks start",
+          flush=True)
+    t0 = time.perf_counter()
+    ranks = mesh.run_ranks(dryrun.run_jobs, DP_WORLD, "gloo", args=(jobs,), device="cuda:0",
+                           timeout=300.0, join_timeout=900.0)
+    two_s = time.perf_counter() - t0
+    print(f"13: one-rank apps {one_s:.1f} s; {DP_WORLD} ranks spawned, their steps and apps "
+          f"{two_s:.1f} s", flush=True)
+
+    launches = None
+    for kind in ("shared", "per_ray"):
+        ref = one[kind]
+        # the grads in tree order: the fields' leaves, then the pose table
+        grads_err = {"fields": 0.0, "poses": 0.0}
+        for r, out in enumerate(r[["shared", "per_ray"].index(kind)] for r in ranks):
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(out["losses"][:DP_ACCUMULATE], ref["losses"][:DP_ACCUMULATE]))
+            _require(loss_err <= DP_LOSS_RTOL,
+                     f"13a {kind}: rank {r}'s loss {out['losses'][:DP_ACCUMULATE]} within "
+                     f"{DP_LOSS_RTOL} of the one-process {ref['losses'][:DP_ACCUMULATE]}")
+            _require(out["spread"] == [0.0] * DP_STEPS,
+                     f"13a {kind}: the ranks' parameters equal after every step: {out['spread']}")
+            _require(out["launches"] == ref["launches"],
+                     f"13a {kind}: rank {r}'s launches a step are the one-process step's: "
+                     f"{out['launches'][0]} vs {ref['launches'][0]}")
+            _require(all(math.isfinite(v) for v in out["losses"]), f"13a {kind}: finite losses")
+        for step in range(DP_ACCUMULATE):
+            summed = [sum(r[["shared", "per_ray"].index(kind)]["grads"][step][i] for r in ranks)
+                      for i in range(len(ref["grads"][step]))]
+            for group, part in (("fields", slice(0, -1)), ("poses", slice(-1, None))):
+                one_g, two_g = ref["grads"][step][part], summed[part]
+                scale = max(float(np.abs(g).max()) for g in one_g)
+                grads_err[group] = max(grads_err[group], max(
+                    float(np.abs(a - b).max()) for a, b in zip(two_g, one_g)) / scale)
+        _require(grads_err["fields"] <= PART_TOL["wgrad"],
+                 f"13a {kind}: the ranks' summed field grads within {PART_TOL['wgrad']} of the "
+                 f"largest one-process field grad, got {grads_err['fields']:.3e}")
+        _require(grads_err["poses"] <= LIMITS["pose"],
+                 f"13a {kind}: the ranks' summed pose grads within {LIMITS['pose']} of the "
+                 f"largest one-process pose grad, got {grads_err['poses']:.3e}")
+        rank0 = ranks[0][["shared", "per_ray"].index(kind)]
+        med_two = statistics.median(rank0["step_ms"][1:])
+        med_one = statistics.median(ref["step_ms"][1:])
+        print(f"13a {kind}: losses one-process {ref['losses']}, rank 0 {rank0['losses']}; "
+              f"worst loss rel err before the update {loss_err:.3e} (tol {DP_LOSS_RTOL}); summed "
+              f"grads from the one-process grads, over the largest: fields "
+              f"{grads_err['fields']:.3e} (tol {PART_TOL['wgrad']}), poses "
+              f"{grads_err['poses']:.3e} (tol {LIMITS['pose']}, a sum over every point); parameter "
+              f"spread after each step {rank0['spread']}; launches a step "
+              f"{rank0['launches'][0]}", flush=True)
+        print(f"13d {kind}: {DP_WORLD}-rank step median {med_two:.3f} ms (rank 0, synced, steps "
+              f"2-{DP_STEPS}) against one process {med_one:.3f} ms; the step's collectives "
+              f"alone (the grad vector of {sum(g.size for g in ref['grads'][0])} floats, the "
+              f"metrics, the mask counts) {rank0['collective_ms']:.3f} ms; card {card}",
+              flush=True)
+        per = _launch_sum(rank0["launches"])
+        launches = per if launches is None else {k: launches[k] + per[k] for k in per}
+
+    # (b) the app-init app
+    rows = [[json.loads(line) for line in open(os.path.join(d, load_config(app_argv).expname,
+                                                            "app_init", "metrics.jsonl"))]
+            for d in (one_dir, two_dir)]
+    losses = [[r["train/fine_loss"] for r in rs if "train/fine_loss" in r] for rs in rows]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0]))
+    print(f"13b app init: fine loss per epoch one rank {losses[0]}, {DP_WORLD} ranks "
+          f"{losses[1]}: rel err {err:.3e} (tol {DP_APP_RTOL}); val PSNR "
+          f"{[r['val/psnr'] for r in rows[1] if 'val/psnr' in r]}", flush=True)
+    _require(len(losses[1]) == len(losses[0]) > 0 and err <= DP_APP_RTOL,
+             "13b: the app-init app's epoch losses over the ranks within tolerance of one rank")
+    app_dir = os.path.join(two_dir, load_config(app_argv).expname, "app_init")
+    _require(sorted(os.listdir(two_dir)) == sorted({load_config(app_argv).expname, online_name}),
+             f"13b/c: one run directory an app: {os.listdir(two_dir)}")
+    steps = sorted(os.listdir(os.path.join(app_dir, "ckpts")))
+    _require(steps == sorted(os.listdir(os.path.join(one_dir, load_config(app_argv).expname,
+                                                     "app_init", "ckpts"))),
+             f"13b: the checkpoints of one rank's run: {steps}")
+    app_out = ranks[0][2]
+    _require([r[2]["spread"] for r in ranks] == [0.0] * DP_WORLD,
+             "13b: the ranks' final parameters equal")
+    restored = ckpt.restore_checkpoint(os.path.join(app_dir, "ckpts"), device="cuda")["params"]
+    _require(all(np.array_equal(a.cpu().numpy(), b) for a, b in
+                 zip(tree_leaves(restored), tree_leaves(app_out["params"]))),
+             "13b: the final checkpoint restores in one process to rank 0's tree")
+
+    # (c) the online app and its test
+    hist = [json.load(open(os.path.join(d, online_name, "online", "history.json")))
+            for d in (one_dir, two_dir)]
+    phases = [[h["phase"] for h in hs] for hs in hist]
+    fine = [[h["fine"] for h in hs] for hs in hist]
+    # the warmup epochs sample under one state; after the first phase change
+    # the prefetch queue's stale batches depend on timing (PERF.md, PR 8)
+    warm = sum(p in ("fieldform", "barf") for p in DP_ONLINE_PHASES)
+    err = max(abs(a - b) / abs(b) for a, b in zip(fine[1][:warm], fine[0][:warm]))
+    print(f"13c online: phases {phases[1]}; fine loss one rank {fine[0]}, {DP_WORLD} ranks "
+          f"{fine[1]}: rel err over the {warm} warmup epochs {err:.3e} (tol {DP_ONLINE_RTOL}), "
+          f"over all {max(abs(a - b) / abs(b) for a, b in zip(fine[1], fine[0])):.3e}",
+          flush=True)
+    _require(phases[0] == phases[1] == DP_ONLINE_PHASES,
+             f"13c: the phase sequence {DP_ONLINE_PHASES}")
+    _require(err <= DP_ONLINE_RTOL and all(math.isfinite(v) for v in fine[1]),
+             "13c: the online app's warmup fine losses within tolerance, all finite")
+    _require([r[3]["spread"] for r in ranks] == [0.0] * DP_WORLD,
+             "13c: the ranks' final parameters equal")
+    test_rows = [[{k: v for k, v in json.loads(line).items() if k.startswith("test/")}
+                  for line in open(os.path.join(d, online_name, "online_test", "metrics.jsonl"))]
+                 for d in (one_dir, two_dir)]
+    test_err = max(abs(a[k] - b[k]) for a, b in zip(*test_rows) for k in a)
+    test_dir = os.path.join(two_dir, online_name, "online_test")
+    print(f"13c test over {DP_WORLD} ranks on the one-rank checkpoint: {len(test_rows[1])} rows, "
+          f"worst abs difference from the one-rank rows {test_err:.3e} (tol {DP_TEST_ATOL}); "
+          f"files {sorted(os.listdir(test_dir))}", flush=True)
+    _require(len(test_rows[0]) == len(test_rows[1]) > 0
+             and [sorted(r) for r in test_rows[0]] == [sorted(r) for r in test_rows[1]]
+             and test_err <= DP_TEST_ATOL, "13c: the test rows over the ranks")
+    _require(os.path.getsize(os.path.join(test_dir, "view0.gif")) > 0, "13c: view0.gif written")
+    for out in ranks[0][2:]:
+        launches = {k: launches[k] + out["launches"][k] for k in launches}
+    return launches
+
+
+def phase_utils(lego_config, lego_ckpts, app_config, card):
+    """14: the eval-only utilities on the card. (a) utils/mesh.extract_mesh
+    over models.fields.query_density of phase 11's trained fine field at
+    startrax's defaults (MESH_RES^3 over [-0.8, 0.8]^3, sigma 50): the grid's
+    time (one fused forward a 65,536-point chunk, nothing else launched),
+    the marching on the host at sigma 50, or at MESH_FALLBACK of the grid's
+    largest density where the field stays under 50 (no cell crosses it), a
+    non-empty OBJ that parses into the returned mesh;
+    the kernel path's density grid against the plain path's on a
+    MESH_CHECK^3 grid within parity.LIMITS' forward limits. (b)
+    utils/profiling.trace around one app-init step at app_config's widths:
+    the Chrome trace names fwd_kernel and bwd_kernel; StepTimer over
+    TIMER_STEPS steps. Returns the launches of (a) and (b)."""
+    import numpy as np
+    import torch
+
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.kernels.parity import LIMITS, _max_rel, _rms_rel
+    from startrax_torch.models import fields
+    from startrax_torch.models.star import init_star
+    from startrax_torch.train import checkpoint as ckpt
+    from startrax_torch.train import loop, optim
+    from startrax_torch.utils import mesh as mesh_mod
+    from startrax_torch.utils import profiling
+    from startrax_torch.utils.config import load_config, loss_config_from, star_config_from
+    from startrax_torch.utils.tree import tree_leaves
+
+    lego = star_config_from(load_config(["--config", lego_config]))
+    fcfg = lego.static_field(fine=True)
+    params = ckpt.restore_checkpoint(lego_ckpts, device="cuda")["params"]["static_fine"]
+
+    def density(kind):
+        cfg = dataclasses.replace(fcfg, use_fused=kind == "kernel")
+        return lambda p: fields.query_density(params, cfg, torch.from_numpy(p).cuda())
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        fm.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = mesh_mod.eval_density_grid(density("kernel"), MESH_RES)
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        grid_launches = _launch_snapshot()
+        n_chunks = -(-MESH_RES ** 3 // 65536)
+        # startrax's sigma 50, or, where the short-trained field stays under
+        # it everywhere (no cell can cross it), MESH_FALLBACK of its largest
+        # density: a surface the marching must find
+        level = MESH_SIGMA if grid.max() > MESH_SIGMA else MESH_FALLBACK * float(grid.max())
+        t0 = time.perf_counter()
+        verts, faces = mesh_mod.marching_tetrahedra(grid, level, (-0.8, 0.8))
+        march_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "lego.obj")
+        mesh_mod.save_obj(path, verts, faces)
+        lines = open(path).read().splitlines()
+        vs = np.array([[float(x) for x in ln.split()[1:]] for ln in lines if ln.startswith("v ")])
+        fs = np.array([[int(x) - 1 for x in ln.split()[1:]] for ln in lines
+                       if ln.startswith("f ")])
+        print(f"14a mesh of phase 11's fine field ({fcfg.depth}x{fcfg.width}): {MESH_RES}^3 = "
+              f"{MESH_RES ** 3} points over [-0.8, 0.8]^3 in {grid_s:.3f} s ({n_chunks} chunks "
+              f"of 65,536; launches {grid_launches}); density min {grid.min():.3f} median "
+              f"{float(np.median(grid)):.3f} max {grid.max():.3f}; marching tetrahedra at sigma "
+              f"{level:.3f}" + ("" if level == MESH_SIGMA else
+                                f" ({MESH_FALLBACK} of the max: the field, trained "
+                                f"{int(LEGO_CUT[1]) * int(LEGO_CUT[3])} steps, stays under "
+                                f"startrax's sigma {MESH_SIGMA}, where the mesh is empty)")
+              + f" on the host {march_s:.2f} s: {len(verts)} vertices, {len(faces)} faces, OBJ "
+              f"{os.path.getsize(path)} bytes; card {card}", flush=True)
+        _require(grid_launches == _counts(fwd=n_chunks) | {"wgrad": 0, "sum_rows": 0},
+                 f"14a: one fused forward a chunk, nothing else: {grid_launches}")
+        _require(bool(np.isfinite(grid).all()), "14a: a finite density grid")
+        _require(len(vs) == len(verts) and len(fs) == len(faces)
+                 and (len(verts) == 0 or (np.abs(vs - verts).max() < 1e-5
+                                          and np.array_equal(fs, faces))),
+                 "14a: the OBJ parses into the returned mesh")
+        _require(len(verts) > 0 and len(faces) > 0, "14a: a non-empty mesh")
+        del grid
+        fine = {k: mesh_mod.eval_density_grid(density(k), MESH_CHECK) for k in ("kernel", "plain")}
+        a, b = (torch.from_numpy(fine[k]) for k in ("kernel", "plain"))
+        err = {"fwd": _max_rel(a, b), "fwd_rms": _rms_rel(a, b)}
+        print(f"14a kernel path against plain path on a {MESH_CHECK}^3 grid: {err} (limits fwd "
+              f"{LIMITS['fwd']}, fwd_rms {LIMITS['fwd_rms']})", flush=True)
+        _require(err["fwd"] <= LIMITS["fwd"] and err["fwd_rms"] <= LIMITS["fwd_rms"],
+                 "14a: the density grid within parity.LIMITS' forward limits")
+
+        # (b) profiling.trace around one app-init step, StepTimer
+        app = load_config(["--config", app_config])
+        star_cfg, loss_cfg = star_config_from(app), loss_config_from(app)
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        nerf = init_star(star_cfg, gen, "cuda")
+        for leaf in tree_leaves(nerf):
+            leaf.requires_grad_(True)
+        step = loop.make_appinit_train_step(star_cfg, loss_cfg,
+                                            optim.make_appinit_optimizer(nerf, app.lrate))
+        batch = {k: v for k, v in _batch(app.N_rand, 1, star_cfg.near, star_cfg.far).items()
+                 if k != "frame"}
+        step(nerf, batch, generator=gen)
+        fm.reset_launch_counts()
+        with profiling.trace(tmp) as prof:
+            step(nerf, batch, generator=gen)
+            torch.cuda.synchronize()
+        traced = _launch_snapshot()
+        text = open(os.path.join(tmp, profiling.TRACE_FILE)).read()
+        names = {k: text.count(k) for k in ("fwd_kernel", "bwd_kernel", "wgrad_kernel")}
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        timer = profiling.StepTimer(sync_every=TIMER_STEPS)
+        loss, _ = step(nerf, batch, generator=gen)
+        timer.tick(loss, app.N_rand)
+        t0 = time.perf_counter()
+        for _ in range(TIMER_STEPS):
+            loss, _ = step(nerf, batch, generator=gen)
+            rate = timer.tick(loss, app.N_rand)
+        wall = time.perf_counter() - t0
+        print(f"14b trace of one app-init step ({star_cfg.netdepth}x{star_cfg.netwidth}, "
+              f"{app.N_rand} rays): {os.path.getsize(os.path.join(tmp, profiling.TRACE_FILE))} "
+              f"bytes, kernel names {names}, device time {device_ms:.3f} ms, launches {traced}; "
+              f"StepTimer over {TIMER_STEPS} steps {rate:.1f} rays/s "
+              f"({wall / TIMER_STEPS * 1e3:.3f} ms a step); card {card}", flush=True)
+        _require(names["fwd_kernel"] > 0 and names["bwd_kernel"] > 0,
+                 "14b: the trace names fwd_kernel and bwd_kernel")
+        _require(math.isfinite(rate) and rate > 0, "14b: a finite StepTimer rate")
+        traced = {k: grid_launches[k] + traced[k] for k in traced}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return traced
 
 
 def _rows(per_field, stacked, encoded, stacked_enc, bwd_parts, part_launches):
@@ -3311,6 +3739,20 @@ def main():
                                  app_cfg.synth_cache_dir, os.path.join(tmp, "mip"))
         print(f"phase 12 (mip app init, online and test): {time.perf_counter() - t12:.1f} s",
               flush=True)
+        t13 = time.perf_counter()
+        dp_launches = phase_data_parallel(
+            cfg, star_cfg, loss_cfg, os.path.join(configs, SLICE_CONFIG), online_path, warm,
+            app_cfg.synth_cache_dir, os.path.join(tmp, "dp"), card)
+        print(f"phase 13 (data parallelism, {DP_WORLD} gloo ranks on the card): "
+              f"{time.perf_counter() - t13:.1f} s", flush=True)
+        t14 = time.perf_counter()
+        util_launches = phase_utils(
+            os.path.join(configs, LEGO_CONFIG),
+            os.path.join(tmp, "lego", load_config(["--config", os.path.join(
+                configs, LEGO_CONFIG)]).expname, "app_init", "ckpts"),
+            os.path.join(configs, SLICE_CONFIG), card)
+        print(f"phase 14 (mesh extraction, profiling): {time.perf_counter() - t14:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rows = _rows((worst, step_ms, counts), (worst_s, ms_s, counts_s), (worst_e, ms_e, counts_e),
@@ -3337,7 +3779,10 @@ def main():
                                                           "sum_rows")),
              "carla_launches": (carla_launches, ("enc_fwd", "enc_bwd", "wgrad", "sum_rows")),
              "lego_launches": (lego_launches, ("fwd", "bwd", "wgrad", "sum_rows")),
-             "mip_launches": (mip_launches, ())}
+             "mip_launches": (mip_launches, ()),
+             "data_parallel_launches": (dp_launches, ("fwd", "bwd", "stacked_fwd",
+                                                      "stacked_bwd", "wgrad", "sum_rows")),
+             "utils_launches": (util_launches, ("fwd", "bwd", "wgrad", "sum_rows"))}
     for name, (launched, path) in later.items():
         _require(all(launched[k] > 0 for k in path),
                  f"{name}: every kernel of its path launched: {launched}")

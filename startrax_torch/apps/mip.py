@@ -258,8 +258,8 @@ def _validate(ws, cfg, mcfg, params, val_data, cur, step, device):
 
 def test(cfg: Config, device=None):
     """The mip test protocol on the checkpoint at cfg.online_ckpt_path.
-    LPIPS weights that exist and save_video_frames raise before a run
-    directory is made."""
+    LPIPS weights that exist raise before a run directory is made;
+    save_video_frames writes each view's GIF (apps/test_protocol)."""
     dev = resolve(device)
     check_supported(cfg)
     ws = Workspace(cfg, "mip_test")

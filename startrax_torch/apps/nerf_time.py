@@ -99,7 +99,8 @@ def test(cfg: Config, device=None):
     """The baseline's test protocol: per test view, every frame up to
     eval_last_frame rendered from the checkpoint at cfg.online_ckpt_path,
     a frame_metrics row each and their mean a view. LPIPS weights that exist
-    and save_video_frames raise before a run directory is made."""
+    raise before a run directory is made; save_video_frames writes nothing
+    here, as in startrax's."""
     dev = resolve(device)
     check_supported(cfg)
     ws = Workspace(cfg, "nerf_time_test")

@@ -2,7 +2,7 @@
 SE(3) vehicle poses by photometric self-supervision, admitting frames
 through the curriculum (PyTorch).
 
-Counterpart of startrax/apps/online.py on one device:
+Counterpart of startrax/apps/online.py:
 
 - init: random fields (or the static fields of an appearance checkpoint,
   ``appearance_ckpt_path``) and the noisy GT poses (``noisy_pose_init``),
@@ -34,19 +34,27 @@ phase kind, all over the same leaves) updates in place; a restore or an
 adopted correction copies into them (train.checkpoint.copy_into) and never
 rebinds them. The polishes' scratch trees (the gauge's reference fields, the
 multi-start candidates) are trees of their own leaves with optimizers of
-their own. Ray-axis data parallelism, LPIPS and the video export are not
-ported and raise NotImplementedError.
+their own. LPIPS is not ported and raises NotImplementedError.
+
+Ray-axis data parallelism (``data_parallel``, apps.common.make_run_mesh):
+one process a rank, as a launcher starts them. Rank 0 samples each global
+batch and broadcasts it; every rank steps on its shard of it, and the
+optimizers sum the grads over the ranks, so that every rank holds the same
+parameters; the draws of a step are the one-process step's
+(models.star.render_star's shard), and the eval renders split their tiles
+over the ranks. Every host decision reads values that are equal on every
+rank (all-reduced metrics, gathered renders of equal parameters, or rank
+0's wall clock); only rank 0 writes the run directory.
 
 Usage:
   python -m startrax_torch.apps.online --config startrax/configs/synthetic_star_online_scaled.txt
   python -m startrax_torch.apps.online --config ... --test true --online_ckpt_path <run>/ckpts
+  torchrun --nproc_per_node N -m startrax_torch.apps.online --config ...
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
-import os
 import time
 
 import numpy as np
@@ -60,21 +68,21 @@ from ..eval.image import ssim as ssim_fn
 from ..eval.render import render_image
 from ..models.fields import init_stacked_fields
 from ..ops import lie
+from ..parallel.mesh import replicate_params, shard_batch
 from ..train import checkpoint as ckpt
 from ..train import loop, optim
 from ..train.curriculum import CurriculumConfig, CurriculumState, advance
 from ..utils.config import Config, load_config, loss_config_from, star_config_from
 from ..utils.tree import tree_leaves, tree_map
-from .common import Workspace, check_one_device, host_prng, make_dataset
+from .common import (Workspace, agree, host_prng, log_run_mesh, make_dataset, make_run_mesh,
+                     next_batch)
 from .test_protocol import check_supported, run_test_protocol
 
 POLISH_MODES = ("alternate", "interleave", "gauge_align", "refit_anchor")
 
 
 def check_supported_train(cfg: Config) -> None:
-    """Raise for what the port's online app does not run: ray-axis data
-    parallelism (``data_parallel = on``), and an unknown polish_mode."""
-    check_one_device(cfg)
+    """Raise ValueError for an unknown polish_mode."""
     if cfg.polish_epochs > 0 and cfg.polish_mode not in POLISH_MODES:
         raise ValueError(f"polish_mode must be alternate, interleave, gauge_align or "
                          f"refit_anchor, got {cfg.polish_mode}")
@@ -99,17 +107,15 @@ def _init_params(cfg: Config, star_cfg, generator, device, train_data, rng):
     return params
 
 
-def _place_batch(batch, device):
-    """A sampled batch on the device. A shared-pose batch's frame stays a
-    Python int, so that its dynamic fields take the per-field kernels with
-    the in-kernel warp; a per-ray batch's [N] frames become a tensor."""
-    out = {}
-    for k, v in batch.items():
-        if k == "frame" and np.ndim(v) == 0:
-            out[k] = int(v)
-        else:
-            out[k] = torch.as_tensor(v, device=device)
-    return out
+def _place_batch(batch, device, group=None):
+    """A sampled batch (this rank's shard of it over a ray group) on the
+    device. A shared-pose batch's frame stays a Python int, so that its
+    dynamic fields take the per-field kernels with the in-kernel warp; a
+    per-ray batch's [N] frames become a tensor."""
+    if group is not None:
+        batch = shard_batch(batch, group)
+    return {k: int(v) if k == "frame" and np.ndim(v) == 0 else torch.as_tensor(v, device=device)
+            for k, v in batch.items()}
 
 
 # polish sub-state <-> checkpoint encoding (phases as ints, as startrax
@@ -158,7 +164,7 @@ def _depth_mse(pred, gt, near: float, far: float) -> float:
 
 
 def _held_out(cfg: Config, star_cfg, params, val_data, frames, depth_lambda, with_mass: bool,
-              view: int, device):
+              view: int, device, group=None):
     """The held-out view rendered at each of ``frames`` with the learned
     poses (frame 0 = identity), its pixels subsampled by selection_stride:
     the mean over the frames of the MSE, plus depth_lambda times the
@@ -181,7 +187,7 @@ def _held_out(cfg: Config, star_cfg, params, val_data, frames, depth_lambda, wit
     for f in frames:
         pose = loop.gather_frame_pose(poses, f, star_cfg.num_vehicles)
         out = render_image(params["nerf"], star_cfg, rays_o, rays_d, pose=pose, keys=keys,
-                           device=device)
+                           device=device, group=group)
         target = np.asarray(val_data.images[view, f], np.float32)[::s, ::s]
         score = float(np.mean((out["rgb" + suff] - target) ** 2))
         if depth_lambda is not None:
@@ -196,19 +202,20 @@ def _held_out(cfg: Config, star_cfg, params, val_data, frames, depth_lambda, wit
 
 
 def selection_score(cfg: Config, star_cfg, params, val_data, num_frames: int, view: int = 0,
-                    start_frame: int = 0, device=None) -> float:
+                    start_frame: int = 0, device=None, group=None) -> float:
     """GT-free best-epoch criterion: the mean MSE of a held-out val view
     rendered at every scored frame with the learned poses (frame 0 =
     identity); lower is better. selection = "photometric_depth" adds
     selection_depth_lambda times the relative-squared depth error when the
     dataset carries depth maps. selection_frames / selection_stride
-    subsample the scored frames / pixels. device=None is the card."""
+    subsample the scored frames / pixels. device=None is the card; group:
+    the ray group the renders split their tiles over, or None."""
     use_depth = (cfg.selection == "photometric_depth"
                  and getattr(val_data, "depths", None) is not None)
     score, _ = _held_out(cfg, star_cfg, params, val_data,
                          _score_frames(cfg, start_frame, num_frames),
                          cfg.selection_depth_lambda if use_depth else None, False, view,
-                         resolve(device))
+                         resolve(device), group)
     return score
 
 
@@ -231,16 +238,18 @@ def _gauge_accept(base_score: float, cand_score: float, base_vis: float, cand_vi
 
 
 def _guard_eval(cfg: Config, star_cfg, params, val_data, num_frames: int, view: int = 0,
-                start_frame: int = 1, device=None):
+                start_frame: int = 1, device=None, group=None):
     """The held-out photometric error (+ gauge_depth_lambda times the depth
     error when the dataset carries depth maps) and the per-vehicle held-out
     visibility mass [K], over the frames selection_frames scores, pixels
-    subsampled by selection_stride. device=None is the card."""
+    subsampled by selection_stride. device=None is the card; group as
+    selection_score."""
     use_depth = (cfg.gauge_depth_lambda > 0
                  and getattr(val_data, "depths", None) is not None)
     return _held_out(cfg, star_cfg, params, val_data,
                      _score_frames(cfg, start_frame, num_frames),
-                     cfg.gauge_depth_lambda if use_depth else None, True, view, resolve(device))
+                     cfg.gauge_depth_lambda if use_depth else None, True, view, resolve(device),
+                     group)
 
 
 def gauge_within_caps(G: np.ndarray, max_trans: float, max_rot: float):
@@ -291,10 +300,12 @@ def fresh_dynamic_fields(star_cfg, names, generator, device):
 
 def train(cfg: Config, device=None):
     """Run online training; returns the parameters (leaf tensors on
-    ``device``, None: the card, device.resolve)."""
-    dev = resolve(device)
+    ``device``, None: the card, device.resolve; over a ray group, the
+    group's device)."""
     check_supported_train(cfg)
-    ws = Workspace(cfg, "online")
+    group = make_run_mesh(cfg, device)
+    dev = resolve(device) if group is None else group.device
+    ws = Workspace(cfg, "online", group)
     # the main (post-warmup) steps run at full frequency; a BARF-masked
     # variant serves the warmup epochs only
     star_cfg = dataclasses.replace(star_config_from(cfg), end_barf=-1)
@@ -311,10 +322,13 @@ def train(cfg: Config, device=None):
 
     rng, gen = host_prng(cfg.seed, dev)
     params = _init_params(cfg, star_cfg, gen, dev, train_data, rng)
+    n_rand = log_run_mesh(ws, group, cfg.N_rand)
+    if group is not None:
+        replicate_params(params, group)
 
     pose_lr = 0.0 if cfg.load_gt_poses else cfg.lrate_pose
     opt_kw = dict(steps_per_epoch=cfg.steps_per_epoch, grad_clip=1.0,
-                  accumulate_steps=cfg.accumulate_grad_batches)
+                  accumulate_steps=cfg.accumulate_grad_batches, ray_group=group)
     nerf_decay = dict(decay_rate=cfg.lrate_decay_rate, decay_epochs=cfg.lrate_decay,
                       decay_milestones=cfg.lrate_decay_steps)
     pose_decay = dict(pose_decay_rate=cfg.pose_lrate_decay_rate,
@@ -429,17 +443,19 @@ def train(cfg: Config, device=None):
     # `sample_state` without a lock: up to depth + workers queued batches
     # were sampled under the previous phase's state; steps_per_epoch is far
     # larger than the queue, so a handful of stale-window batches at each
-    # transition is accepted by design.
+    # transition is accepted by design. Over a ray group only rank 0 samples
+    # (apps.common.next_batch), so every rank steps on the same batch.
     sample_state = {"start": cur.start_frame, "end": min(cur.current_frame, cfg.num_frames),
                     "car": cfg.car_sample_ratio, "crop": False,
                     "ghost": cfg.ghost_sample_ratio, "f0": cfg.frame0_sample_ratio,
                     "mixed": cfg.mixed_frames}
     prefetcher = BatchPrefetcher(
         lambda r, st: train_data.sample_batch(
-            r, cfg.N_rand, start_frame=st["start"], current_frame=st["end"],
+            r, n_rand, start_frame=st["start"], current_frame=st["end"],
             car_sample_ratio=st["car"], crop=st["crop"], mixed_frames=st["mixed"],
             ghost_sample_ratio=st["ghost"], frame0_sample_ratio=st["f0"]),
-        sample_state, seed=cfg.seed * 7919 + 1, depth=6, workers=max(cfg.num_workers, 1))
+        sample_state, seed=cfg.seed * 7919 + 1, depth=6,
+        workers=max(cfg.num_workers, 1)) if ws.writes else None
 
     car_pose = (cfg.car_sample_ratio_pose if cfg.car_sample_ratio_pose >= 0
                 else cfg.car_sample_ratio)
@@ -541,7 +557,7 @@ def train(cfg: Config, device=None):
         fines = []
         aux_losses.clear()
         for _ in range(cfg.steps_per_epoch):
-            batch = _place_batch(next(prefetcher), dev)
+            batch = _place_batch(next_batch(prefetcher, group), dev, group)
             _, metrics = fn(p, batch, epoch=epoch, generator=gen)
             step += 1
             fines.append(metrics["fine_loss"])  # device scalar, no sync
@@ -566,7 +582,7 @@ def train(cfg: Config, device=None):
         over it and its step."""
         gauge = lie.se3_identity(K, device=dev).requires_grad_(True)
         ga.update(stage="gauge", used=0, gauge=gauge, gauge_step=loop.make_gauge_train_step(
-            star_cfg, optim.make_gauge_optimizer(gauge, cfg.lrate_pose),
+            star_cfg, optim.make_gauge_optimizer(gauge, cfg.lrate_pose, ray_group=group),
             freeze_rot=cfg.gauge_freeze_rot, depth_lambda=cfg.gauge_depth_lambda))
 
     def run_gauge_epoch():
@@ -582,7 +598,7 @@ def train(cfg: Config, device=None):
         nerf = params["nerf"] if frame0 else ga["ref_params"]["nerf"]
         losses = []
         for _ in range(cfg.steps_per_epoch):
-            batch = _place_batch(next(prefetcher), dev)
+            batch = _place_batch(next_batch(prefetcher, group), dev, group)
             losses.append(ga["gauge_step"](ga["gauge"], nerf, params["poses"], batch,
                                            generator=gen))
             step += 1
@@ -621,7 +637,7 @@ def train(cfg: Config, device=None):
         def evaluate(g):
             cand = lie.se3_multiply(torch.from_numpy(g).to(dev)[None], params["poses"].detach())
             return _guard_eval(cfg, star_cfg, {"nerf": ga["ref_params"]["nerf"], "poses": cand},
-                               val_data, cfg.num_frames, start_frame=1, device=dev)
+                               val_data, cfg.num_frames, start_frame=1, device=dev, group=group)
 
         accepted, decisions = guard_gauge(G, evaluate, cfg.gauge_guard_min_vis)
         for k, (base, sk, bv, vk, ok) in enumerate(decisions):
@@ -637,7 +653,8 @@ def train(cfg: Config, device=None):
         candidate's poses are adopted. Returns the adopted (or base)
         score."""
         rng_ms = np.random.default_rng(cfg.seed * 31 + ms["rounds"] * 7 + 5)
-        base_score = selection_score(cfg, star_cfg, params, val_data, cfg.num_frames, device=dev)
+        base_score = selection_score(cfg, star_cfg, params, val_data, cfg.num_frames, device=dev,
+                                     group=group)
         fields = [t.detach().clone() for t in tree_leaves(params["nerf"])]
         best_sc, best_poses, best_c = base_score, None, -1
         for c in range(cfg.multi_start_candidates):
@@ -656,7 +673,8 @@ def train(cfg: Config, device=None):
                 # per-ray mixed frames: every frame's pose gets a gradient
                 # in every step of the short budget
                 run_phase_epoch(cand_step, epoch, car_pose, 0.0, 0.0, p=cand, mixed=True)
-            sc = selection_score(cfg, star_cfg, cand, val_data, cfg.num_frames, device=dev)
+            sc = selection_score(cfg, star_cfg, cand, val_data, cfg.num_frames, device=dev,
+                                 group=group)
             # ~0: the candidate rolled back into the base's basin
             resid = float((cand["poses"].detach()[..., :3]
                            - params["poses"].detach()[..., :3]).abs().max())
@@ -680,7 +698,7 @@ def train(cfg: Config, device=None):
 
     try:
         for epoch in range(start_epoch, cfg.epochs_online):
-            if deadline is not None and time.time() > deadline:
+            if agree(deadline is not None and time.time() > deadline, group):
                 stop_reason = "train_minutes budget"
                 break
             aux_losses.clear()
@@ -860,7 +878,7 @@ def train(cfg: Config, device=None):
                     score = sum(trans_err) + sum(rot_err)
                 else:
                     score = selection_score(cfg, star_cfg, params, val_data, cfg.num_frames,
-                                            device=dev)
+                                            device=dev, group=group)
                 row["score"] = round(score, 8)
                 logs["train/selection_score"] = score
                 if score < best["score"]:
@@ -883,18 +901,17 @@ def train(cfg: Config, device=None):
                    + (f" score={row['score']:.3e}" if "score" in row else ""))
 
             if (epoch + 1) % cfg.epoch_val == 0:
-                _validate(ws, cfg, params, star_cfg, val_data, gt_rel, cur, step, dev)
-                ckpt.save_checkpoint(ws.ckpt_dir, _state(epoch), step=epoch)
+                _validate(ws, cfg, params, star_cfg, val_data, gt_rel, cur, step, dev, group)
+                ws.save_checkpoint(ws.ckpt_dir, _state(epoch), step=epoch)
                 if best["params"] is not None and best["epoch"] > best_saved:
-                    ckpt.save_checkpoint(ws.ckpt_dir + "_best", {"params": best["params"]},
-                                         step=best["epoch"])
+                    ws.save_checkpoint(ws.ckpt_dir + "_best", {"params": best["params"]},
+                                       step=best["epoch"])
                     best_saved = best["epoch"]
                 if bbest["params"] is not None and bbest["epoch"] > bbest_saved:
-                    ckpt.save_checkpoint(ws.ckpt_dir + "_bbound", {"params": bbest["params"]},
-                                         step=bbest["epoch"])
+                    ws.save_checkpoint(ws.ckpt_dir + "_bbound", {"params": bbest["params"]},
+                                       step=bbest["epoch"])
                     bbest_saved = bbest["epoch"]
-                with open(os.path.join(ws.run_dir, "history.json"), "w") as f:
-                    json.dump(history, f)
+                ws.write_json("history.json", history)
 
             if (cfg.target_pose_err > 0 and cur.done and trans_err is not None
                     and max(trans_err) < cfg.target_pose_err
@@ -910,7 +927,8 @@ def train(cfg: Config, device=None):
                 stop_reason = "all frames admitted"
                 break
     finally:
-        prefetcher.close()
+        if prefetcher is not None:
+            prefetcher.close()
 
     if stop_reason:
         ws.log(f"training stopped: {stop_reason}")
@@ -927,15 +945,14 @@ def train(cfg: Config, device=None):
                    f"(score {ab['score']:.3e}, {cfg.selection}"
                    + (f", {n_boundary} boundaries" if ab is bbest else "") + ")")
             ckpt.copy_into(params, ab["params"])
-        ckpt.save_checkpoint(ws.ckpt_dir + "_best", {"params": ab["params"]}, step=ab["epoch"])
+        ws.save_checkpoint(ws.ckpt_dir + "_best", {"params": ab["params"]}, step=ab["epoch"])
 
-    ckpt.save_checkpoint(ws.ckpt_dir, _state(cfg.epochs_online), step=cfg.epochs_online)
-    with open(os.path.join(ws.run_dir, "history.json"), "w") as f:
-        json.dump(history, f)
+    ws.save_checkpoint(ws.ckpt_dir, _state(cfg.epochs_online), step=cfg.epochs_online)
+    ws.write_json("history.json", history)
     return params
 
 
-def _validate(ws, cfg, params, star_cfg, val_data, gt_rel, cur, step, device):
+def _validate(ws, cfg, params, star_cfg, val_data, gt_rel, cur, step, device, group=None):
     """Render the first val view at the newest admitted frame (a fixed
     view and frame, so that val PSNR compares across epochs); log its PSNR
     and SSIM, the pose errors and the rendered images."""
@@ -945,7 +962,8 @@ def _validate(ws, cfg, params, star_cfg, val_data, gt_rel, cur, step, device):
     target = val_data.images[view, frame]
 
     pose = loop.gather_frame_pose(params["poses"].detach(), frame, star_cfg.num_vehicles)
-    out = render_image(params["nerf"], star_cfg, rays_o, rays_d, pose=pose, device=device)
+    out = render_image(params["nerf"], star_cfg, rays_o, rays_d, pose=pose, device=device,
+                       group=group)
     rgb, tgt = torch.from_numpy(out["rgb"]), torch.tensor(np.asarray(target))
     p = float(psnr_fn(rgb, tgt))
     s = float(ssim_fn(rgb, tgt))
@@ -970,11 +988,14 @@ def test(cfg: Config, device=None):
     """The test protocol (apps/test_protocol.run_test_protocol) on the
     checkpoint at online_ckpt_path: pose export, RPE/ATE, the masked
     metric suite and the IoUs, rendered with the test outputs. device=None
-    is the card."""
-    dev = resolve(device)
+    is the card; over a ray group (make_run_mesh) each render splits its
+    tiles over the ranks and rank 0 writes."""
     check_supported(cfg)
-    check_one_device(cfg)
-    ws = Workspace(cfg, "online_test")
+    group = make_run_mesh(cfg, device)
+    dev = resolve(device) if group is None else group.device
+    ws = Workspace(cfg, "online_test", group)
+    if group is not None:
+        ws.log(f"eval tiles split over {group.world} ranks ({group.backend})")
     star_cfg = star_config_from(cfg)
     test_data = make_dataset(cfg, "test", dev)
 
@@ -985,7 +1006,7 @@ def test(cfg: Config, device=None):
 
     def render_frame(pose, rays_o, rays_d):
         return render_image(params["nerf"], star_cfg, rays_o, rays_d, pose=pose.to(dev),
-                            with_test_outputs=True, device=dev)
+                            with_test_outputs=True, device=dev, group=group)
 
     run_test_protocol(ws, cfg, star_cfg.num_vehicles, params["poses"].detach().cpu().numpy(),
                       test_data, render_frame)

@@ -5,13 +5,14 @@ RPE and ATE, the per-frame full, static-masked and dynamic-masked PSNR and
 SSIM, the 2D IoU from the dynamic transmittance and the 3D IoU of the
 vehicles' boxes, as one function over a ``render_frame(pose, rays_o,
 rays_d) -> {map: [H, W, ...]}`` callable. The metrics run on host copies
-of the rendered maps, in float32 on the CPU.
+of the rendered maps, in float32 on the CPU. With ``save_video_frames``
+each view's frames go to ``view{v}.gif`` (250 ms a frame, looping), the
+file startrax writes where imageio has no ffmpeg backend; the port writes no
+mp4. Over a ray group only rank 0 writes (the workspace's ``writes``).
 
-Two parts of startrax's protocol are not ported and raise
-NotImplementedError rather than being skipped: LPIPS, whose pretrained VGG
-weights the repository does not ship (a weights file that is named but
-missing is logged and skipped, as startrax does), and the per-view video
-(``save_video_frames``), which needs imageio.
+LPIPS is not ported and raises NotImplementedError rather than being
+skipped: its pretrained VGG weights are not in the repository (a weights
+file that is named but missing is logged and skipped, as startrax does).
 """
 
 from __future__ import annotations
@@ -30,19 +31,19 @@ from ..eval.image import ssim as ssim_fn
 from ..ops import lie
 from ..train import checkpoint as ckpt
 from ..train import loop
+from ..utils.logging import write_gif
+
+# the per-view video: startrax's gif fallback (imageio's duration, loop)
+VIDEO_FRAME_MS = 250
 
 
 def check_supported(cfg) -> None:
-    """Raise NotImplementedError for the parts of the protocol that are not
-    ported: LPIPS with a weights file that exists, and video export."""
+    """Raise NotImplementedError for the part of the protocol that is not
+    ported: LPIPS with a weights file that exists."""
     if cfg.lpips_weights and os.path.exists(cfg.lpips_weights):
         raise NotImplementedError(
             "LPIPS is not ported: it needs pretrained VGG weights that the repository does not "
             "ship (ROADMAP queue 1, left out on purpose); unset lpips_weights")
-    if cfg.save_video_frames:
-        raise NotImplementedError(
-            "save_video_frames is not ported: the per-view video needs imageio (ROADMAP queue 3, "
-            "deliberate differences); set save_video_frames = False")
 
 
 def frame_metrics(out, target, mask):
@@ -92,7 +93,8 @@ def run_test_protocol(ws, cfg, num_vehicles: int, poses: np.ndarray, test_data,
                       render_frame: Callable):
     """The full test protocol: per test view, render every frame with the
     learned poses; full/static/dynamic-masked PSNR and SSIM, 2D and 3D IoU,
-    RPE and ATE, and the pose-trajectory export.
+    RPE and ATE, the pose-trajectory export and, with save_video_frames,
+    the view's GIF.
 
     poses: [F-1, K, 7] learned relative poses.
     render_frame(pose [K, 7] CPU tensor, rays_o [H, W, 3], rays_d) -> maps."""
@@ -102,9 +104,10 @@ def run_test_protocol(ws, cfg, num_vehicles: int, poses: np.ndarray, test_data,
     est_all = np.asarray(poses, np.float32)  # [F-1, K, 7]
 
     # pose trajectory export x100
-    for k in range(num_vehicles):
-        ckpt.save_poses_txt(os.path.join(ws.run_dir, f"poses_vehicle{k}.txt"),
-                            _matrices(est_all[:, k]))
+    if ws.writes:
+        for k in range(num_vehicles):
+            ckpt.save_poses_txt(os.path.join(ws.run_dir, f"poses_vehicle{k}.txt"),
+                                _matrices(est_all[:, k]))
 
     # trajectory metrics per vehicle. Frame 0 is not estimated (the model
     # pins it): in CARLA's frame-0-relative convention its entry is identity
@@ -133,6 +136,7 @@ def run_test_protocol(ws, cfg, num_vehicles: int, poses: np.ndarray, test_data,
     for view in range(n_views):
         rays_o, rays_d = test_data.view_rays(view)
         acc: dict = {}
+        video_frames = []
         for frame in range(min(eval_last, test_data.images.shape[1])):
             pose = loop.gather_frame_pose(poses_t, frame, num_vehicles)
             out = render_frame(pose, rays_o, rays_d)
@@ -165,6 +169,11 @@ def run_test_protocol(ws, cfg, num_vehicles: int, poses: np.ndarray, test_data,
                                frame)
 
             ws.metrics.log_image(f"test/view{view}_rgb", out["rgb"], frame)
+            video_frames.append((255 * np.clip(np.nan_to_num(out["rgb"]), 0, 1)).astype(np.uint8))
+
+        if cfg.save_video_frames and video_frames and ws.writes:
+            write_gif(os.path.join(ws.run_dir, f"view{view}.gif"), video_frames,
+                      duration_ms=VIDEO_FRAME_MS, loop=0)
 
         row = {f"test/view{view}_{k}": float(np.mean(vs)) for k, vs in acc.items()}
         ws.metrics.log(row, view)

@@ -373,7 +373,8 @@ class SyntheticAdapter:
             else:
                 self.data = scene.make_dataset(num_views=total_views, device=device)
                 os.makedirs(cache_dir, exist_ok=True)
-                tmp = path + ".tmp.npz"
+                # a name of this process's own: ranks may write at once
+                tmp = f"{path}.{os.getpid()}.tmp.npz"
                 np.savez(tmp, **self.data)
                 os.replace(tmp, path)
         else:

@@ -162,6 +162,33 @@ def apply_field(params: Params, cfg: FieldConfig, pts, viewdirs, step=None, warp
     return raw_alpha.reshape(R, S), raw_rgb.reshape(R, S, 3)
 
 
+def _down_dirs(pts):
+    return pts.new_tensor([[0.0, 0.0, -1.0]]).expand(pts.shape[0], 3)
+
+
+def query_density(params: Params, cfg: FieldConfig, pts):
+    """Density at world points [N, 3] (post-softplus), seen along -z: the
+    nerfacc example models' query_density (startrax/models/fields.py). On
+    the card it is one fused forward, which saves nothing under
+    torch.no_grad."""
+    raw_alpha, _ = apply_field(params, cfg, pts[:, None, :], _down_dirs(pts))
+    return torch.nn.functional.softplus(raw_alpha[:, 0])
+
+
+def query_opacity(params: Params, cfg: FieldConfig, pts, step_size: float):
+    """Opacity of a step through each point: 1 - exp(-density * step)."""
+    return 1.0 - torch.exp(-query_density(params, cfg, pts) * step_size)
+
+
+def query_rgb(params: Params, cfg: FieldConfig, pts, viewdirs=None):
+    """Radiance at points [N, 3] (post-sigmoid) along viewdirs [N, 3]
+    (default -z): the vertex colours of utils/mesh.extract_color_mesh."""
+    if viewdirs is None:
+        viewdirs = _down_dirs(pts)
+    _, raw_rgb = apply_field(params, cfg, pts[:, None, :], viewdirs)
+    return torch.sigmoid(raw_rgb[:, 0])
+
+
 def _apply_encoded(params: Params, cfg: FieldConfig, x, dirs, step, R: int, S: int):
     """The field on points x [N, input_dims] and directions [N, 3], encoded
     outside the kernels (with the BARF schedule at ``step``) and run through

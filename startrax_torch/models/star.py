@@ -5,13 +5,14 @@ warps (PyTorch).
 Counterpart of startrax/models/star.py. Randomness is explicit: the
 stratified jitter ``u_strat [R, S]`` and the importance-sampling uniforms
 ``u_pdf [R, I]`` are passed in, or drawn from ``generator`` on the rays'
-device.
+device; on a rank's shard of a batch (``shard``) the draws are made at the
+whole batch's shape and the shard's rows kept.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -154,31 +155,41 @@ def apply_star(params: Params, cfg: StarConfig, pts, viewdirs, z_vals, rays_d, p
 
 def render_star(params: Params, cfg: StarConfig, rays_o, rays_d, pose=None, train: bool = True,
                 step=None, with_test_outputs: bool = False, u_strat=None, u_pdf=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[Tuple[int, int]] = None):
     """Coarse -> importance resample -> fine render of a ray batch.
 
     Coarse outputs get a "0" suffix, fine outputs keep bare names, and z_std
     is the spread of the importance samples. In training, u_strat [R, S] and
-    u_pdf [R, I] default to draws from ``generator``; eval (train=False) is
+    u_pdf [R, I] default to draws from ``generator``, as does the
+    appearance-init density noise; with shard = (rank, world) the rays are
+    rank's rows of a batch of world * R rays, and each draw is made at that
+    whole batch's shape and rank's rows kept, so that the ranks together
+    draw what one process draws for the whole batch. Eval (train=False) is
     deterministic."""
     R = rays_o.shape[0]
     dev = rays_o.device
+    rank, world = (0, 1) if shard is None else shard
+
+    def draw(sample, cols):
+        return sample((R * world, cols), generator=generator, device=dev)[rank * R:(rank + 1) * R]
+
     assert tuple(rays_o.shape) == (R, 3) and tuple(rays_d.shape) == (R, 3)
     if pose is not None:
         K = cfg.num_vehicles
         assert tuple(pose.shape) in ((K, 7), (R, K, 7)), tuple(pose.shape)
     if train:
         if u_strat is None and cfg.perturb > 0:
-            u_strat = torch.rand((R, cfg.n_samples), generator=generator, device=dev)
+            u_strat = draw(torch.rand, cfg.n_samples)
         if u_pdf is None and cfg.n_importance > 0:
-            u_pdf = torch.rand((R, cfg.n_importance), generator=generator, device=dev)
+            u_pdf = draw(torch.rand, cfg.n_importance)
     else:
         u_strat = u_pdf = None
 
     def noise_like(n_samples):
         if not train or pose is not None or cfg.raw_noise_std <= 0:
             return None
-        return cfg.raw_noise_std * torch.randn((R, n_samples), generator=generator, device=dev)
+        return cfg.raw_noise_std * draw(torch.randn, n_samples)
 
     z_vals = stratified_z_vals(R, cfg.near, cfg.far, cfg.n_samples, lindisp=cfg.lindisp,
                                perturb=cfg.perturb if train else 0.0, u=u_strat, device=dev)

@@ -49,18 +49,30 @@ def _coarse_fine_avg(result, name, has_fine):
 
 
 def compute_losses(result: Dict[str, Any], batch: Dict[str, Any], star_cfg: StarConfig,
-                   loss_cfg: LossConfig, epoch=None, online: bool = True):
-    """Total loss and logged metrics."""
+                   loss_cfg: LossConfig, epoch=None, online: bool = True, group=None):
+    """Total loss and logged metrics.
+
+    With a ray group (parallel.mesh.RayGroup) the batch is this rank's
+    shard and the loss is this rank's share: the plain means over the ray
+    axis (mse, the regularizers) are divided by the world size, the masked
+    means (depth, sigma) divide by the whole batch's mask count, so that the
+    shares sum to the one-process loss. The metrics are then the whole
+    batch's values on every rank (one all-reduce of the shares, no grad),
+    psnr from the whole batch's mse."""
     has_fine = star_cfg.n_importance > 0
-    target = batch["target"]
-    img_loss0 = img2mse(result["rgb0"], target)
+    world = 1 if group is None else group.world
+
+    def mse(rgb):
+        v = img2mse(rgb, batch["target"])
+        return v if group is None else v / world
+
+    img_loss0 = mse(result["rgb0"])
     loss = img_loss0
-    metrics = {"loss0": img_loss0, "psnr0": mse2psnr(img_loss0)}
+    metrics = {"loss0": img_loss0}
     if has_fine:
-        img_loss = img2mse(result["rgb"], target)
+        img_loss = mse(result["rgb"])
         loss = loss + img_loss
         metrics["fine_loss"] = img_loss
-        metrics["psnr"] = mse2psnr(img_loss)
     else:
         metrics["fine_loss"] = img_loss0
 
@@ -70,33 +82,55 @@ def compute_losses(result: Dict[str, Any], batch: Dict[str, Any], star_cfg: Star
             "dynamic_vs_static_reg": loss_cfg.lambda_dynamic_vs_static_reg,
             "ray_reg": loss_cfg.lambda_ray_reg,
             "static_reg": loss_cfg.lambda_static_reg,
+            "dynamic_reg": loss_cfg.lambda_dynamic_reg,
         }
         for name, lam in reg_terms.items():
             if lam > 0:
                 v = _coarse_fine_avg(result, f"loss_{name}", has_fine)
+                if group is not None:
+                    v = v / world
+                if name == "dynamic_reg" and epoch is not None:
+                    lam = lam * float(epoch >= loss_cfg.epoch_start_dynamic_reg)
                 loss = loss + lam * v
                 metrics[name] = v
-        if loss_cfg.lambda_dynamic_reg > 0:
-            v = _coarse_fine_avg(result, "loss_dynamic_reg", has_fine)
-            gate = 1.0 if epoch is None else float(epoch >= loss_cfg.epoch_start_dynamic_reg)
-            loss = loss + loss_cfg.lambda_dynamic_reg * gate * v
-            metrics["dynamic_reg"] = v
 
     # supervision attaches to the fine outputs when they exist
     suff = "" if has_fine else "0"
     if loss_cfg.use_depth_loss:
         dl = depth_loss_fn(result["depth" + suff], batch["target_depth"],
-                           star_cfg.near, star_cfg.far)
+                           star_cfg.near, star_cfg.far, group=group)
         loss = loss + loss_cfg.depth_lambda * dl
         metrics["depth_loss"] = dl
     if loss_cfg.use_sigma_loss:
         sl = sigma_loss_fn(result["weights" + suff], result["z_vals" + suff],
                            result["dists" + suff], batch["target_depth"], star_cfg.near,
-                           star_cfg.far, max_dist=0.5 * star_cfg.far_dist)
+                           star_cfg.far, max_dist=0.5 * star_cfg.far_dist, group=group)
         loss = loss + loss_cfg.sigma_lambda * sl
         metrics["sigma_loss"] = sl
     metrics["loss"] = loss
+    metrics = reduce_metrics(metrics, group)
+    metrics["psnr0"] = mse2psnr(metrics["loss0"])
+    if has_fine:
+        metrics["psnr"] = mse2psnr(metrics["fine_loss"])
     return loss, metrics
+
+
+def reduce_metrics(metrics: Dict[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
+    """The scalar metrics detached; with a ray group, each summed over the
+    ranks in one all-reduce (every rank gets the whole batch's values)."""
+    out = {k: v.detach() for k, v in metrics.items()}
+    if group is None:
+        return out
+    total = group.all_reduce(torch.stack([v.reshape(()) for v in out.values()]))
+    return dict(zip(out, total.unbind()))
+
+
+def _shard(opt):
+    """(rank, world) of the ray group the optimizer reduces its grads over,
+    or None: where a step draws its random numbers at the whole batch's
+    shape."""
+    g = opt.ray_group
+    return None if g is None else (g.rank, g.world)
 
 
 def gather_frame_pose(poses, frame, num_vehicles: int):
@@ -133,7 +167,10 @@ def make_online_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt,
     """Returns step(params, batch, epoch=0, u_strat=None, u_pdf=None,
     generator=None) -> (loss, metrics), updating params and opt in place;
     step.opt is opt. batch["frame"] is an int, or an [R] tensor of per-ray
-    frames.
+    frames. When opt reduces its grads over a ray group (opt.ray_group), the
+    batch is this rank's shard: the loss is its share (compute_losses), the
+    draws are made at the whole batch's shape (models.star.render_star's
+    shard), and the returned loss and metrics are the whole batch's.
 
     trans_only pins every quaternion to identity and optimises translations
     only; freeze_rot keeps each pose's current rotation. In both, the
@@ -148,9 +185,9 @@ def make_online_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt,
         pose = gather_frame_pose(poses, batch["frame"], star_cfg.num_vehicles)
         result = render_star(params["nerf"], star_cfg, batch["rays_o"], batch["rays_d"],
                              pose=pose, train=True, step=epoch, u_strat=u_strat, u_pdf=u_pdf,
-                             generator=generator)
+                             generator=generator, shard=_shard(opt))
         loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, epoch=epoch,
-                                       online=True)
+                                       online=True, group=opt.ray_group)
         loss.backward()
         with torch.no_grad():
             if (trans_only or freeze_rot) and poses.grad is not None:
@@ -162,7 +199,7 @@ def make_online_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt,
                 poses[..., 3:7] = q_before
             else:
                 poses[..., 3:7] = lie.quat_normalize(poses[..., 3:7])
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        return metrics["loss"], metrics
 
     train_step.opt = opt  # what a measurement reads of the step's optimizer
     return train_step
@@ -214,7 +251,8 @@ def make_gauge_train_step(star_cfg: StarConfig, opt, freeze_rot: bool = False,
     Returns step(gauge, nerf, poses, batch, u_strat=None, u_pdf=None,
     generator=None) -> loss, updating the gauge (a leaf that requires grad)
     and opt in place. The fields and poses are read detached: no grad of
-    theirs is formed, and their .grad stays as it was."""
+    theirs is formed, and their .grad stays as it was. Over a ray group
+    (opt.ray_group) the loss is reduced as make_online_train_step's is."""
 
     def gauge_step(gauge, nerf, poses, batch, u_strat=None, u_pdf=None, generator=None):
         opt.zero_grad()
@@ -222,22 +260,27 @@ def make_gauge_train_step(star_cfg: StarConfig, opt, freeze_rot: bool = False,
         pose_f = gather_frame_pose(poses.detach(), batch["frame"], star_cfg.num_vehicles)
         pose_c = lie.se3_multiply(gauge.expand(pose_f.shape), pose_f)
         result = render_star(fixed, star_cfg, batch["rays_o"], batch["rays_d"], pose=pose_c,
-                             train=True, u_strat=u_strat, u_pdf=u_pdf, generator=generator)
+                             train=True, u_strat=u_strat, u_pdf=u_pdf, generator=generator,
+                             shard=_shard(opt))
         has_fine = star_cfg.n_importance > 0
+        group = opt.ray_group
+        world = 1 if group is None else group.world
         loss = img2mse(result["rgb0"], batch["target"])
         if has_fine:
             loss = loss + img2mse(result["rgb"], batch["target"])
+        if group is not None:
+            loss = loss / world
         if depth_lambda > 0 and "target_depth" in batch:
             loss = loss + depth_lambda * depth_loss_fn(result["depth" if has_fine else "depth0"],
                                                        batch["target_depth"], star_cfg.near,
-                                                       star_cfg.far)
+                                                       star_cfg.far, group=group)
         loss.backward()
         with torch.no_grad():
             if freeze_rot:
                 gauge.grad[..., 3:7] = 0.0
             opt.step()
             gauge[..., 3:7] = lie.quat_normalize(gauge[..., 3:7])
-        return loss.detach()
+        return reduce_metrics({"loss": loss}, group)["loss"]
 
     return gauge_step
 
@@ -245,16 +288,20 @@ def make_gauge_train_step(star_cfg: StarConfig, opt, freeze_rot: bool = False,
 def make_appinit_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt):
     """Appearance-init step: static field only, photometric (+ depth/sigma)
     loss. Returns step(params, batch, u_strat=None, u_pdf=None,
-    generator=None) -> (loss, metrics)."""
+    generator=None) -> (loss, metrics); over a ray group (opt.ray_group) as
+    make_online_train_step, the density noise drawn at the whole batch's
+    shape too."""
 
     def train_step(params, batch, u_strat=None, u_pdf=None, generator=None):
         opt.zero_grad()
         result = render_star(params, star_cfg, batch["rays_o"], batch["rays_d"], pose=None,
-                             train=True, u_strat=u_strat, u_pdf=u_pdf, generator=generator)
-        loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, online=False)
+                             train=True, u_strat=u_strat, u_pdf=u_pdf, generator=generator,
+                             shard=_shard(opt))
+        loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, online=False,
+                                       group=opt.ray_group)
         loss.backward()
         opt.step()
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        return metrics["loss"], metrics
 
     return train_step
 

@@ -62,12 +62,19 @@ class FusedGroupAdam:
     the grads into a running mean (acc + (g - acc) / (n + 1) after n earlier
     mini-steps); the k-th applies clip and Adam to that mean and resets it,
     and the other k - 1 leave the parameters, the moments and the step count
-    (so the schedules) untouched."""
+    (so the schedules) untouched.
+
+    ray_group (a parallel.mesh.RayGroup, or None) makes it data-parallel:
+    step() all-reduces (sums) the concatenated grads of the ranks' loss
+    shares first, so accumulation, the clip's global norm and Adam read the
+    whole batch's grad, and every rank's leaves stay bit-identical. The
+    train steps read it to reduce their losses and draw at the whole batch's
+    shape (train.loop)."""
 
     def __init__(self, leaves: Sequence[torch.Tensor], group_ids: Sequence[int],
                  schedules: Sequence[Schedule], grad_clip: Optional[float] = None,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 accumulate_steps: int = 1):
+                 accumulate_steps: int = 1, ray_group=None):
         if accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
         self.leaves = list(leaves)
@@ -75,6 +82,7 @@ class FusedGroupAdam:
         self.grad_clip = grad_clip
         self.b1, self.b2, self.eps = b1, b2, eps
         self.accumulate_steps = accumulate_steps
+        self.ray_group = ray_group
         self.count = 0
         self.mini_step = 0
         ref = self.leaves[0]
@@ -133,6 +141,8 @@ class FusedGroupAdam:
         updated the parameters."""
         g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                        for p in self.leaves])
+        if self.ray_group is not None:
+            self.ray_group.all_reduce(g)
         if self.acc is not None:
             self.acc.add_((g - self.acc) / (self.mini_step + 1))
             self.mini_step += 1
@@ -168,11 +178,11 @@ def make_fused_star_optimizer(params: Dict, lrate_static: float, lrate_dynamic: 
                               pose_decay_epochs: Optional[int] = None,
                               pose_decay_milestones: Optional[Sequence[int]] = None,
                               grad_clip: Optional[float] = 1.0,
-                              accumulate_steps: int = 1) -> FusedGroupAdam:
+                              accumulate_steps: int = 1, ray_group=None) -> FusedGroupAdam:
     """Adam over {"nerf": star params, "poses": [F-1, K, 7]} with three LR
     groups: static fields, dynamic fields, poses. With accumulate_steps = k,
     an update every k steps on the mean grad, the schedules counting updates
-    (an epoch is steps_per_epoch // k of them)."""
+    (an epoch is steps_per_epoch // k of them); ray_group as FusedGroupAdam."""
     sched_steps = max(steps_per_epoch // accumulate_steps, 1)
     kw = dict(decay_rate=decay_rate, decay_epochs=decay_epochs,
               decay_milestones=decay_milestones, steps_per_epoch=sched_steps)
@@ -190,25 +200,26 @@ def make_fused_star_optimizer(params: Dict, lrate_static: float, lrate_dynamic: 
     leaves.append(params["poses"])
     groups.append(2)
     return FusedGroupAdam(leaves, groups, scheds, grad_clip=grad_clip,
-                          accumulate_steps=accumulate_steps)
+                          accumulate_steps=accumulate_steps, ray_group=ray_group)
 
 
 def make_appinit_optimizer(params: Dict, lrate: float, steps_per_epoch: int = 1,
                            decay_rate: float = 0.5, decay_epochs: Optional[int] = None,
                            decay_milestones: Optional[Sequence[int]] = None,
                            grad_clip: Optional[float] = None,
-                           accumulate_steps: int = 1) -> FusedGroupAdam:
+                           accumulate_steps: int = 1, ray_group=None) -> FusedGroupAdam:
     """Single-group Adam with a schedule, for appearance init; accumulation
-    as in make_fused_star_optimizer."""
+    and ray_group as in make_fused_star_optimizer."""
     sched = make_schedule(lrate, decay_rate=decay_rate, decay_epochs=decay_epochs,
                           decay_milestones=decay_milestones,
                           steps_per_epoch=max(steps_per_epoch // accumulate_steps, 1))
     leaves = tree_leaves(params)
     return FusedGroupAdam(leaves, [0] * len(leaves), [sched], grad_clip=grad_clip,
-                          accumulate_steps=accumulate_steps)
+                          accumulate_steps=accumulate_steps, ray_group=ray_group)
 
 
-def make_gauge_optimizer(gauge: torch.Tensor, lrate: float) -> FusedGroupAdam:
+def make_gauge_optimizer(gauge: torch.Tensor, lrate: float, ray_group=None) -> FusedGroupAdam:
     """Plain Adam at a constant learning rate, no clip (optax.adam(lrate),
-    as apps/online.py builds it for the gauge fit)."""
-    return FusedGroupAdam([gauge], [0], [lambda count: lrate])
+    as apps/online.py builds it for the gauge fit); ray_group as
+    FusedGroupAdam."""
+    return FusedGroupAdam([gauge], [0], [lambda count: lrate], ray_group=ray_group)

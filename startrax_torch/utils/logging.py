@@ -6,7 +6,9 @@ images under <run_dir>/images/. The images are 8-bit RGB PNG files that
 this module writes itself with zlib and struct (``write_png``, which also
 writes RGBA); the
 loaders read PNG files with ``read_png``, numpy and zlib, so the port needs
-no image library. The JAX package's optional wandb sink is not ported.
+no image library. The test protocol's per-view video is a GIF that
+``write_gif`` writes (numpy and its own LZW coder). The JAX package's
+optional wandb sink is not ported.
 """
 
 from __future__ import annotations
@@ -71,6 +73,101 @@ def write_png(path: str, rgb: np.ndarray):
         f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2 if ch == 3 else 6, 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(rows.tobytes())))
         f.write(chunk(b"IEND", b""))
+
+
+def _gif_palette(frames: np.ndarray):
+    """(palette [P <= 256, 3] uint8, indices [T, H, W] uint8) of uint8 RGB
+    frames [T, H, W, 3]: their own colours when there are at most 256 of
+    them, else the uniform 8 x 8 x 4 RGB cube, each channel rounded to its
+    nearest level."""
+    colours, inv = np.unique(frames.reshape(-1, 3), axis=0, return_inverse=True)
+    if len(colours) <= 256:
+        return colours.astype(np.uint8), inv.reshape(frames.shape[:3]).astype(np.uint8)
+    levels = (8, 8, 4)
+    idx = [np.rint(frames[..., c] / 255.0 * (n - 1)).astype(np.int32)
+           for c, n in enumerate(levels)]
+    grid = np.meshgrid(*(np.rint(np.arange(n) * 255.0 / (n - 1)) for n in levels), indexing="ij")
+    palette = np.stack(grid, axis=-1).reshape(-1, 3).astype(np.uint8)
+    return palette, ((idx[0] * levels[1] + idx[1]) * levels[2] + idx[2]).astype(np.uint8)
+
+
+def _lzw(indices: np.ndarray, min_code_size: int) -> bytes:
+    """GIF's variable-length LZW code of a flat index array: a clear code
+    first, codes of 3 to 12 bits packed least significant bit first, a
+    clear code whenever the 4096-entry table is full, the end code last."""
+    clear, end = 1 << min_code_size, (1 << min_code_size) + 1
+    out = bytearray()
+    acc = nbits = 0
+
+    def emit(code, size):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    size, nxt, table = min_code_size + 1, end + 1, {}
+    emit(clear, size)
+    data = indices.tolist()
+    prefix = data[0]
+    for k in data[1:]:
+        code = table.get((prefix, k))
+        if code is not None:
+            prefix = code
+            continue
+        emit(prefix, size)
+        if nxt < 4096:
+            table[(prefix, k)] = nxt
+            nxt += 1
+            # a decoder adds its entry one code later: it reads the next
+            # code one bit wider once this count passes 2^size
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        else:
+            emit(clear, size)
+            size, nxt, table = min_code_size + 1, end + 1, {}
+        prefix = k
+    emit(prefix, size)
+    if nxt == (1 << size) and size < 12:
+        size += 1  # the decoder's entry for the last code widens the end code
+    emit(end, size)
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def write_gif(path: str, frames, duration_ms: int = 250, loop: int = 0):
+    """Write uint8 RGB frames (a sequence of [H, W, 3], or [T, H, W, 3]) as
+    an animated GIF89a: one global palette of up to 256 colours
+    (_gif_palette: exact when the frames hold at most 256 colours), each
+    frame shown ``duration_ms`` (in GIF's hundredths of a second), ``loop``
+    repetitions (0: for ever, the NETSCAPE2.0 extension)."""
+    frames = np.ascontiguousarray(np.stack([np.asarray(f) for f in frames]))
+    if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[3] != 3:
+        raise ValueError(f"write_gif takes uint8 [H, W, 3] frames, got {frames.dtype} "
+                         f"{frames.shape[1:]}")
+    t, h, w, _ = frames.shape
+    palette, indices = _gif_palette(frames)
+    depth = max(1, int(np.ceil(np.log2(max(len(palette), 2)))))  # table of 2^depth entries
+    table = np.zeros((1 << depth, 3), np.uint8)
+    table[:len(palette)] = palette
+    min_code_size = max(2, depth)
+    delay = int(round(duration_ms / 10.0))
+    with open(path, "wb") as f:
+        f.write(b"GIF89a" + struct.pack("<HHBBB", w, h, 0x80 | 0x70 | (depth - 1), 0, 0))
+        f.write(table.tobytes())
+        f.write(b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", loop) + b"\x00")
+        for i in range(t):
+            f.write(b"\x21\xf9\x04" + struct.pack("<BHBB", 0x04, delay, 0, 0))
+            f.write(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0) + bytes([min_code_size]))
+            code = _lzw(indices[i].reshape(-1), min_code_size)
+            for j in range(0, len(code), 255):
+                block = code[j:j + 255]
+                f.write(bytes([len(block)]) + block)
+            f.write(b"\x00")
+        f.write(b"\x3b")
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"

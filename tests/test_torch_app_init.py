@@ -17,7 +17,8 @@ PSNR within 5e-3 dB, SSIM within 5e-4 absolute; the final parameters within
 2 x lr x steps (test_torch_train.py's bound).
 
 Also: the app's eval render (train.loop.make_eval_render) against
-startrax's, and the app's refusals (data_parallel = on, no CUDA device).
+startrax's, and the app's refusals (data_parallel = on with one rank, no CUDA
+device).
 """
 
 import dataclasses
@@ -123,8 +124,10 @@ def test_app_init_matches_startrax(tmp_path, monkeypatch):
 @pytest.mark.parametrize("setting", ["on", "sideways"])
 def test_app_init_refuses_data_parallel(setting, tmp_path):
     cfg = tconfig.Config(**dict(CFG, data_parallel=setting), basedir=str(tmp_path))
-    err = NotImplementedError if setting == "on" else ValueError
-    with pytest.raises(err, match="queue 1, item 8" if setting == "on" else "auto/on/off"):
+    # on: startrax's RuntimeError, there being one rank (no launcher)
+    err = RuntimeError if setting == "on" else ValueError
+    with pytest.raises(err, match="only one device is visible" if setting == "on"
+                       else "auto/on/off"):
         tapp.train(cfg, device="cpu")
     assert not os.path.exists(tmp_path / "smoke")
 

@@ -21,6 +21,8 @@ the input grads within 0.3 of their largest components (single-point
 outliers) and 2e-2 in rms, the per-ray pose grads within 1e-2 in rms.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -340,3 +342,59 @@ def test_host_prng_generator_is_on_the_card(card):
     _, gen = host_prng(5)
     assert gen.device.type == "cuda" and gen.initial_seed() == 5
     assert torch.rand(3, generator=gen, device="cuda").device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_field_queries_on_the_card_match_plain(card):
+    """query_density and query_rgb through the fused forward (one launch
+    each, nothing saved under no_grad) against the plain path, within
+    parity.LIMITS' forward limits."""
+    cfg, params, x, _ = _setup(20)
+    plain = dataclasses.replace(cfg, use_fused=False)
+    before = dict(tfused.launches)
+    with torch.no_grad():
+        dk, rk = tfields.query_density(params, cfg, x), tfields.query_rgb(params, cfg, x)
+        dp, rp = tfields.query_density(params, plain, x), tfields.query_rgb(params, plain, x)
+    assert tfused.launches["fwd"] - before["fwd"] == 2
+    for a, b in ((dk, dp), (rk, rp)):
+        assert float((a - b).abs().max() / b.abs().max()) <= parity.LIMITS["fwd"]
+        assert float((a - b).norm() / b.norm()) <= parity.LIMITS["fwd_rms"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["shared", "per_ray"])
+def test_online_step_over_two_ranks_on_the_card(card, layout):
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device) against the one-process step, kernel path, 4 x 256 fields, 64
+    rays x (32 + 32) samples: the loss within 1e-5 relative before the
+    first update, the ranks' parameters equal after every step, each rank's
+    launches the one-process step's."""
+    import numpy as np
+
+    from startrax_torch.parallel import dryrun, mesh
+    from startrax_torch.train import loop
+
+    cfg = StarConfig(num_vehicles=2, netdepth=4, netdepth_fine=4, netwidth=256,
+                     netwidth_fine=256, n_samples=32, n_importance=32, near=2.0, far=6.0)
+    params = convert.params_to_numpy(loop.init_online_params(
+        cfg, 4, torch.Generator().manual_seed(21), "cpu"))
+    rng = np.random.default_rng(22)
+    n = 64
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    batch = {"rays_o": rng.normal(size=(n, 3)).astype(np.float32),
+             "rays_d": d / np.linalg.norm(d, axis=-1, keepdims=True),
+             "target": rng.uniform(size=(n, 3)).astype(np.float32),
+             "target_depth": np.where(np.arange(n) % 3 == 0, 4.0, 0.0).astype(np.float32),
+             "frame": np.int32(2) if layout == "shared" else rng.integers(0, 4, n).astype(
+                 np.int32)}
+    spec = {"kind": "online", "star_cfg": cfg, "params": params, "batches": [batch] * 4,
+            "loss_cfg": loop.LossConfig(use_depth_loss=True, depth_lambda=0.1),
+            "opt": dict(lrate_static=5e-4, lrate_dynamic=5e-4, lrate_pose=5e-4,
+                        grad_clip=1.0, accumulate_steps=2), "seed": 23, "device": "cuda"}
+    one = dryrun.replay(None, spec)
+    two = mesh.run_ranks(dryrun.replay, 2, "gloo", args=(spec,), device="cuda:0",
+                         timeout=120.0, join_timeout=600.0)
+    for out in two:
+        np.testing.assert_allclose(out["losses"][:2], one["losses"][:2], rtol=1e-5)
+        assert out["spread"] == [0.0] * 4
+        assert out["launches"] == one["launches"]

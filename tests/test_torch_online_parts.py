@@ -258,14 +258,13 @@ def _online_cfg(tmp_path, **kw):
 
 
 @pytest.mark.parametrize("entry, kw, err, match", [
-    ("train", dict(data_parallel="on"), NotImplementedError, "queue 1, item 8"),
-    ("test", dict(data_parallel="on"), NotImplementedError, "queue 1, item 8"),
+    ("train", dict(data_parallel="on"), RuntimeError, "only one device is visible"),
+    ("test", dict(data_parallel="on"), RuntimeError, "only one device is visible"),
     ("train", dict(data_parallel="sideways"), ValueError, "auto/on/off"),
     ("train", dict(polish_epochs=2, polish_mode="sideways"), ValueError, "polish_mode"),
-    ("test", dict(save_video_frames=True), NotImplementedError, "imageio"),
     ("test", dict(lpips_weights="EXISTING"), NotImplementedError, "LPIPS"),
 ], ids=["data_parallel_train", "data_parallel_test", "data_parallel_value", "polish_mode_value",
-        "video", "lpips"])
+        "lpips"])
 def test_online_refuses_before_making_a_run_dir(tmp_path, entry, kw, err, match):
     if kw.get("lpips_weights") == "EXISTING":
         weights = tmp_path / "vgg.pth"
@@ -276,6 +275,32 @@ def test_online_refuses_before_making_a_run_dir(tmp_path, entry, kw, err, match)
     with pytest.raises(err, match=match):
         getattr(tapp, entry)(cfg, device="cpu")
     assert not base.exists()
+
+
+def test_test_protocol_writes_the_view_gifs(tmp_path):
+    """save_video_frames: each test view's frames in view{v}.gif (startrax's
+    gif fallback: 250 ms a frame, looping), the frames the logged test
+    images hold, mapped to the GIF's palette (read back with PIL)."""
+    from PIL import Image
+
+    from startrax_torch.utils.logging import _gif_palette, read_png
+
+    jcfg, tcfg = _configs(tmp_path)
+    path = str(tmp_path / "tckpt")
+    tckpt.save_checkpoint(path, {"params": convert.params_from_numpy(
+        _tree(jcfg, _noisy_poses(tcfg)), device="cpu")}, step=3)
+    _, tcfg = _configs(tmp_path, test=True, online_ckpt_path=path, save_video_frames=True)
+    tapp.test(tcfg, device="cpu")
+    run = tmp_path / "torch" / "smoke" / "online_test"
+    for view in (0, 1):
+        names = sorted(n for n in os.listdir(run / "images") if n.startswith(f"test_view{view}_"))
+        frames = np.stack([read_png(str(run / "images" / n)) for n in names])
+        palette, idx = _gif_palette(frames)
+        gif = Image.open(run / f"view{view}.gif")
+        assert (gif.n_frames, gif.info["duration"], gif.info["loop"]) == (len(names), 250, 0)
+        for i in range(len(names)):
+            gif.seek(i)
+            np.testing.assert_array_equal(np.asarray(gif.convert("RGB")), palette[idx[i]])
 
 
 @pytest.mark.parametrize("extra", [[], ["--test", "true"]], ids=["train", "test"])

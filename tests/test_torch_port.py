@@ -59,7 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert bad == []
     for module in ("kernels/occgrid.py", "models/star_occgrid.py", "apps/occgrid_init.py",
                    "apps/nerf_time.py", "data/carla.py", "data/blender.py", "apps/lego.py",
-                   "models/mip.py", "apps/mip.py"):
+                   "models/mip.py", "apps/mip.py", "parallel/mesh.py", "parallel/dryrun.py",
+                   "utils/mesh.py", "utils/profiling.py", "utils/vis.py"):
         assert os.path.join(ROOT, "startrax_torch", module) in files, module
 
 
