@@ -534,7 +534,11 @@ def kernel_work(params, x, n_blocks, pe, input_grads, warped, save=True):
     saved bf16 activations (written forward, read backward), the cotangent,
     the param grads and, with input grads, dx and dd. params and x may be
     stacked over K fields ([K, ...] leaves, x [K, N, C]). save=False: a
-    forward that saves no activations (under no_grad)."""
+    forward that saves no activations (under no_grad). "bwd_tile" is the
+    per-tile backward kernel's share of "bwd": the data-grad multiply-adds,
+    the points, the saved activations and the cotangent read, the params
+    read once, the bf16 dY of every layer and the bf16 encodings written
+    (for the weight-gradient GEMM), and the input grads."""
     w_in = params["lin_in"]["w"]
     K = x.shape[0] if x.dim() == 3 else 1
     n = K * x.shape[-2]
@@ -551,7 +555,12 @@ def kernel_work(params, x, n_blocks, pe, input_grads, warped, save=True):
     fwd = (2 * macs * n, n * (in_bytes + (act_bytes if save else 0) + 16) + param_bytes)
     bwd = (2 * (macs + data) * n,
            n * (in_bytes + act_bytes + 16 + (in_bytes if input_grads else 0)) + 2 * param_bytes)
-    return {"fwd": fwd, "bwd": bwd}
+    from startrax_torch.kernels import fused_mlp as fm
+
+    enc_bytes = 2 * ((fm.EW if pe is not None else fm.XW) + fm.EW)
+    bwd_tile = (2 * data * n, n * (in_bytes + 2 * act_bytes + 16 + enc_bytes
+                                   + (in_bytes if input_grads else 0)) + param_bytes)
+    return {"fwd": fwd, "bwd": bwd, "bwd_tile": bwd_tile}
 
 
 def bound(flop, nbytes, peak=PEAK_FLOPS):
@@ -601,7 +610,7 @@ def case_inputs(star_cfg, case, seed):
 MEASURES = ("fwd", "fwd_rms", "w", "input", "input_rms", "pose", "ray_pose", "fwd_abs",
             "grad_abs")
 STEP_TIMES = ("fwd", "plain_fwd", "bwd", "plain_bwd", "fwd_flop", "fwd_bytes", "bwd_flop",
-              "bwd_bytes")
+              "bwd_bytes", "bwd_tile_flop", "bwd_tile_bytes")
 
 
 def _check_and_time(label, inp, stacked, calls, worst, step_ms):
@@ -654,7 +663,8 @@ def _check_and_time(label, inp, stacked, calls, worst, step_ms):
     work = kernel_work(inp["params"], inp["x"], inp["n_blocks"], inp["pe"],
                        inp["x"].requires_grad or inp["d"].requires_grad, inp["warp"] is not None)
     t.update(fwd_flop=work["fwd"][0], fwd_bytes=work["fwd"][1], bwd_flop=work["bwd"][0],
-             bwd_bytes=work["bwd"][1])
+             bwd_bytes=work["bwd"][1], bwd_tile_flop=work["bwd_tile"][0],
+             bwd_tile_bytes=work["bwd_tile"][1])
     for k, v in t.items():
         step_ms[k] += calls * v
     print(f"time {label}: " + ", ".join(f"{k} {t[k]:.3f} ms" for k in STEP_TIMES[:4])
@@ -3570,9 +3580,12 @@ def _rows(per_field, stacked, encoded, stacked_enc, bwd_parts, part_launches):
                    max_input_rel_err=stacked_enc[0]["input"], tol_input=lim["input"],
                    rms_input_err=stacked_enc[0]["input_rms"], tol_input_rms=lim["input_rms"])
     parts_ms = sum(bwd_parts[k]["ms"] for k in bwd_parts)
+    tile_bound = bound(per_field[1]["bwd_tile_flop"], per_field[1]["bwd_tile_bytes"])
     rows[1].update(note="ms, plain_ms and bound: the whole backward call (per-tile bwd_kernel, "
                    "then fused_mlp_wgrad and fused_mlp_sum_rows); per_tile_ms subtracts phase "
-                   "3c's times of those two", per_tile_ms=per_field[1]["bwd"] - parts_ms)
+                   "3c's times of those two; per_tile_bound_ms is bwd_kernel's own bound",
+                   per_tile_ms=per_field[1]["bwd"] - parts_ms, per_tile_bound_ms=tile_bound[0],
+                   per_tile_bound_by=tile_bound[1])
     for name, peak, note in (
             ("wgrad", PEAK_FLOPS, "dW = relu?(X)^T dY of every wide layer of a backward call in one "
              "launch, as split f32 partials: the weight-grad accumulation of _bwd_kernel "

@@ -18,18 +18,25 @@ checkouts of the repository, for example the parent commit unpacked with
    instruction for instruction (the weight-gradient GEMM and the sums
    were rebuilt, so their instances differ by name or code);
 3. times each tree in its own process, in turns (parent, change, change,
-   parent, twice over): the per-field kernels at the shared-pose step's shapes
+   parent, twice over), every instance of the fused kernels at its path's
+   shapes: the per-field kernels at the shared-pose step's shapes
    (chip_smoke phase 3: static 8x256 and dynamic 4x256 with the warp, on
-   256,000 and 512,000 points) and the field-axis kernels at the per-ray
-   step's (phase 3b: K = 2 dynamic 4x128 fields on 131,072 and 262,144
-   points per field). The forward runs with grad on, saving its
-   activations as a training step does; the backward is one
-   ``torch.autograd.grad`` of the parity cotangent. CUDA events over 10
-   launches after one warm-up; and the device time of the same calls, the
-   sum of their kernels' times in a torch.profiler trace of 3 launches
-   (``fwd_device``, ``bwd_device``), which host gaps between launches do
-   not reach: a backward whose kernels finish before the host has queued
-   the next ones reads the host's pace on the events, not the card's;
+   256,000 and 512,000 points) and at the online app's (phase 3d); the
+   field-axis kernels at the per-ray step's (phase 3b: K = 2 dynamic 4x128
+   fields on 131,072 and 262,144 points per field); the pre-encoded
+   kernels at the nerf_time step's coarse and fine calls (phase 5) and the
+   field-axis pre-encoded ones at phase 3e's (K = 2, input grads); the
+   occgrid app's static field at budget 128 (4,096 rays x 128 samples,
+   random points along bench-style rays) and the grid update's forward
+   (one point a cell of the 128^3 grid, under no_grad; phase 9a). The
+   forward runs with grad on, saving its activations as a training step
+   does; the backward is one ``torch.autograd.grad`` of the parity
+   cotangent. CUDA events over 10 launches after one warm-up; and the
+   device time of the same calls, the sum of their kernels' times in a
+   torch.profiler trace of 3 launches (``fwd_device``, ``bwd_device``),
+   which host gaps between launches do not reach: a backward whose kernels
+   finish before the host has queued the next ones reads the host's pace
+   on the events, not the card's;
 4. in the same processes, each tree's chip_smoke phase 3c (``parts``): the
    weight-gradient GEMM's and the ordered sums' times summed over one
    shared-pose step's calls, with their plain versions' and the library
@@ -183,6 +190,29 @@ def once(root):
         cases.append((f"stacked {case[0]} K=2 {case[1].depth}x{case[1].width} "
                       f"N={case[2] * case[3]}/field", cs.stacked_case_inputs(slice_star, case, i),
                       True))
+    on_cfg, on_star = star(cs.ONLINE_CONFIG)
+    on_star = dataclasses.replace(on_star, end_barf=-1)
+    for i, case in enumerate(cs.kernel_cases(on_star, on_cfg.N_rand)[:4]):
+        cases.append((f"online {case[0]} {case[1].depth}x{case[1].width} N={case[2]}",
+                      cs.case_inputs(on_star, case, 20 + i), False))
+    nt_cfg, nt_star = star("carla_nerf_time.txt")
+    for i, case in enumerate(cs.nerf_time_cases(nt_star, nt_cfg.N_rand)[:2]):
+        cases.append((f"nerf_time {case[0]} {case[1].depth}x{case[1].width} N={case[2]}",
+                      cs.nerf_time_case_inputs(nt_star, case, i, nt_cfg.num_frames), False))
+    for i, (name, fcfg, n_points, _) in enumerate(cs.stacked_enc_cases(nt_star, nt_cfg.N_rand)[:2]):
+        cases.append((f"stacked pre-encoded {name} K={cs.STACKED_ENC_K} {fcfg.depth}x{fcfg.width} "
+                      f"N={n_points}/field",
+                      cs.stacked_enc_inputs(nt_star, fcfg, n_points, i, nt_cfg.num_frames), True))
+    from startrax_torch.apps import occgrid_init
+
+    occ_cfg = port_config.Config(**port_config.parse_config_file(
+        os.path.join(root, "startrax", "configs", cs.OCC_CONFIG)))
+    occ_field = occgrid_init.field_config(occ_cfg)
+    x, d = cs._points(4096 * 128, occ_cfg.near, occ_cfg.far, seed=77)
+    cases.append((f"occgrid budget 128 {occ_field.depth}x{occ_field.width} N={x.shape[0]}",
+                  {"params": cs._field(occ_field, seed=78), "x": x, "d": d,
+                   "n_blocks": occ_field.n_blocks, "pe": (occ_field.multires, occ_field.multires_views),
+                   "pe_masks": None, "warp": None}, False))
     times = {}
     for label, inp, stacked in cases:
         _, run = parity.compare(**inp, stacked=stacked)
@@ -201,13 +231,44 @@ def once(root):
                         "fwd_device": device_ms(fwd), "bwd_device": device_ms(bwd)}
         del run
         torch.cuda.empty_cache()
-    nt_cfg, nt_star = star("carla_nerf_time.txt")
-    parts = cs.phase_backward_parts(cs.backward_part_cases(flag, flag_cfg.N_rand, slice_star,
-                                                           slice_cfg.N_rand, nt_star, nt_cfg.N_rand))
+    times.update(grid_update(cs, fm, occ_cfg, occ_field))
+    parts = cs.phase_backward_parts(cs.backward_part_cases(
+        flag, flag_cfg.N_rand, on_star, on_cfg.N_rand, slice_star, slice_cfg.N_rand, nt_star,
+        nt_cfg.N_rand, port_config.star_config_from(occ_cfg).static_field()))
     parts = {k: {key: v[key] for key in ("ms", "plain_ms", "library_ms")} for k, v in parts.items()}
     torch.cuda.empty_cache()
     steps = step_times(cs, (flag_cfg, flag), (slice_cfg, slice_star), (nt_cfg, nt_star))
     print(json.dumps({"root": root, "times": times, "parts": parts, "steps": steps}), flush=True)
+
+
+def grid_update(cs, fm, occ_cfg, field_cfg):
+    """chip_smoke phase 9a's grid update: the occgrid field's forward on one
+    jittered point a cell of the grid, along (0, 0, -1), under no_grad
+    (nothing saved); its events and device time."""
+    import torch
+
+    from startrax_torch.apps import occgrid_init
+    from startrax_torch.kernels import occgrid
+
+    grid_cfg = occgrid_init.occgrid_config(occ_cfg)
+    g = torch.Generator(device="cuda").manual_seed(79)
+    centers = occgrid._cell_centers(grid_cfg, "cuda")
+    cell = (grid_cfg.aabb_max[0] - grid_cfg.aabb_min[0]) / grid_cfg.resolution
+    x = (centers + (torch.rand(centers.shape, generator=g, device="cuda") - 0.5) * cell)
+    x = x.reshape(-1, 3).contiguous()
+    d = x.new_tensor([[0.0, 0.0, -1.0]]).expand(x.shape[0], 3).contiguous()
+    params = cs._field(field_cfg, seed=79)
+    pe = (field_cfg.multires, field_cfg.multires_views)
+
+    def fwd():
+        with torch.no_grad():
+            return fm.fused_field_apply(params, x, d, field_cfg.n_blocks, pe)
+
+    label = f"occgrid grid update fwd {field_cfg.depth}x{field_cfg.width} N={x.shape[0]} (no_grad)"
+    out = {label: {"fwd": cs._cuda_ms(fwd, REPS), "fwd_device": device_ms(fwd)}}
+    del x, d, params, centers
+    torch.cuda.empty_cache()
+    return out
 
 
 def step_times(cs, flag, per_ray, nerf_time):
@@ -299,8 +360,7 @@ def main():
         line = json.loads(out.stdout.strip().splitlines()[-1])
         runs.append({"tree": tree, "times": line["times"], "parts": line["parts"],
                      "steps": line["steps"]})
-        print(f"{tree}: " + "; ".join(f"{k} fwd {v['fwd']:.3f} bwd {v['bwd']:.3f} ms (device "
-                                      f"{v['fwd_device']:.3f}, {v['bwd_device']:.3f})"
+        print(f"{tree}: " + "; ".join(f"{k} " + ", ".join(f"{side} {v[side]:.3f}" for side in v)
                                       for k, v in line["times"].items())
               + "; " + "; ".join(f"{k} {v['step']:.3f} ms (device {v['step_device']:.3f})"
                                  for k, v in line["steps"].items()), flush=True)
@@ -312,6 +372,8 @@ def main():
                                   "sum_rows_kernel_launches"))):
         for label in runs[0][key]:
             for side in sides:
+                if side not in runs[0][key][label]:
+                    continue
                 p, c = (statistics.mean(r[key][label][side] for r in runs if r["tree"] == tree)
                         for tree in ("parent", "change"))
                 print(f"{label} {side}: parent {p:.4f}, change {c:.4f} "

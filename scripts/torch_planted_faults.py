@@ -39,14 +39,13 @@ sys.path.insert(0, HERE)
 # name -> [(text to find, its replacement, how many times it occurs), ...]
 FAULTS = {
     "lin_in reads 64 rows (drops columns 64-83)": [
-        ("gemm1(as, LDA, in_rows<ENC>(), W, feed, hs, LDF);",
-         "gemm1(as, LDA, EW, W, feed, hs, LDF);", 1),
+        ("const Seg s = {cur, LDA, in_rows<ENC>(), false};", "const Seg s = {cur, LDA, EW, false};", 1),
         ("ring_add(ring, w.w_in, in_rows<ENC>(), W);", "ring_add(ring, w.w_in, EW, W);", 1)],
     "pad columns left unzeroed": [
         ("    if (skip_tail && p >= n) continue;",
          "    if ((skip_tail && p >= n) || j >= cols) continue;", 1)],
     "dd_emb left at zero": [
-        ("gr.dd[(row0 + t) * in.fd + c] = dhs[t * LDF + c];",
+        ("gr.dd[(row0 + t) * in.fd + c] = dhs[t * (EW + 8) + c];",
          "gr.dd[(row0 + t) * in.fd + c] = 0.f;", 1)],
     "xe written at stride 64": [
         ("stage_encoded(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * XW, XW, true);",

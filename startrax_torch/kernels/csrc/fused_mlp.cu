@@ -67,13 +67,57 @@
 // releases the slot on its "empty" mbarrier once wgmma.wait_group has retired
 // the chunk. With the matrix loop at wgmma speed, what bounds a CTA is the L2
 // rate of the weight chunks (all SMs pull every chunk of every layer, per 64
-// points) and the elementwise epilogues between the GEMMs, which run on the
-// f32 tile in shared memory (PERF.md has the stamps).
+// points) and the work between the GEMMs (PERF.md has the stamps).
+//
+// The epilogues run in registers on the wgmma accumulators: gemm_core hands
+// its fragment (rows 16 (warp % 4) + lane / 4 and + 8, columns N (warp / 4)
+// + 2 (lane % 4) + 8 j) to an epilogue functor, which adds the bias (staged
+// once a CTA in shared memory by cp.async while the input is encoded),
+// keeps the residual stream h (the backward's dh) in f32 at the thread's own
+// fragment positions, rounds to bf16 and writes the next GEMM's A into the
+// other of two operand tiles. An operand
+// tile holds the pre-relu value, which is the saved activation; the relu is
+// applied to the A registers after ldmatrix (relu(bf16(v)) = bf16(relu(v)),
+// so the products are the TPU kernel's). No f32 tile goes through shared
+// memory between GEMMs, and the residual update and the next block's first
+// pass are one epilogue.
+// - Barriers: only the two warps of a 16-row strip (w and w + 4) read its
+//   rows of an operand tile and write them, so a layer needs one named
+//   barrier of the strip's 64 threads, no block barrier: with two tiles, it
+//   orders both the next GEMM's reads after the epilogue's writes and the
+//   next-but-one epilogue's writes after the partner's reads.
+//   __syncthreads stays where a pass crosses strips: the input encoding,
+//   the encoding backward, the heads' final sum.
+// - After the strip's barrier, 16 lanes copy its rows of the new tile to
+//   the saved activation (forward) or the dY (backward), one bulk copy
+//   (cp.async.bulk, shared -> global) a row that nobody waits for until the
+//   tile is due to be rewritten two layers on.
+// - The heads live in the epilogues: alpha = ho w_a in lin_out's, rgb in the
+//   views layer's (three partial dot products), each summed over the quad
+//   by shuffles and across the two warpgroups through a few floats of
+//   shared memory.
+// - The backward prefetches each layer's saved activation (hv_in, ho,
+//   h_last, then n and h of each block) into a padded tile while the GEMM
+//   runs: one bulk copy a row issued by the lanes of warp 0 on a "full"
+//   mbarrier, the tile released by every warp on an "empty" one, so the
+//   relu masks come from shared memory at the fragment's positions.
+// - Column sums (the bias grads, dW_a, dW_r) come from the registers: the 8
+//   lanes that share a column halve their values in three shuffle rounds,
+//   then the four row strips are added in order through a [4][W] buffer
+//   under one warpgroup barrier (two buffers in turn, so none needs a
+//   second barrier before its reuse). The 12 pose sums are a shuffle tree
+//   over a warp's points, then over the warps in order. Every order is
+//   fixed, so the partials are the same run to run.
+// - The encoding computes sin and cos of each (frequency, dim) with one
+//   sincosf, which gives sinf's and cosf's bits; the backward writes its
+//   encodings (the weight-gradient GEMM's X of lin_in and Wv_bot) straight
+//   to global memory.
+// Shared memory is laid out region by region at fwd_smem and bwd_smem.
 //
 // Design against what differs from the TPU:
 // - Weights do not fit in shared memory (1.5 MB bf16 for 8x256). The point
-//   tile's activations stay in shared memory (h in f32, one bf16 operand
-//   copy) and each layer streams its weights through shared memory in
+//   tile's activations stay in shared memory (h in f32, two bf16 operand
+//   tiles) and each layer streams its weights through shared memory in
 //   KC-row chunks from global memory, where they stay L2-resident.
 // - The TPU backward carried dW += ... across its sequential grid. CTAs here
 //   run in no order, so the backward is three launches, all deterministic:
@@ -260,11 +304,6 @@ __device__ __forceinline__ Grads field_grads(Grads g, int k, int n, int W, size_
 __device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16(v)); }
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
-// Saved activation at (p, c), 0 outside the batch.
-__device__ __forceinline__ float ld_act(const bf16* a, long p, int c, int ld, bool ok) {
-  return ok ? __bfloat162float(a[p * ld + c]) : 0.f;
-}
-
 // y = M v (+ t), in the reference's operation order and without FMA
 // contraction, so that the plain PyTorch version gives the same bits.
 __device__ __forceinline__ void warp3(const float* w, const float* v, bool with_t, float* y) {
@@ -281,17 +320,6 @@ __device__ __forceinline__ void warp3(const float* w, const float* v, bool with_
 __device__ __forceinline__ void unwarp3(const float* w, const float* v, float* y) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) y[c] = w ? w[c] * v[0] + w[3 + c] * v[1] + w[6 + c] * v[2] : v[c];
-}
-
-// Column j of the encoding: v[j] for j < 3, else sin/cos(v[dim] 2^freq) with
-// j = 3 + 6 freq + 3 phase + dim (the ops.encoding layout); 0 past 3 + 6F.
-__device__ __forceinline__ float pe_val(const float* v, int j, int F) {
-  if (j < 3) return v[j];
-  const int jj = j - 3;
-  if (jj >= 6 * F) return 0.f;
-  const int freq = jj / 6, rem = jj - 6 * freq;
-  const float val = ldexpf(v[rem % 3], freq);
-  return rem < 3 ? sinf(val) : cosf(val);
 }
 
 // d enc[j] / d v[dim]; dim is returned through *dim.
@@ -346,7 +374,8 @@ struct Ring {
 // One thread's view of the ring: the ring, and the chunks it has consumed.
 struct Feed { Ring* r; unsigned g; };
 
-struct Seg { const bf16* a; int lda; int k; };  // A [T][k] (bf16, shared), row stride lda
+// A [T][k] (bf16, shared), row stride lda; relu applied to it in registers
+struct Seg { const bf16* a; int lda; int k; bool relu; };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -521,14 +550,31 @@ __device__ __forceinline__ void release(Ring* r, unsigned g) {
   __syncwarp();
 }
 
-// C [T][2N] = the segments' A @ B, each warpgroup computing the columns
-// [N wg, N wg + N) with the tile's 64 rows (warp w % 4 holds rows 16 (w % 4)
-// .. + 15 of A and of D). Per chunk: A from ldmatrix, the slot's "full"
-// wait, two wgmma k16 steps, wait_group 0, then the slot's release. (Keeping
-// one chunk's wgmma in flight while the next is issued measured slower: the
-// second A register set pushed the backward to 255 registers and spills.)
-template <int N>
-__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, float* c, int ldc) {
+// relu on a chunk's A registers (bf16 pairs): relu(bf16(v)) = bf16(relu(v)),
+// so an operand tile may hold the pre-relu value that is also the saved
+// activation.
+__device__ __forceinline__ void relu_a(uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&a[h][q]);
+      v = __hmax2(v, __float2bfloat162_rn(0.f));
+      a[h][q] = *reinterpret_cast<uint32_t*>(&v);
+    }
+}
+
+// The accumulators of the segments' A @ B, each warpgroup computing the
+// columns [N wg, N wg + N) with the tile's 64 rows (warp w % 4 holds rows
+// 16 (w % 4) .. + 15 of A and of D), handed to the epilogue in registers
+// (epi.run<N>(acc); Frag says where each accumulator sits). Per chunk: A
+// from ldmatrix (relu applied in registers for a segment that asks for it),
+// the slot's "full" wait, two wgmma k16 steps, wait_group 0, then the slot's
+// release. (Keeping one chunk's wgmma in flight while the next is issued
+// measured slower: the second A register set pushed the backward to 255
+// registers and spills.) No block barrier: the caller orders the tiles.
+template <int N, class Epi>
+__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, const Epi epi) {
   Ring* r = f.r;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wr = warp & 3;
   float acc[N / 2];
@@ -545,6 +591,7 @@ __device__ void gemm_core(const Seg* segs, int nseg, Feed& f, float* c, int ldc)
         asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                      : "=r"(a[h][0]), "=r"(a[h][1]), "=r"(a[h][2]), "=r"(a[h][3])
                      : "r"(smem_u32(arow + k0 + 16 * h)));
+      if (sg.relu) relu_a(a);
       const int slot = g % NSLOT;
       mbar_wait(&r->full[slot], (g / NSLOT) & 1);
       // this warpgroup's N / 8 cores along N; the second k16 step 2 cores along K on
@@ -563,43 +610,483 @@ __device__ void gemm_core(const Seg* segs, int nseg, Feed& f, float* c, int ldc)
     }
   }
   f.g = g;
-  const int row = 16 * wr + (lane >> 2), col = wg * N + 2 * (lane & 3);
+  epi.template run<N>(acc);
+}
+
+// gemm_core for an output width nout of 2 NB or 2 NS (the two widths a
+// layer may have: W in {256, 128}, W / 2 in {128, 64}).
+template <int NB, int NS, class Epi>
+__device__ __forceinline__ void tile_gemm(const Seg* segs, int nseg, int nout, Feed& f, const Epi epi) {
+  if (nout == 2 * NB)
+    gemm_core<NB>(segs, nseg, f, epi);
+  else
+    gemm_core<NS>(segs, nseg, f, epi);
+}
+
+// ---------------------------------------------------------------------------
+// Barriers, the fragment and the copies of the epilogues.
+// ---------------------------------------------------------------------------
+
+// Named barrier id (1 to 15; 0 is __syncthreads) over n threads.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// The two warps that share row strip wr of an operand tile (wr and wr + 4):
+// the only readers of its rows in a GEMM and their only writers in an
+// epilogue.
+__device__ __forceinline__ void strip_sync(int wr) { bar_sync(1 + wr, 64); }
+
+// The four warps of warpgroup wg, which hold every row of its columns.
+__device__ __forceinline__ void wg_sync(int wg) { bar_sync(5 + wg, 128); }
+
+// Where gemm_core<N>'s accumulators sit: acc[4 j + 2 h + e] is row r0 + 8 h,
+// column c0 + 8 j + e, for j < N / 8.
+struct Frag {
+  int r0, c0;
+  __device__ __forceinline__ explicit Frag(int N) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    r0 = 16 * (warp & 3) + (lane >> 2);
+    c0 = (warp >> 2) * N + 2 * (lane & 3);
+  }
+};
+
+__device__ __forceinline__ void st_bf2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float2 ld_bf2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// After an epilogue wrote strip wr of `tile`: the strip's barrier, then its
+// rows (t < nrow) are copied to rows row0 + t of dst [n, cols], the saved
+// activation or dY. Rows of 512 bytes or more (W = 256) go by bulk copy,
+// one a row issued by lanes 0-15 of the strip's warpgroup-0 warp (shared
+// -> global; every thread first fences its writes for the async proxy),
+// and nobody waits for them: a tile is rewritten two layers after it is
+// copied, so before the barrier of every save_strip those lanes wait
+// until their earlier copies have read their rows, and the writers of the
+// next-but-one epilogue pass that barrier first. Narrower rows (W = 128, or
+// W / 2 wide) go by 16-byte stores of the strip's two warps, which measured
+// faster there than a bulk copy a 256-byte row (PERF.md).
+__device__ __forceinline__ void save_strip(const bf16* tile, int ld, int cols, bf16* dst, long row0, int nrow) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp & 3;
+  const bool issuer = warp < 4 && lane < 16;
+  if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  if (cols < 256) {
+    strip_sync(wr);
+    const int sh = __ffs(cols / 8) - 1;  // cols / 8 is a power of 2
+    for (int i = (warp >> 2) * 32 + lane; i < 16 << sh; i += 64) {
+      const int t = 16 * wr + (i >> sh), c = (i & ((1 << sh) - 1)) * 8;
+      if (t < nrow)
+        *reinterpret_cast<uint4*>(dst + (row0 + t) * cols + c) = *reinterpret_cast<const uint4*>(tile + t * ld + c);
+    }
+    return;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  strip_sync(wr);
+  const int t = 16 * wr + lane;
+  if (issuer && t < nrow) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                 ::"l"(dst + (row0 + t) * cols), "r"(smem_u32(tile + t * ld)), "r"(cols * 2)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+// At a kernel's end: the issuing lanes wait for their copies, so that
+// none reads the shared memory of a finished CTA.
+__device__ __forceinline__ void save_drain() {
+  if (threadIdx.x < 128 && (threadIdx.x & 31) < 16) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Column sums over the tile's 64 rows of values held in gemm_core<N>'s
+// fragment layout (N = 4 M): v[2 j + e] is the sum of this thread's two rows
+// at column c0 + 8 j + e. The 8 lanes that share those columns halve the
+// values each keeps in three shuffle rounds (xor 16, 8, 4); each warp then
+// writes its row strip's sums to cb[strip][column], and after a warpgroup
+// barrier thread i of the warpgroup adds the four strips in order and writes
+// out[column * stride]. The order is fixed, so the sums are the same run to
+// run. Consecutive calls alternate between two buffers cb (ColBufs): a
+// call's barrier orders the previous call's reads of the other buffer
+// before the next call writes it.
+template <int HALF>
+__device__ __forceinline__ void halve_xor(float* v, int mask) {
+  const bool up = (threadIdx.x & mask) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = up ? v[i] : v[i + HALF], keep = up ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
+
+template <int M>
+__device__ __forceinline__ void colsum_frag(float* v, int c0, float* cb, int ldcb, float* out, int stride) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
+  halve_xor<M / 2>(v, 16);
+  halve_xor<M / 4>(v, 8);
+  halve_xor<M / 8>(v, 4);
+#pragma unroll
+  for (int i = 0; i < M / 8; ++i) {  // lane l keeps the values (l / 4) M / 8 + i
+    const int k = (lane >> 2) * (M / 8) + i;
+    cb[(warp & 3) * ldcb + c0 + 8 * (k >> 1) + (k & 1)] = v[i];
+  }
+  wg_sync(wg);
+  for (int c = threadIdx.x & 127; c < 4 * M; c += 128) {
+    const int col = wg * 4 * M + c;
+    out[col * stride] = ((cb[col] + cb[ldcb + col]) + cb[2 * ldcb + col]) + cb[3 * ldcb + col];
+  }
+}
+
+// The two column-sum buffers [4][ld] and whose turn it is (the same in
+// every thread: every thread makes the same calls).
+struct ColBufs {
+  float* b[2];
+  int ld, n;
+  __device__ __forceinline__ float* next() { return b[(n++) & 1]; }
+};
+
+// ---------------------------------------------------------------------------
+// The forward's epilogues. Each adds the layer's bias (staged once a CTA in
+// shared memory) to the accumulators in f32 and writes the bf16 result at
+// the fragment's positions of `dst`, the other operand tile (row stride ld):
+// the next GEMM's A (with relu in its registers where the layer has one) and
+// the saved activation that save_strip copies out.
+// ---------------------------------------------------------------------------
+
+// The residual stream: h = acc + b (first) or h + (acc + b), kept in f32 at
+// the thread's own fragment positions of hs ([N / 8][NT] float4: column
+// pair j's rows r0 and r0 + 8 at j NT + tid).
+struct EpiResidual {
+  const float* b;
+  float4* hs;
+  bf16* dst;
+  int ld;
+  bool first;
+  template <int N>
+  __device__ __forceinline__ void run(float* acc) const {
+    const Frag f(N);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = f.c0 + 8 * j;
+      const float2 bj = *reinterpret_cast<const float2*>(b + c);
+      float4 v = make_float4(acc[4 * j] + bj.x, acc[4 * j + 1] + bj.y, acc[4 * j + 2] + bj.x,
+                             acc[4 * j + 3] + bj.y);
+      float4* p = hs + j * NT + threadIdx.x;
+      if (!first) {
+        const float4 o = *p;
+        v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+      }
+      *p = v;
+      st_bf2(dst + f.r0 * ld + c, v.x, v.y);
+      st_bf2(dst + (f.r0 + 8) * ld + c, v.z, v.w);
+    }
+  }
+};
+
+// The quad's sums of a head's row partials (s[h][q]: row r0 + 8 h, output
+// q) to hp [2][T][HEADS] at this warpgroup.
+template <int HEADS>
+__device__ __forceinline__ void head_rows(float (*s)[HEADS], int r0, float* hp) {
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < HEADS; ++q) {
+      float x = s[h][q];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if ((lane & 3) == 0) hp[(wg * T + r0 + 8 * h) * HEADS + q] = x;
+    }
+}
+
+// v = acc + b into dst. With a head (HEADS outputs, weights w [cols][HEADS]
+// in f32): the thread's partial dot products of the rounded values (after
+// relu for the rgb head, HEADS = 3) with w, summed over the quad that shares
+// a row (xor 1, 2) and written per warpgroup and row to hp [2][T][HEADS].
+template <int HEADS>
+struct EpiBias {
+  const float* b;
+  bf16* dst;
+  int ld;
+  const float* w;
+  float* hp;
+  template <int N>
+  __device__ __forceinline__ void run(float* acc) const {
+    const Frag f(N);
+    float s[2][HEADS > 0 ? HEADS : 1] = {};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = f.c0 + 8 * j;
+      const float2 bj = *reinterpret_cast<const float2*>(b + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 r = __floats2bfloat162_rn(acc[4 * j + 2 * h] + bj.x, acc[4 * j + 2 * h + 1] + bj.y);
+        *reinterpret_cast<__nv_bfloat162*>(dst + (f.r0 + 8 * h) * ld + c) = r;
+        if constexpr (HEADS > 0) {
+          float2 v = __bfloat1622float2(r);
+          if constexpr (HEADS == 3) v = make_float2(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f));
+#pragma unroll
+          for (int q = 0; q < HEADS; ++q) s[h][q] += v.x * w[c * HEADS + q] + v.y * w[(c + 1) * HEADS + q];
+        }
+      }
+    }
+    if constexpr (HEADS > 0) head_rows<HEADS>(s, f.r0, hp);
+  }
+};
+
+// acc -> c [T][ld] f32: the narrow results (dd_emb, dx_emb) that the
+// encoding backward reads across row strips.
+struct EpiF32 {
+  float* c;
+  int ld;
+  template <int N>
+  __device__ __forceinline__ void run(float* acc) const {
+    const Frag f(N);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(c + (f.r0 + 8 * h) * ld + f.c0 + 8 * j) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The backward's prefetch of saved activations: one tile [T][LDA] in shared
+// memory, filled from the sequence of loads that a kernel fixes at its start
+// (ActPipe: hv_in, ho, h_last, then n and h of each block from the last),
+// and an mbarrier "full" (one arrival and the bytes a load). Load 0 is
+// issued at the start; load n + 1 by the last of the 8 warps to release
+// load n (a counter in shared memory), as soon as every warp has read the
+// tile, with no warp waiting for the others. A load copies the batch's
+// rows, one bulk copy a row issued by the lanes of the issuing warp (the
+// tile keeps its padded rows, so the epilogues' reads of the fragment's
+// positions are free of bank conflicts). Rows past the batch are not
+// written: the epilogues select on them or zero them, and their grads are
+// zero.
+// ---------------------------------------------------------------------------
+
+constexpr int MAXLOADS = 3 + 2 * MAXB;
+
+struct ActPipe {
+  const bf16* src[MAXLOADS];  // load n's saved activation [n, cols]
+  int cols[MAXLOADS];
+  unsigned count, released;   // loads in the sequence; warps that released the current one
+  unsigned pad[5];            // to 256 bytes
+};
+
+// Appends src [n, cols] to the sequence (thread 0, at the kernel's start).
+__device__ __forceinline__ void act_add(ActPipe* p, const bf16* src, int cols) {
+  p->src[p->count] = src;
+  p->cols[p->count++] = cols;
+}
+
+// One warp: starts load n of the sequence into dst (row stride ld).
+__device__ __forceinline__ void act_issue(const ActPipe* p, unsigned n, long row0, int nrow, bf16* dst, int ld,
+                                          unsigned long long* full) {
+  const int lane = threadIdx.x & 31, cols = p->cols[n];
+  const bf16* src = p->src[n];
+  const uint32_t bar = smem_u32(full);
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(nrow * cols * 2)
+                 : "memory");
+  __syncwarp();
+  for (int t = lane; t < nrow; t += 32)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_u32(dst + t * ld)), "l"(src + (row0 + t) * cols), "r"(cols * 2), "r"(bar)
+        : "memory");
+}
+
+__device__ __forceinline__ void act_wait(unsigned long long* full, unsigned n) { mbar_wait(full, n & 1); }
+
+// Every warp, after its last read of load n: the last to arrive resets the
+// count and starts load n + 1 into the same tile.
+__device__ __forceinline__ void act_release(ActPipe* p, unsigned n, long row0, int nrow, bf16* dst, int ld,
+                                            unsigned long long* full) {
+  __syncwarp();
+  unsigned last = 0;
+  if ((threadIdx.x & 31) == 0) {
+    __threadfence_block();
+    last = atomicAdd(&p->released, 1u) == NT / 32 - 1;
+  }
+  if (__shfl_sync(0xffffffffu, last, 0)) {
+    if ((threadIdx.x & 31) == 0) p->released = 0;
+    __threadfence_block();
+    if (n + 1 < p->count) act_issue(p, n + 1, row0, nrow, dst, ld, full);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward's epilogues. v comes from the accumulators; bf16(v), or of
+// the updated dh, goes to dst (row stride ld): the next GEMM's A and the
+// layer's dY, which save_strip copies out; the column sums go to the CTA's
+// partials.
+//   DY:     v = acc (dfeat)                               sums of v -> out
+//   DHO:    v = acc + dalpha w_a (dho)                     sums of v -> out,
+//           and of ho dalpha (dW_a) -> out2
+//   MASKED: v = acc (act > 0): the dn of a block, or with dh the residual
+//           dh = (first ? 0 : dh) + v                      sums of v (dh) -> out
+// act is the prefetched tile (load `load` of pipe): the relu mask, or ho for
+// DHO.
+// The masked layers share one instance (the residual chosen at run time),
+// so that the GEMM and epilogue code of the blocks' layers stays one.
+// dh holds the thread's 4 values of each column pair j (rows r0, r0 + 8)
+// as one float4 at j NT + tid.
+// ---------------------------------------------------------------------------
+
+enum { BW_DY, BW_DHO, BW_MASKED };
+
+template <int MODE>
+struct EpiBwd {
+  bf16* dst;
+  int ld;
+  bf16* act;                 // the prefetch's tile (row stride ld)
+  unsigned long long* full;  // its barrier
+  ActPipe* pipe;
+  unsigned load;
+  long row0;
+  float4* dh;
+  bool first;
+  const float* gs;  // DHO: the cotangent [T][4]
+  const bf16* wa;   // DHO: w_a [W]
+  int nrow;
+  float* cb;   // the column-sum buffer of the first sums
+  float* cb2;  // DHO: of the second
+  int ldcb;
+  float* out;
+  float* out2;
+  template <int N>
+  __device__ __forceinline__ void run(float* acc) const {
+    const Frag f(N);
+    float s[N / 4], s2[MODE == BW_DHO ? N / 4 : 1];
+    float da[2] = {0.f, 0.f};
+    bool ok[2] = {true, true};
+    if constexpr (MODE != BW_DY) {
+      act_wait(full, load);
+    }
+    if constexpr (MODE == BW_DHO) {
+      for (int h = 0; h < 2; ++h) {
+        da[h] = bfr(gs[(f.r0 + 8 * h) * 4]);
+        ok[h] = f.r0 + 8 * h < nrow;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = f.c0 + 8 * j;
+      float v[4];  // rows r0, r0 + 8 at columns c, c + 1
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = acc[4 * j + i];
+      if constexpr (MODE == BW_MASKED) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 a = ld_bf2(act + (f.r0 + 8 * h) * ld + c);
+          v[2 * h] = a.x > 0.f ? v[2 * h] : 0.f;
+          v[2 * h + 1] = a.y > 0.f ? v[2 * h + 1] : 0.f;
+        }
+        if (dh) {
+          float4* p = dh + j * NT + threadIdx.x;
+          if (!first) {
+            const float4 o = *p;
+            v[0] = o.x + v[0];
+            v[1] = o.y + v[1];
+            v[2] = o.z + v[2];
+            v[3] = o.w + v[3];
+          }
+          *p = make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+      if constexpr (MODE == BW_DHO) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 wc = ld_bf2(wa + c);
+          v[2 * h] += da[h] * wc.x;
+          v[2 * h + 1] += da[h] * wc.y;
+          const float2 ho = ok[h] ? ld_bf2(act + (f.r0 + 8 * h) * ld + c) : make_float2(0.f, 0.f);
+          s2[2 * j] = (h ? s2[2 * j] : 0.f) + ho.x * da[h];
+          s2[2 * j + 1] = (h ? s2[2 * j + 1] : 0.f) + ho.y * da[h];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) st_bf2(dst + (f.r0 + 8 * h) * ld + c, v[2 * h], v[2 * h + 1]);
+      s[2 * j] = v[0] + v[2];
+      s[2 * j + 1] = v[1] + v[3];
+    }
+    if constexpr (MODE != BW_DY) {
+      act_release(pipe, load, row0, nrow, act, ld, full);
+    }
+    colsum_frag<N / 4>(s, f.c0, cb, ldcb, out, 1);
+    if constexpr (MODE == BW_DHO) {
+      colsum_frag<N / 4>(s2, f.c0, cb2, ldcb, out2, 1);
+    }
+  }
+};
+
+// The backward's rgb head and its sums, in gemm_core<N>'s fragment layout
+// (N = W2 / 2): dhv_in = (drgb W_r^T) (hv_in > 0) into dst (bf16: the A of
+// the next two GEMMs and the views layer's dY), b_v = its column sums, dW_r
+// = relu(hv_in)^T drgb (three column sums), and b_a, b_r = the cotangent's
+// sums (warps 0 and 1, a shuffle tree into red [2][4]). hv is the
+// prefetched hv_in tile (load 0 of pipe); rows past the batch count as zero.
+template <int N>
+__device__ __forceinline__ void bwd_rgb_head(bf16* hv, int ld, unsigned long long* full, ActPipe* pipe, long row0,
+                                             const float* gs, const bf16* wr, int nrow, bf16* dst,
+                                             ColBufs& cbs, float* red, float* part, const POff& o) {
+  const Frag f(N);
+  if (threadIdx.x < 64) {  // the cotangent's column sums, point threadIdx.x
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = gs[threadIdx.x * 4 + q];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] += __shfl_xor_sync(0xffffffffu, v[q], m);
+    if ((threadIdx.x & 31) == 0) {
+      for (int q = 0; q < 4; ++q) red[96 + (threadIdx.x >> 5) * 4 + q] = v[q];
+    }
+  }
+  float g[2][3];
+  bool ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = f.r0 + 8 * h;
+    ok[h] = r < nrow;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) g[h][q] = bfr(gs[r * 4 + 1 + q]);
+  }
+  float sb[N / 4], sr[3][N / 4];
+  act_wait(full, 0);
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    *reinterpret_cast<float2*>(c + row * ldc + col + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(c + (row + 8) * ldc + col + 8 * j) =
-        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    const int c = f.c0 + 8 * j;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = f.r0 + 8 * h;
+      const float2 a = ok[h] ? ld_bf2(hv + r * ld + c) : make_float2(0.f, 0.f);
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bf16* w3 = wr + (c + e) * 3;
+        const float w[3] = {bf(w3[0]), bf(w3[1]), bf(w3[2])};
+        const float x = e ? a.y : a.x;
+        const float dhv = g[h][0] * w[0] + g[h][1] * w[1] + g[h][2] * w[2];
+        v[e] = x > 0.f ? dhv : 0.f;
+        const float rx = fmaxf(x, 0.f);
+        sb[2 * j + e] = (h ? sb[2 * j + e] : 0.f) + v[e];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) sr[q][2 * j + e] = (h ? sr[q][2 * j + e] : 0.f) + rx * g[h][q];
+      }
+      st_bf2(dst + r * ld + c, v[0], v[1]);
+    }
   }
-}
-
-// C[T][nout] (f32, shared) = sum over segments of A[T][k] (bf16, shared) @
-// the stream's next sum(k) / KC chunks, B [k][nout]. All NT threads call it
-// with the same arguments; nout is 256, 128, 96 or 64 and each k a multiple
-// of KC. Starts and ends synchronised.
-__device__ void tile_gemm(const Seg* segs, int nseg, int nout, Feed& f, float* c, int ldc) {
-  __syncthreads();  // A written, C free
-  switch (nout) {
-    case 256: gemm_core<128>(segs, nseg, f, c, ldc); break;
-    case 128: gemm_core<64>(segs, nseg, f, c, ldc); break;
-    case 96: gemm_core<48>(segs, nseg, f, c, ldc); break;
-    default: gemm_core<32>(segs, nseg, f, c, ldc); break;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void gemm1(const bf16* a, int lda, int k, int nout, Feed& f, float* c,
-                                      int ldc) {
-  Seg s = {a, lda, k};
-  tile_gemm(&s, 1, nout, f, c, ldc);
-}
-
-// Sum of rows [0, T) of column c of buf, for c < ncols, into out[c].
-__device__ __forceinline__ void colsum(const float* buf, int ld, int ncols, float* out) {
-  for (int c = threadIdx.x; c < ncols; c += NT) {
-    float s = 0.f;
-    for (int t = 0; t < T; ++t) s += buf[t * ld + c];
-    out[c] = s;
-  }
+  act_release(pipe, 0, row0, nrow, hv, ld, full);
+  colsum_frag<N / 4>(sb, f.c0, cbs.next(), cbs.ld, part + o.b_v, 1);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) colsum_frag<N / 4>(sr[q], f.c0, cbs.next(), cbs.ld, part + o.w_r + q, 3);
+  if (threadIdx.x < 4)  // after the warpgroup barriers above (threads 0-3 and warps 0, 1 are warpgroup 0)
+    part[threadIdx.x == 0 ? o.b_a : o.b_r + threadIdx.x - 1] = red[96 + threadIdx.x] + red[100 + threadIdx.x];
 }
 
 // Encoding backward for one tile: dv[dim] = sum_j g[j] mask[j] d enc[j]/d v[dim],
@@ -624,16 +1111,50 @@ __device__ __forceinline__ void pe_bwd(const float* g, int ld, const float* v, c
   }
 }
 
-// Shared memory of the kernels at width W; every region's size is a
-// multiple of 16 bytes, so the Ring at the end is aligned.
+// The forward's staged vectors, in floats from the start of their region:
+// the biases b_in, (b0, b1) of each block, b_out, b_f, b_v, then the heads'
+// weights w_a [W] and w_r [W2][3] in f32, b_a and b_r.
+struct FwdVecs { int b_in, b_blk, b_out, b_f, b_v, w_a, w_r, b_a, b_r, total; };
+
+__host__ __device__ inline FwdVecs fwd_vecs(int W, int nb) {
+  FwdVecs o; int k = 0;
+  o.b_in = k; k += W;
+  o.b_blk = k; k += 2 * W * nb;
+  o.b_out = k; k += W;
+  o.b_f = k; k += W;
+  o.b_v = k; k += W / 2;
+  o.w_a = k; k += W;
+  o.w_r = k; k += 3 * (W / 2);
+  o.b_a = k; k += 1;
+  o.b_r = k; k += 3;
+  o.total = k;
+  return o;
+}
+
+constexpr int RED = 8 * 12 + 2 * 4;  // the backward's reductions: pose terms a warp, the cotangent's sums
+
+// Shared memory of the kernels at width W, region by region (the kernels
+// carve it in this order; every region is a multiple of 16 bytes, so the
+// Ring at the end is aligned). Forward: h [W/16][NT] float4 (f32, each
+// thread's fragment positions), two bf16 operand tiles [T][W+8], the
+// direction encoding [T][LDE], the weight ring, the warped points [T][6],
+// the staged vectors (fwd_vecs for MAXB blocks), the heads' partials
+// [2][T][1 + 3]. Backward: dh [W/16][NT] float4 (the narrow f32 results
+// [T][<= XW + 8] in its place before and after dh lives), two operand tiles,
+// the prefetched activation tile [T][W+8], the weight ring, the warped x,
+// d [T][6], the cotangent [T][4], the world-frame d grads [T][3], two
+// column-sum buffers [2][4][W], w_a [W] and w_r [W2][3] in bf16, the
+// reductions [RED], the prefetch's mbarrier (two words) and its loads
+// (ActPipe).
 size_t fwd_smem(int W) {
-  return sizeof(float) * 2 * T * (W + 4) + sizeof(bf16) * (T * (W + 8) + T * LDE + NSLOT * KC * W) +
-         sizeof(float) * (T * 6 + T) + sizeof(Ring);
+  return sizeof(float) * T * W + sizeof(bf16) * (2 * T * (W + 8) + T * LDE + NSLOT * KC * W) +
+         sizeof(float) * (T * 6 + fwd_vecs(W, MAXB).total + 2 * T * 4) + sizeof(Ring);
 }
 
 size_t bwd_smem(int W) {
-  return sizeof(float) * 2 * T * (W + 4) + sizeof(bf16) * (T * (W + 8) + NSLOT * KC * W) +
-         sizeof(float) * (T * 6 * 2 + T * 4 + T * 3 + T * 12) + sizeof(Ring);
+  return sizeof(float) * T * W + sizeof(bf16) * (3 * T * (W + 8) + NSLOT * KC * W) +
+         sizeof(float) * (T * (6 + 4 + 3) + 8 * W) + sizeof(bf16) * (W + 3 * (W / 2)) +
+         sizeof(float) * RED + 2 * sizeof(unsigned long long) + sizeof(ActPipe) + sizeof(Ring);
 }
 
 // Loads a point tile's raw and warped inputs: raw[t*6 + 0..5] = (x, d),
@@ -659,6 +1180,37 @@ __device__ __forceinline__ void load_points(const float* x, const float* d, cons
   }
 }
 
+// A tile's encoding of v (three values a point at v + 6 t) into dst [T][ld]
+// bf16, columns [0, EW) in the ops.encoding layout (column 3 + 6 freq + 3
+// phase + dim is sin (phase 0) or cos (phase 1) of v[dim] 2^freq; 0 past
+// 3 + 6F), each times mask[column] when a mask is given. Four threads a
+// point (point tid / 4): thread q of the four writes identity column q < 3,
+// computes one sincosf for each (freq, dim) pair q, q + 4, ... < 3F and
+// writes both its columns, then the zero columns 3 + 6F + q, + 4, ... Rows
+// t < nrow only (dst may be a global row stride).
+static_assert(NT == 4 * T, "encode_tile and pe_bwd take four threads a point");
+
+__device__ __forceinline__ void encode_tile(const float* v, int F, const float* mask, bf16* dst, int ld,
+                                            int nrow) {
+  const int t = threadIdx.x >> 2, q = threadIdx.x & 3;
+  if (t >= nrow) return;
+  const float* p = v + t * 6;
+  bf16* row = dst + t * ld;
+  if (q < 3) row[q] = __float2bfloat16(mask ? p[q] * mask[q] : p[q]);
+  for (int k = q; k < 3 * F; k += 4) {
+    const int freq = k / 3, dim = k - 3 * freq, js = 3 + 6 * freq + dim;
+    float sn, cn;
+    sincosf(ldexpf(p[dim], freq), &sn, &cn);
+    if (mask) {
+      sn *= mask[js];
+      cn *= mask[js + 3];
+    }
+    row[js] = __float2bfloat16(sn);
+    row[js + 3] = __float2bfloat16(cn);
+  }
+  for (int j = 3 + 6 * F + q; j < EW; j += 4) row[j] = __float2bfloat16(0.f);
+}
+
 // Copies a tile of pre-encoded features, rounded to bf16, into dst [T][ld]
 // (ld may be a global row stride): dst[t][j] = src[row0 + t][j] for j < cols
 // (the row stride of src), 0 for cols <= j < width and past the batch; rows
@@ -673,56 +1225,46 @@ __device__ __forceinline__ void stage_encoded(const float* src, int cols, int wi
   }
 }
 
-// Eight saved bf16 activations at (row0 + t, c .. c + 7) as floats; zeros
-// past the batch. c is a multiple of 8.
-__device__ __forceinline__ void ld_act8(const bf16* a, long row0, int t, int c, int ld, int nrow,
-                                        float* v) {
-  uint4 u = make_uint4(0, 0, 0, 0);
-  if (t < nrow) u = __ldg(reinterpret_cast<const uint4*>(a + (row0 + t) * ld + c));
-  const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) v[q] = __bfloat162float(e[q]);
+__device__ __forceinline__ void stage_f32(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n; i += NT) dst[i] = src[i];
 }
 
-// Rounds eight floats to bf16 and stores them to shared memory and, unless
-// gdst is null, to global memory (16-byte stores).
-__device__ __forceinline__ void st_bf8(const float* v, bf16* sdst, bf16* gdst) {
-  uint4 u;
-  bf16* e = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) e[q] = __float2bfloat16(v[q]);
-  *reinterpret_cast<uint4*>(sdst) = u;
-  if (gdst) *reinterpret_cast<uint4*>(gdst) = u;
+// Starts copying n floats (n a multiple of 4) from src to dst in shared
+// memory, 16 bytes a thread and step (cp.async), so that the loads of
+// several vectors are in flight at once; stage_wait completes them. A
+// source that is not 16-byte aligned is copied by stage_f32 instead.
+__device__ __forceinline__ void stage_async(float* dst, const float* src, int n) {
+  if (reinterpret_cast<uintptr_t>(src) & 15) {
+    stage_f32(dst, src, n);
+    return;
+  }
+  for (int i = 4 * threadIdx.x; i < n; i += 4 * NT)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst + i)), "l"(src + i)
+                 : "memory");
 }
 
-__device__ __forceinline__ void ld_f8(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+__device__ __forceinline__ void stage_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// The same for n bf16 values (n a multiple of 8), kept as bf16.
+__device__ __forceinline__ void stage_async_bf16(bf16* dst, const bf16* src, int n) {
+  if (reinterpret_cast<uintptr_t>(src) & 15) {
+    for (int i = threadIdx.x; i < n; i += NT) dst[i] = src[i];
+    return;
+  }
+  for (int i = 8 * threadIdx.x; i < n; i += 8 * NT)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst + i)), "l"(src + i)
+                 : "memory");
 }
 
-__device__ __forceinline__ void st_f8(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+__device__ __forceinline__ void stage_bf16(float* dst, const bf16* src, int n) {
+  for (int i = threadIdx.x; i < n; i += NT) dst[i] = bf(src[i]);
 }
 
-// Rounds eight floats to bf16 and stores them to global memory (16 bytes).
-__device__ __forceinline__ void st_bf8g(const float* v, bf16* gdst) {
-  uint4 u;
-  bf16* e = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) e[q] = __float2bfloat16(v[q]);
-  *reinterpret_cast<uint4*>(gdst) = u;
-}
-
-__device__ __forceinline__ void relu8(const float* v, float* r) {
-#pragma unroll
-  for (int q = 0; q < 8; ++q) r[q] = fmaxf(v[q], 0.f);
-}
-
-__device__ __forceinline__ void add_bias8(float* v, const float* b) {
-#pragma unroll
-  for (int q = 0; q < 8; ++q) v[q] += b[q];
+template <class X>
+__device__ __forceinline__ void swap_ptr(X*& a, X*& b) {
+  X* t = a;
+  a = b;
+  b = t;
 }
 
 // STACKED = false is the one-field launch: its field index is the constant 0,
@@ -730,10 +1272,17 @@ __device__ __forceinline__ void add_bias8(float* v, const float* b) {
 // (With copies, ptxas allocated the one-field kernel 152 registers against
 // 168 and recomputed 64-bit weight addresses in every GEMM segment: 3% of
 // the forward.) ENC selects the pre-encoded input mode (see the header).
+//
+// Each layer: the GEMM on the operand tile `cur`, its epilogue writing the
+// next operand into `nxt`, then save_strip (the strip's barrier and the
+// saved activation's copy); the tiles swap. One barrier a layer orders both
+// hazards of a strip: its rows of nxt are complete before the next GEMM
+// reads them, and the partner warp has finished reading a tile before it is
+// written again two layers on.
 template <bool STACKED, bool ENC>
 __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts all_act, float* out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int W = all_in.width, W2 = W / 2, LDF = W + 4, LDA = W + 8, k = STACKED ? blockIdx.y : 0;
+  const int W = all_in.width, W2 = W / 2, LDA = W + 8, k = STACKED ? blockIdx.y : 0;
   const Inputs in_k = field_inputs<ENC>(all_in, k);
   const Net w_k = field_net<ENC>(net, k, W);
   const Acts act_k = field_acts(all_act, k, all_in.n, W);
@@ -741,22 +1290,25 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
   const Net& w = STACKED ? w_k : net;
   const Acts& act = STACKED ? act_k : all_act;
   const FieldOff f = field_off(k, in.n, W);
+  const int nb = in.n_blocks;
+  const FwdVecs vo = fwd_vecs(W, nb);
   out += (size_t)k * in.n * 4;
-  float* hs = reinterpret_cast<float*>(smem);            // [T][LDF] residual stream h (f32)
-  float* cs = hs + T * LDF;                              // [T][LDF] matmul result
-  bf16* as = reinterpret_cast<bf16*>(cs + T * LDF);      // [T][LDA] bf16 operand
-  bf16* es = as + T * LDA;                               // [T][LDE] direction encoding
+  float4* hs = reinterpret_cast<float4*>(smem);          // [W/16][NT] residual stream h (f32)
+  bf16* as0 = reinterpret_cast<bf16*>(hs + T * W / 4);   // [T][LDA] bf16 operand tiles, two
+  bf16* as1 = as0 + T * LDA;
+  bf16* es = as1 + T * LDA;                              // [T][LDE] direction encoding
   bf16* bs = es + T * LDE;                               // [NSLOT][KC * W] weight ring
   float* ps = reinterpret_cast<float*>(bs + NSLOT * KC * W);  // [T][6] warped x, d
-  float* al = ps + T * 6;                                // [T] alpha
-  Ring* ring = reinterpret_cast<Ring*>(al + T);
+  float* vec = ps + T * 6;                               // fwd_vecs
+  float* hp = vec + fwd_vecs(W, MAXB).total;             // [2][T] alpha, [2][T][3] rgb partials
+  Ring* ring = reinterpret_cast<Ring*>(hp + 2 * T * 4);
   const int tid = threadIdx.x;
   const long row0 = (long)blockIdx.x * T;
   const int nrow = (int)min((long)T, (long)in.n - row0);
   if (tid == 0) {  // the stream, in the order of the GEMMs below
     ring_init(ring, bs, KC * W);
     ring_add(ring, w.w_in, in_rows<ENC>(), W);
-    for (int b = 0; b < in.n_blocks; ++b) {
+    for (int b = 0; b < nb; ++b) {
       ring_add(ring, net.w0[b] + f.ww, W, W);
       ring_add(ring, net.w1[b] + f.ww, W, W);
     }
@@ -767,129 +1319,87 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
     ring_start(ring);
   }
   Feed feed = {ring, 0};
+  stage_async(vec + vo.b_in, w.b_in, W);  // completed before the barrier after the encoding
+  for (int b = 0; b < nb; ++b) {
+    stage_async(vec + vo.b_blk + 2 * W * b, net.b0[b] + f.b, W);
+    stage_async(vec + vo.b_blk + 2 * W * b + W, net.b1[b] + f.b, W);
+  }
+  stage_async(vec + vo.b_out, w.b_out, W);
+  stage_async(vec + vo.b_f, w.b_f, W);
+  stage_async(vec + vo.b_v, w.b_v, W2);
 
   if constexpr (ENC) {
-    stage_encoded(in.x, in.fx, XW, in.n, row0, as, LDA, false);
+    stage_encoded(in.x, in.fx, XW, in.n, row0, as0, LDA, false);
     stage_encoded(in.d, in.fd, EW, in.n, row0, es, LDE, false);
   } else {
     load_points(in.x, in.d, in.warp, in.n, row0, nullptr, ps);
     __syncthreads();
-    for (int i = tid; i < T * EW; i += NT) {
-      const int t = i / EW, j = i - t * EW;
-      float vx = pe_val(ps + t * 6, j, in.fx), vd = pe_val(ps + t * 6 + 3, j, in.fd);
-      if (in.mask_x) vx *= in.mask_x[j];
-      if (in.mask_d) vd *= in.mask_d[j];
-      as[t * LDA + j] = __float2bfloat16(vx);
-      es[t * LDE + j] = __float2bfloat16(vd);
-    }
+    encode_tile(ps, in.fx, in.mask_x, as0, LDA, T);
+    encode_tile(ps + 3, in.fd, in.mask_d, es, LDE, T);
   }
+  stage_bf16(vec + vo.w_a, w.w_a, W);
+  stage_bf16(vec + vo.w_r, w.w_r, 3 * W2);
+  stage_f32(vec + vo.b_a, w.b_a, 1);
+  stage_f32(vec + vo.b_r, w.b_r, 3);
+  stage_wait();
+  __syncthreads();  // the encodings and the staged vectors, read across row strips
 
-  // The elementwise passes give each thread the same eight-column groups of
-  // the tile (16-byte stores of the saved bf16 activations), so a pass may
-  // read what the previous W-wide pass wrote without a barrier.
-  const int V = W / 8, V2 = W2 / 8;
-  gemm1(as, LDA, in_rows<ENC>(), W, feed, hs, LDF);
-  for (int b = 0; b < in.n_blocks; ++b) {
-    for (int i = tid; i < T * V; i += NT) {
-      const int t = i / V, c = (i - t * V) * 8;
-      float h[8], r[8];
-      ld_f8(hs + t * LDF + c, h);
-      if (b == 0) {
-        add_bias8(h, w.b_in + c);
-        st_f8(hs + t * LDF + c, h);
-      }
-      if (t < nrow) st_bf8g(h, (all_act.h[b] + f.act) + (row0 + t) * W + c);
-      relu8(h, r);
-      st_bf8(r, as + t * LDA + c, nullptr);
-    }
-    gemm1(as, LDA, W, W, feed, cs, LDF);
-    for (int i = tid; i < T * V; i += NT) {
-      const int t = i / V, c = (i - t * V) * 8;
-      float v[8], r[8];
-      ld_f8(cs + t * LDF + c, v);
-      add_bias8(v, (net.b0[b] + f.b) + c);
-      if (t < nrow) st_bf8g(v, (all_act.nn[b] + f.act) + (row0 + t) * W + c);
-      relu8(v, r);
-      st_bf8(r, as + t * LDA + c, nullptr);
-    }
-    gemm1(as, LDA, W, W, feed, cs, LDF);
-    for (int i = tid; i < T * V; i += NT) {  // h = h + (fc1 + b1)
-      const int t = i / V, c = (i - t * V) * 8;
-      float v[8], h[8];
-      ld_f8(cs + t * LDF + c, v);
-      add_bias8(v, (net.b1[b] + f.b) + c);
-      ld_f8(hs + t * LDF + c, h);
-      add_bias8(h, v);
-      st_f8(hs + t * LDF + c, h);
-    }
+  bf16 *cur = as0, *nxt = as1;
+  {
+    const Seg s = {cur, LDA, in_rows<ENC>(), false};
+    tile_gemm<128, 64>(&s, 1, W, feed, EpiResidual{vec + vo.b_in, hs, nxt, LDA, true});
+    save_strip(nxt, LDA, W, nb > 0 ? all_act.h[0] + f.act : act.h_last, row0, nrow);
+    swap_ptr(cur, nxt);
   }
-  for (int i = tid; i < T * V; i += NT) {
-    const int t = i / V, c = (i - t * V) * 8;
-    float h[8], r[8];
-    ld_f8(hs + t * LDF + c, h);
-    if (in.n_blocks == 0) add_bias8(h, w.b_in + c);
-    if (t < nrow) st_bf8g(h, act.h_last + (row0 + t) * W + c);
-    relu8(h, r);
-    st_bf8(r, as + t * LDA + c, nullptr);
-  }
-  gemm1(as, LDA, W, W, feed, cs, LDF);
-  for (int i = tid; i < T * V; i += NT) {
-    const int t = i / V, c = (i - t * V) * 8;
-    float v[8];
-    ld_f8(cs + t * LDF + c, v);
-    add_bias8(v, w.b_out + c);
-    st_bf8(v, as + t * LDA + c, t < nrow ? act.ho + (row0 + t) * W + c : nullptr);
-  }
-  __syncthreads();
-  {  // alpha head (W -> 1): one warp per 8 points, lanes across columns
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int t = warp * 8; t < warp * 8 + 8; ++t) {
-      float s = 0.f;
-      for (int c = lane; c < W; c += 32) s += bf(as[t * LDA + c]) * bf(w.w_a[c]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) al[t] = s + w.b_a[0];
-    }
-  }
-  gemm1(as, LDA, W, W, feed, cs, LDF);
-  for (int i = tid; i < T * V; i += NT) {
-    const int t = i / V, c = (i - t * V) * 8;
-    float v[8];
-    ld_f8(cs + t * LDF + c, v);
-    add_bias8(v, w.b_f + c);
-    st_bf8(v, as + t * LDA + c, t < nrow ? act.feat + (row0 + t) * W + c : nullptr);
+  for (int b = 0; b < nb; ++b) {
+    const Seg s0 = {cur, LDA, W, true};  // n = relu(h) W0 + b0
+    tile_gemm<128, 64>(&s0, 1, W, feed, EpiBias<0>{vec + vo.b_blk + 2 * W * b, nxt, LDA, nullptr, nullptr});
+    save_strip(nxt, LDA, W, all_act.nn[b] + f.act, row0, nrow);
+    swap_ptr(cur, nxt);
+    const Seg s1 = {cur, LDA, W, true};  // h = h + (relu(n) W1 + b1)
+    tile_gemm<128, 64>(&s1, 1, W, feed, EpiResidual{vec + vo.b_blk + 2 * W * b + W, hs, nxt, LDA, false});
+    save_strip(nxt, LDA, W, b + 1 < nb ? all_act.h[b + 1] + f.act : act.h_last, row0, nrow);
+    swap_ptr(cur, nxt);
   }
   {
-    Seg s[2] = {{as, LDA, W}, {es, LDE, EW}};
-    tile_gemm(s, 2, W2, feed, cs, LDF);
+    const Seg s = {cur, LDA, W, true};  // ho = relu(h) W_out + b_out; alpha = ho w_a
+    tile_gemm<128, 64>(&s, 1, W, feed, EpiBias<1>{vec + vo.b_out, nxt, LDA, vec + vo.w_a, hp});
+    save_strip(nxt, LDA, W, act.ho, row0, nrow);
+    swap_ptr(cur, nxt);
   }
-  for (int i = tid; i < T * V2; i += NT) {
-    const int t = i / V2, c = (i - t * V2) * 8;
-    float v[8], r[8];
-    ld_f8(cs + t * LDF + c, v);
-    add_bias8(v, w.b_v + c);
-    if (t < nrow) st_bf8g(v, act.hv_in + (row0 + t) * W2 + c);
-    relu8(v, r);
-    st_bf8(r, as + t * LDA + c, nullptr);
+  {
+    const Seg s = {cur, LDA, W, false};  // feat = ho W_f + b_f
+    tile_gemm<128, 64>(&s, 1, W, feed, EpiBias<0>{vec + vo.b_f, nxt, LDA, nullptr, nullptr});
+    save_strip(nxt, LDA, W, act.feat, row0, nrow);
+    swap_ptr(cur, nxt);
   }
-  __syncthreads();
-  for (int i = tid; i < T * 3; i += NT) {  // rgb head (W/2 -> 3)
-    const int t = i / 3, j = i - t * 3;
-    float s = 0.f;
-    for (int c = 0; c < W2; ++c) s += bf(as[t * LDA + c]) * bf(w.w_r[c * 3 + j]);
-    if (t < nrow) {
-      out[(row0 + t) * 4 + 1 + j] = s + w.b_r[j];
-      if (j == 0) out[(row0 + t) * 4] = al[t];
-    }
+  {
+    const Seg s[2] = {{cur, LDA, W, false}, {es, LDE, EW, false}};  // hv_in; rgb = relu(hv_in) w_r
+    tile_gemm<64, 32>(s, 2, W2, feed, EpiBias<3>{vec + vo.b_v, nxt, LDA, vec + vo.w_r, hp + 2 * T});
+    save_strip(nxt, LDA, W2, act.hv_in, row0, nrow);
   }
+  __syncthreads();  // the heads' partials of both warpgroups
+  if (tid < nrow) {  // out = (alpha, rgb) + their biases
+    const float* al = hp;
+    const float* rg = hp + 2 * T;
+    *reinterpret_cast<float4*>(out + (row0 + tid) * 4) =
+        make_float4((al[tid] + al[T + tid]) + vec[vo.b_a], (rg[tid * 3] + rg[(T + tid) * 3]) + vec[vo.b_r],
+                    (rg[tid * 3 + 1] + rg[(T + tid) * 3 + 1]) + vec[vo.b_r + 1],
+                    (rg[tid * 3 + 2] + rg[(T + tid) * 3 + 2]) + vec[vo.b_r + 2]);
+  }
+  save_drain();
   if (tid == 0) ring_drain(ring, feed.g);
 }
 
-template <bool STACKED, bool ENC>  // as fwd_kernel
+// As fwd_kernel, walking the chain backward: each GEMM's epilogue applies
+// the relu mask from the saved activation prefetched into shared memory
+// while the GEMM ran (ActPipe), writes the layer's dY to the
+// other operand tile and sums its columns from registers.
+template <bool STACKED, bool ENC>
 __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts all_act, const float* g,
                                                      Grads all_gr) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int W = all_in.width, W2 = W / 2, LDF = W + 4, LDA = W + 8, nb = all_in.n_blocks;
+  const int W = all_in.width, W2 = W / 2, LDA = W + 8, nb = all_in.n_blocks;
   const int k = STACKED ? blockIdx.y : 0;
   const POff o = partial_offsets(W, nb);
   const Inputs in_k = field_inputs<ENC>(all_in, k);
@@ -903,17 +1413,23 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   const Grads& gr = STACKED ? gr_k : all_gr;
   const FieldOff f = field_off(k, in.n, W);
   g += (size_t)k * in.n * 4;
-  float* dhs = reinterpret_cast<float*>(smem);           // [T][LDF] residual grad dh (f32)
-  float* cs = dhs + T * LDF;                             // [T][LDF] matmul result
-  bf16* as = reinterpret_cast<bf16*>(cs + T * LDF);      // [T][LDA] bf16 operand
-  bf16* bs = as + T * LDA;                               // [NSLOT][KC * W] weight ring
-  float* raw = reinterpret_cast<float*>(bs + NSLOT * KC * W);  // [T][6] world x, d
-  float* ps = raw + T * 6;                               // [T][6] warped x, d
+  // [W/16][NT] float4: the residual grad dh (f32); before and after dh, the narrow results
+  float* dhs = reinterpret_cast<float*>(smem);
+  bf16* as0 = reinterpret_cast<bf16*>(dhs + T * W);      // [T][LDA] bf16 operand tiles, two
+  bf16* as1 = as0 + T * LDA;
+  bf16* acts = as1 + T * LDA;                            // [T][LDA] the prefetched saved activation
+  bf16* bs = acts + T * LDA;                             // [NSLOT][KC * W] weight ring
+  float* ps = reinterpret_cast<float*>(bs + NSLOT * KC * W);  // [T][6] warped x, d
   float* gs = ps + T * 6;                                // [T][4] cotangent
   float* pd = gs + T * 4;                                // [T][3] world-frame d grads
-  float* pose = pd + T * 3;                              // [T][12] per-point pose terms
-  Ring* ring = reinterpret_cast<Ring*>(pose + T * 12);
-  const int tid = threadIdx.x;
+  ColBufs cbs = {{pd + T * 3, pd + T * 3 + 4 * W}, W, 0};  // [2][4][W] column-sum strips
+  bf16* wa = reinterpret_cast<bf16*>(pd + T * 3 + 8 * W);  // [W] w_a
+  bf16* wr = wa + W;                                     // [W2][3] w_r
+  float* red = reinterpret_cast<float*>(wr + 3 * W2);    // [RED] reductions
+  unsigned long long* abar = reinterpret_cast<unsigned long long*>(red + RED);  // the prefetch's "full" (2 words)
+  ActPipe* pipe = reinterpret_cast<ActPipe*>(abar + 2);  // its loads
+  Ring* ring = reinterpret_cast<Ring*>(pipe + 1);
+  const int tid = threadIdx.x, warp = tid >> 5;
   const long row0 = (long)blockIdx.x * T;
   const int nrow = (int)min((long)T, (long)in.n - row0);
   const bool warped = in.warp != nullptr;
@@ -930,79 +1446,59 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
       ring_add(ring, net.w0[b] + f.ww, W, W);
     }
     if (warped || in_grads) ring_add(ring, w.w_in, W, in_rows<ENC>());
+    pipe->count = pipe->released = 0;  // the prefetch's loads, in the order of the epilogues below
+    act_add(pipe, act.hv_in, W2);
+    act_add(pipe, act.ho, W);
+    act_add(pipe, act.h_last, W);
+    for (int b = nb - 1; b >= 0; --b) {
+      act_add(pipe, all_act.nn[b] + f.act, W);
+      act_add(pipe, all_act.h[b] + f.act, W);
+    }
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(abar)) : "memory");
     ring_start(ring);
   }
   Feed feed = {ring, 0};
+  if (warp == 0) {
+    __syncwarp();
+    act_issue(pipe, 0, row0, nrow, acts, LDA, abar);
+  }
+  unsigned loads = 1;  // the next load an epilogue reads (the same in every thread); hv_in is load 0
 
-  if constexpr (!ENC) load_points(in.x, in.d, in.warp, in.n, row0, raw, ps);
+  if constexpr (!ENC) load_points(in.x, in.d, in.warp, in.n, row0, nullptr, ps);
   if (tid < T)
     for (int j = 0; j < 4; ++j) gs[tid * 4 + j] = tid < nrow ? g[(row0 + tid) * 4 + j] : 0.f;
+  stage_async_bf16(wa, w.w_a, W);
+  stage_async_bf16(wr, w.w_r, 3 * W2);
+  stage_wait();
   __syncthreads();
   // encodings: the X of lin_in and Wv_bot
   if constexpr (ENC) {
     stage_encoded(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * XW, XW, true);
     stage_encoded(in.d, in.fd, EW, in.n, row0, gr.de + row0 * EW, EW, true);
   } else {
-    for (int i = tid; i < T * EW; i += NT) {
-      const int t = i / EW, j = i - t * EW;
-      if (t >= nrow) continue;
-      float vx = pe_val(ps + t * 6, j, in.fx), vd = pe_val(ps + t * 6 + 3, j, in.fd);
-      if (in.mask_x) vx *= in.mask_x[j];
-      if (in.mask_d) vd *= in.mask_d[j];
-      gr.xe[(row0 + t) * EW + j] = __float2bfloat16(vx);
-      gr.de[(row0 + t) * EW + j] = __float2bfloat16(vd);
-    }
+    encode_tile(ps, in.fx, in.mask_x, gr.xe + row0 * EW, EW, nrow);
+    encode_tile(ps + 3, in.fd, in.mask_d, gr.de + row0 * EW, EW, nrow);
   }
 
-  // The elementwise passes below give each thread the same eight-column
-  // groups of the tile (16-byte loads of saved bf16 activations), so a pass
-  // may read what the previous W-wide pass wrote without a barrier.
-  const int V = W / 8, V2 = W2 / 8;
-
-  // rgb head: dhv = drgb @ W_r^T, dhv_in = dhv * (hv_in > 0)
-  for (int i = tid; i < T * V2; i += NT) {
-    const int t = i / V2, c = (i - t * V2) * 8;
-    float hv[8], v[8];
-    ld_act8(act.hv_in, row0, t, c, W2, nrow, hv);
-    const float g1 = bfr(gs[t * 4 + 1]), g2 = bfr(gs[t * 4 + 2]), g3 = bfr(gs[t * 4 + 3]);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const bf16* wr = w.w_r + (c + q) * 3;
-      const float dhv = g1 * bf(wr[0]) + g2 * bf(wr[1]) + g3 * bf(wr[2]);
-      v[q] = hv[q] > 0.f ? dhv : 0.f;
-    }
-    st_f8(cs + t * LDF + c, v);
-    st_bf8(v, as + t * LDA + c, t < nrow ? gr.d_v + (row0 + t) * W2 + c : nullptr);
-  }
-  __syncthreads();
-  colsum(cs, LDF, W2, part + o.b_v);
-  for (int c = tid; c < W2; c += NT) {  // dW_r = relu(hv_in)^T drgb
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-#pragma unroll 8
-    for (int t = 0; t < T; ++t) {
-      const float hv = fmaxf(ld_act(act.hv_in, row0 + t, c, W2, t < nrow), 0.f);
-      a0 += hv * bfr(gs[t * 4 + 1]);
-      a1 += hv * bfr(gs[t * 4 + 2]);
-      a2 += hv * bfr(gs[t * 4 + 3]);
-    }
-    part[o.w_r + c * 3] = a0; part[o.w_r + c * 3 + 1] = a1; part[o.w_r + c * 3 + 2] = a2;
-  }
-  if (tid < 4) {
-    float s = 0.f;
-    for (int t = 0; t < T; ++t) s += gs[t * 4 + tid];
-    part[tid == 0 ? o.b_a : o.b_r + tid - 1] = s;
-  }
+  // rgb head: dhv = drgb @ W_r^T, dhv_in = dhv * (hv_in > 0), into as0
+  if (W2 == 128)
+    bwd_rgb_head<64>(acts, LDA, abar, pipe, row0, gs, wr, nrow, as0, cbs, red, part, o);
+  else
+    bwd_rgb_head<32>(acts, LDA, abar, pipe, row0, gs, wr, nrow, as0, cbs, red, part, o);
+  save_strip(as0, LDA, W2, gr.d_v, row0, nrow);
 
   if (warped || in_grads) {  // dd_emb = dhv_in @ Wv_bot^T -> mask -> encoding backward -> M^T
-    gemm1(as, LDA, W2, EW, feed, dhs, LDF);
+    const Seg s = {as0, LDA, W2, false};
+    gemm_core<EW / 2>(&s, 1, feed, EpiF32{dhs, EW + 8});
+    __syncthreads();
     if constexpr (ENC) {  // dd_emb is the input grad
       for (int i = tid; i < T * in.fd; i += NT) {
         const int t = i / in.fd, c = i - t * in.fd;
-        if (t < nrow) gr.dd[(row0 + t) * in.fd + c] = dhs[t * LDF + c];
+        if (t < nrow) gr.dd[(row0 + t) * in.fd + c] = dhs[t * (EW + 8) + c];
       }
     } else {
       float dw[3];
-      pe_bwd(dhs, LDF, ps + 3, in.mask_d, in.fd, dw);
+      pe_bwd(dhs, EW + 8, ps + 3, in.mask_d, in.fd, dw);
       if ((tid & 3) == 0) {
         const int t = tid >> 2;
         unwarp3(in.warp, dw, pd + t * 3);
@@ -1010,136 +1506,111 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
           for (int c = 0; c < 3; ++c) gr.dd[(row0 + t) * 3 + c] = pd[t * 3 + c];
       }
     }
+    __syncthreads();  // the narrow result is read; dh takes its place
   }
 
-  // dfeat = dhv_in @ Wv_top^T
-  gemm1(as, LDA, W2, W, feed, cs, LDF);
-  for (int i = tid; i < T * V; i += NT) {
-    const int t = i / V, c = (i - t * V) * 8;
-    float v[8];
-    ld_f8(cs + t * LDF + c, v);
-    st_bf8(v, as + t * LDA + c, t < nrow ? gr.d_f + (row0 + t) * W + c : nullptr);
+  // Each layer's epilogue, as EpiBwd's members: its dY tile, the prefetched
+  // tile, its load, the residual dh, the column-sum buffers and outputs.
+  {  // dfeat = dhv_in @ Wv_top^T
+    const Seg s = {as0, LDA, W2, false};
+    const EpiBwd<BW_DY> e = {as1, LDA, nullptr, abar, pipe, 0, row0, nullptr, false, gs, wa, nrow,
+                             cbs.next(), nullptr, W, part + o.b_f, nullptr};
+    tile_gemm<128, 64>(&s, 1, W, feed, e);
+    save_strip(as1, LDA, W, gr.d_f, row0, nrow);
   }
-  __syncthreads();
-  colsum(cs, LDF, W, part + o.b_f);
-
-  // dho = dfeat @ W_f^T + dalpha W_a^T
-  gemm1(as, LDA, W, W, feed, cs, LDF);
-  for (int i = tid; i < T * V; i += NT) {
-    const int t = i / V, c = (i - t * V) * 8;
-    float v[8];
-    ld_f8(cs + t * LDF + c, v);
-    const float da = bfr(gs[t * 4]);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] += da * bf(w.w_a[c + q]);
-    st_f8(cs + t * LDF + c, v);
-    st_bf8(v, as + t * LDA + c, t < nrow ? gr.d_out + (row0 + t) * W + c : nullptr);
+  {  // dho = dfeat @ W_f^T + dalpha W_a^T; dW_a = ho^T dalpha
+    const Seg s = {as1, LDA, W, false};
+    float* cb = cbs.next();
+    const EpiBwd<BW_DHO> e = {as0, LDA, acts, abar, pipe, loads++, row0, nullptr, false, gs, wa, nrow,
+                              cb, cbs.next(), W, part + o.b_out, part + o.w_a};
+    tile_gemm<128, 64>(&s, 1, W, feed, e);
+    save_strip(as0, LDA, W, gr.d_out, row0, nrow);
   }
-  __syncthreads();
-  colsum(cs, LDF, W, part + o.b_out);
-  __syncthreads();
-  for (int i = tid; i < T * V; i += NT) {  // dW_a = ho^T dalpha, as a column sum of ho * dalpha
-    const int t = i / V, c = (i - t * V) * 8;
-    float v[8];
-    ld_act8(act.ho, row0, t, c, W, nrow, v);
-    const float da = bfr(gs[t * 4]);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] *= da;
-    st_f8(cs + t * LDF + c, v);
-  }
-  __syncthreads();
-  colsum(cs, LDF, W, part + o.w_a);
-
-  // dr = dho @ W_out^T, dh = dr * (h_last > 0)
-  gemm1(as, LDA, W, W, feed, cs, LDF);
-  for (int i = tid; i < T * V; i += NT) {
-    const int t = i / V, c = (i - t * V) * 8;
-    float a[8], v[8];
-    ld_act8(act.h_last, row0, t, c, W, nrow, a);
-    ld_f8(cs + t * LDF + c, v);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = a[q] > 0.f ? v[q] : 0.f;
-    st_f8(dhs + t * LDF + c, v);
+  float4* dh = reinterpret_cast<float4*>(dhs);
+  bf16 *cur = as0, *nxt = as1;
+  {  // dr = dho @ W_out^T, dh = dr * (h_last > 0): the dY of the last fc1 (or of lin_in)
+    const Seg s = {cur, LDA, W, false};
+    const EpiBwd<BW_MASKED> e = {nxt, LDA, acts, abar, pipe, loads++, row0, dh, true, gs, wa, nrow,
+                                 cbs.next(), nullptr, W,
+                                 part + (nb > 0 ? o.b_blocks + 2 * W * (nb - 1) + W : o.b_in), nullptr};
+    tile_gemm<128, 64>(&s, 1, W, feed, e);
+    save_strip(nxt, LDA, W, nb > 0 ? all_gr.d1[nb - 1] + f.act : gr.d_in, row0, nrow);
+    swap_ptr(cur, nxt);
   }
   for (int b = nb - 1; b >= 0; --b) {
-    for (int i = tid; i < T * V; i += NT) {  // h_out = h_in + fc1(relu(n)): dY of fc1 is dh
-      const int t = i / V, c = (i - t * V) * 8;
-      float v[8];
-      ld_f8(dhs + t * LDF + c, v);
-      st_bf8(v, as + t * LDA + c, t < nrow ? (all_gr.d1[b] + f.act) + (row0 + t) * W + c : nullptr);
+    {  // dn = (dh @ W1^T) * (n > 0)
+      const Seg s = {cur, LDA, W, false};
+      const EpiBwd<BW_MASKED> e = {nxt, LDA, acts, abar, pipe, loads++, row0, nullptr, false, gs, wa, nrow,
+                                   cbs.next(), nullptr, W, part + o.b_blocks + 2 * W * b, nullptr};
+      tile_gemm<128, 64>(&s, 1, W, feed, e);
+      save_strip(nxt, LDA, W, all_gr.d0[b] + f.act, row0, nrow);
+      swap_ptr(cur, nxt);
     }
-    __syncthreads();
-    colsum(dhs, LDF, W, part + o.b_blocks + 2 * W * b + W);
-    gemm1(as, LDA, W, W, feed, cs, LDF);
-    for (int i = tid; i < T * V; i += NT) {  // dn = da1 * (n > 0)
-      const int t = i / V, c = (i - t * V) * 8;
-      float a[8], v[8];
-      ld_act8(all_act.nn[b] + f.act, row0, t, c, W, nrow, a);
-      ld_f8(cs + t * LDF + c, v);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) v[q] = a[q] > 0.f ? v[q] : 0.f;
-      st_f8(cs + t * LDF + c, v);
-      st_bf8(v, as + t * LDA + c, t < nrow ? (all_gr.d0[b] + f.act) + (row0 + t) * W + c : nullptr);
-    }
-    __syncthreads();
-    colsum(cs, LDF, W, part + o.b_blocks + 2 * W * b);
-    gemm1(as, LDA, W, W, feed, cs, LDF);
-    for (int i = tid; i < T * V; i += NT) {  // dh += da0 * (h_in > 0)
-      const int t = i / V, c = (i - t * V) * 8;
-      float a[8], v[8], dh[8];
-      ld_act8(all_act.h[b] + f.act, row0, t, c, W, nrow, a);
-      ld_f8(cs + t * LDF + c, v);
-      ld_f8(dhs + t * LDF + c, dh);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) dh[q] += a[q] > 0.f ? v[q] : 0.f;
-      st_f8(dhs + t * LDF + c, dh);
+    {  // dh += (dn @ W0^T) * (h_in > 0): the dY of the previous fc1 (or of lin_in)
+      const Seg s = {cur, LDA, W, false};
+      const EpiBwd<BW_MASKED> e = {nxt, LDA, acts, abar, pipe, loads++, row0, dh, false, gs, wa, nrow,
+                                   cbs.next(), nullptr, W,
+                                   part + (b > 0 ? o.b_blocks + 2 * W * (b - 1) + W : o.b_in), nullptr};
+      tile_gemm<128, 64>(&s, 1, W, feed, e);
+      save_strip(nxt, LDA, W, b > 0 ? all_gr.d1[b - 1] + f.act : gr.d_in, row0, nrow);
+      swap_ptr(cur, nxt);
     }
   }
-  for (int i = tid; i < T * V; i += NT) {
-    const int t = i / V, c = (i - t * V) * 8;
-    float v[8];
-    ld_f8(dhs + t * LDF + c, v);
-    st_bf8(v, as + t * LDA + c, t < nrow ? gr.d_in + (row0 + t) * W + c : nullptr);
-  }
-  __syncthreads();
-  colsum(dhs, LDF, W, part + o.b_in);
 
   // dx_emb = dh @ W_in^T -> mask -> encoding backward -> M^T -> dx, or the pose sums
   const bool pose_sums = warped && !in_grads;
   if (warped || in_grads) {
-    gemm1(as, LDA, W, in_rows<ENC>(), feed, cs, LDF);
+    constexpr int LDN = in_rows<ENC>() + 8;
+    __syncthreads();  // dh is read; the narrow result takes its place
+    const Seg s = {cur, LDA, W, false};
+    gemm_core<in_rows<ENC>() / 2>(&s, 1, feed, EpiF32{dhs, LDN});
+    __syncthreads();
     if constexpr (ENC) {  // dx_emb is the input grad
       for (int i = tid; i < T * in.fx; i += NT) {
         const int t = i / in.fx, c = i - t * in.fx;
-        if (t < nrow) gr.dx[(row0 + t) * in.fx + c] = cs[t * LDF + c];
+        if (t < nrow) gr.dx[(row0 + t) * in.fx + c] = dhs[t * LDN + c];
       }
     } else {
       float dw[3];
-      pe_bwd(cs, LDF, ps, in.mask_x, in.fx, dw);
-      if ((tid & 3) == 0) {
-        const int t = tid >> 2;
-        float dx[3];
-        unwarp3(in.warp, dw, dx);
-        if (in_grads) {
-          if (t < nrow)
-            for (int c = 0; c < 3; ++c) gr.dx[(row0 + t) * 3 + c] = dx[c];
-        } else {
-          for (int i = 0; i < 3; ++i) {
-            for (int j = 0; j < 3; ++j)
-              pose[t * 12 + 3 * i + j] = dx[i] * raw[t * 6 + j] + pd[t * 3 + i] * raw[t * 6 + 3 + j];
-            pose[t * 12 + 9 + i] = dx[i];
+      pe_bwd(dhs, LDN, ps, in.mask_x, in.fx, dw);
+      const int t = tid >> 2;
+      float dx[3];
+      unwarp3(in.warp, dw, dx);
+      if (in_grads) {
+        if ((tid & 3) == 0 && t < nrow)
+          for (int c = 0; c < 3; ++c) gr.dx[(row0 + t) * 3 + c] = dx[c];
+      } else {  // point t's 12 pose terms (each lane of its quad), summed over the warp's 8 points
+        float raw[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // world x, d
+        if (t < nrow)
+          for (int j = 0; j < 3; ++j) {
+            raw[j] = in.x[(row0 + t) * 3 + j];
+            raw[3 + j] = in.d[(row0 + t) * 3 + j];
           }
+        float pv[12];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) pv[3 * i + j] = dx[i] * raw[j] + pd[t * 3 + i] * raw[3 + j];
+          pv[9 + i] = dx[i];
+        }
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1)
+#pragma unroll
+          for (int i = 0; i < 12; ++i) pv[i] += __shfl_xor_sync(0xffffffffu, pv[i], m);
+        if ((tid & 31) == 0) {
+          for (int i = 0; i < 12; ++i) red[warp * 12 + i] = pv[i];
         }
       }
     }
     __syncthreads();
   }
-  if (tid < 12) {
+  if (tid < 12) {  // the warps' pose sums, in warp order
     float s = 0.f;
     if (pose_sums)
-      for (int t = 0; t < T; ++t) s += pose[t * 12 + tid];
+      for (int i = 0; i < NT / 32; ++i) s += red[i * 12 + tid];
     part[o.pose + tid] = s;
   }
+  save_drain();
   if (tid == 0) ring_drain(ring, feed.g);
 }
 
@@ -1553,6 +2024,25 @@ bool enc_inputs_ok(const Inputs& in) {
          in.fx > 0 && in.fx <= XW && in.fd > 0 && in.fd <= EW;
 }
 
+// Raises a kernel's dynamic shared memory limit to smem bytes on the
+// current device, once per kernel, device and size (allowed[device]: the
+// largest size allowed so far). Returns the call's error, cleared from the
+// runtime's last error so that the launch's check reads the launch alone.
+constexpr int MAX_DEVICES = 64;
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t* allowed) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev < 0 || dev >= MAX_DEVICES)) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && smem > allowed[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess) allowed[dev] = smem;
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1573,7 +2063,9 @@ int stx_fused_fwd(void** ptrs, const int* ints, void* stream) {
   const size_t smem = fwd_smem(in.width);
   const auto kernel = in.fields > 1 ? (enc ? fwd_kernel<true, true> : fwd_kernel<true, false>)
                                      : (enc ? fwd_kernel<false, true> : fwd_kernel<false, false>);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t allowed[4][MAX_DEVICES];
+  const cudaError_t e = allow_smem(kernel, smem, allowed[2 * (in.fields > 1) + enc]);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((in.n + T - 1) / T, in.fields);
   if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, out);
   return (int)cudaGetLastError();
@@ -1600,7 +2092,9 @@ int stx_fused_bwd(void** ptrs, const int* ints, void* stream) {
   const size_t smem = bwd_smem(in.width);
   const auto kernel = in.fields > 1 ? (enc ? bwd_kernel<true, true> : bwd_kernel<true, false>)
                                      : (enc ? bwd_kernel<false, true> : bwd_kernel<false, false>);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t allowed[4][MAX_DEVICES];
+  const cudaError_t e = allow_smem(kernel, smem, allowed[2 * (in.fields > 1) + enc]);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((in.n + T - 1) / T, in.fields);
   if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, g, gr);
   return (int)cudaGetLastError();
@@ -1666,11 +2160,9 @@ int stx_wgrad(const void* table, int fields, void* wpart, void* stream) {
         return (int)cudaErrorInvalidValue;
     }
   }
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wgrad_smem());
-    attr = true;
-  }
+  static size_t allowed[MAX_DEVICES];
+  const cudaError_t e = allow_smem(wgrad_kernel, wgrad_smem(), allowed);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)(t->tiles * t->splits), (unsigned)fields);
   wgrad_kernel<<<grid, NT, wgrad_smem(), (cudaStream_t)stream>>>(prm, reinterpret_cast<float*>(wpart));
   return (int)cudaGetLastError();
