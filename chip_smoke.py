@@ -536,9 +536,10 @@ def kernel_work(params, x, n_blocks, pe, input_grads, warped, save=True):
     stacked over K fields ([K, ...] leaves, x [K, N, C]). save=False: a
     forward that saves no activations (under no_grad). "bwd_tile" is the
     per-tile backward kernel's share of "bwd": the data-grad multiply-adds,
-    the points, the saved activations and the cotangent read, the params
-    read once, the bf16 dY of every layer and the bf16 encodings written
-    (for the weight-gradient GEMM), and the input grads."""
+    the points, the saved activations it reads (all but feat, which only
+    the weight-gradient GEMM reads) and the cotangent, the params read
+    once, the bf16 dY of every layer and the bf16 encodings written (for
+    the weight-gradient GEMM), and the input grads."""
     w_in = params["lin_in"]["w"]
     K = x.shape[0] if x.dim() == 3 else 1
     n = K * x.shape[-2]
@@ -558,7 +559,9 @@ def kernel_work(params, x, n_blocks, pe, input_grads, warped, save=True):
     from startrax_torch.kernels import fused_mlp as fm
 
     enc_bytes = 2 * ((fm.EW if pe is not None else fm.XW) + fm.EW)
-    bwd_tile = (2 * data * n, n * (in_bytes + 2 * act_bytes + 16 + enc_bytes
+    tile_reads = act_bytes - 2 * W  # every saved activation but feat
+    dy_bytes = act_bytes  # one bf16 dY a wide layer, as wide as its saved output
+    bwd_tile = (2 * data * n, n * (in_bytes + tile_reads + dy_bytes + 16 + enc_bytes
                                    + (in_bytes if input_grads else 0)) + param_bytes)
     return {"fwd": fwd, "bwd": bwd, "bwd_tile": bwd_tile}
 

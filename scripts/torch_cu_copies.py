@@ -1,7 +1,7 @@
 """Changed copies of the fused-MLP kernels' CUDA source, built and loaded in
-place of the library: the step that ``torch_planted_faults.py`` and
-``torch_kernel_phases.py`` share. Each script keeps its own table of text
-substitutions; the copies go to a directory the caller gives (a temporary
+place of the library: the step that ``torch_planted_faults.py``,
+``torch_kernel_phases.py`` and ``torch_kernel_ab.py --variants`` share.
+Each script keeps its own table of text substitutions; the copies go to a directory the caller gives (a temporary
 one outside the checkout), never into the repository's source.
 """
 

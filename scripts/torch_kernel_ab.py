@@ -3,6 +3,7 @@
 times of the raw-point instances.
 
     python3 scripts/torch_kernel_ab.py PARENT_ROOT [CHANGE_ROOT] [--json PATH]
+    python3 scripts/torch_kernel_ab.py --variants [PARENT_ROOT] [--json PATH]
 
 PARENT_ROOT and CHANGE_ROOT (default: this checkout) are roots of two
 checkouts of the repository, for example the parent commit unpacked with
@@ -48,7 +49,25 @@ checkouts of the repository, for example the parent commit unpacked with
    change is read against the parent on one machine, its host included.
 
 It prints one line per process and, with ``--json PATH``, writes every
-reading to PATH. Needs one CUDA card and nvcc.
+reading to PATH.
+
+With ``--variants``, it times variants of this checkout's source against
+the source itself (and PARENT_ROOT's, when given): the readings behind the
+kernels' design choices. Each variant is a list of text substitutions
+(``VARIANTS``; an anchor that does not occur as often as the table says
+raises). Some are alternatives that compute the same thing; the ones named
+"ablation" drop work and give wrong results, so the time they save is what
+that work costs. All copies are built at once into a temporary directory
+outside the checkout (``torch_cu_copies.py``); each is loaded in a process
+of its own in place of the library, and ``fwd_kernel`` and ``bwd_kernel``
+are timed by device time (a trace of 5 calls, by kernel name) on the
+static field calls of the shared-pose step (8x256, fine: 512,000 points)
+and of the online app's (8x128, coarse and fine: 131,072 and 262,144
+points), with grad on as a step runs them. The builds run in turns: each
+once in order, then again in the reverse order; it prints each build's
+mean a case.
+
+Needs one CUDA card and nvcc.
 """
 
 import json
@@ -57,6 +76,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
+
+import torch_cu_copies as cu_copies
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join("startrax_torch", "kernels", "csrc", "fused_mlp.cu")
@@ -64,6 +86,29 @@ CUBIN_DIR = os.path.join(HERE, "runs", "ptxas")
 REPS = 10
 STEPS, STEP_WARMUP = 14, 4
 ORDER = ("parent", "change", "change", "parent") * 2
+
+# --variants: name -> [(text to find, its replacement, how many times it occurs), ...]
+VARIANTS = {
+    "saved rows by 16-byte stores at every width": [
+        ("  if (cols < 256) {\n    strip_sync(wr);", "  if (true) {\n    strip_sync(wr);", 1)],
+    "saved rows by bulk copies at every width": [
+        ("  if (cols < 256) {\n    strip_sync(wr);", "  if (false) {\n    strip_sync(wr);", 1)],
+    "the epilogue passed by reference": [
+        ("__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, const Epi epi) {",
+         "__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, const Epi& epi) {", 1),
+        ("int nout, Feed& f, const Epi epi) {", "int nout, Feed& f, const Epi& epi) {", 1)],
+    "a block barrier in place of the strip barrier": [
+        ("__device__ __forceinline__ void strip_sync(int wr) { bar_sync(1 + wr, 64); }",
+         "__device__ __forceinline__ void strip_sync(int wr) { asm volatile(\"bar.sync 0;\" ::: \"memory\"); }",
+         1)],
+    "ablation: no column sums": [
+        ("  halve_xor<M / 2>(v, 16);\n", "  if (v) return;\n  halve_xor<M / 2>(v, 16);\n", 1)],
+    "ablation: no saved rows written": [
+        ("  if (cols < 256) {\n    strip_sync(wr);",
+         "  if (cols) {\n    strip_sync(wr);\n    return;\n  }\n  if (cols < 256) {\n    strip_sync(wr);", 1)],
+}
+VARIANT_CASES = (("carla_star_online_multi.txt", 1), ("synthetic_star_online.txt", 0),
+                 ("synthetic_star_online.txt", 1))  # (config, index into chip_smoke.kernel_cases)
 
 
 def ptxas(roots):
@@ -318,9 +363,92 @@ def step_times(cs, flag, per_ray, nerf_time):
     return out
 
 
+def variant_once(so):
+    """fwd_kernel's and bwd_kernel's device ms on each of VARIANT_CASES with
+    the library so in place of this checkout's (run in a process of its
+    own)."""
+    import dataclasses
+    import importlib.util
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from startrax_torch.kernels import fused_mlp as fm
+    from startrax_torch.utils.config import Config, parse_config_file, star_config_from
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cu_copies.load_in_place(so)
+    out = {}
+    for name, index in VARIANT_CASES:
+        cfg = Config(**parse_config_file(os.path.join(HERE, "startrax", "configs", name)))
+        star = dataclasses.replace(star_config_from(cfg), end_barf=-1)
+        case = cs.kernel_cases(star, cfg.N_rand)[index]
+        inp = cs.case_inputs(star, case, 20 + index)
+        leaves = list(fm.flatten_params(inp["params"], inp["n_blocks"]))
+
+        def fwd():
+            a, r = fm.fused_field_apply(inp["params"], inp["x"], inp["d"], inp["n_blocks"], inp["pe"],
+                                        pe_masks=inp["pe_masks"], warp=inp["warp"])
+            return torch.sin(a).sum() + (r * r).sum()
+
+        loss = fwd()
+        _, f = device_ms(fwd, 5, ("fwd_kernel",))
+        _, b = device_ms(lambda: torch.autograd.grad(loss, leaves, retain_graph=True), 5,
+                         ("bwd_kernel",))
+        label = f"{case[0]} {case[1].depth}x{case[1].width} N={case[2]}"
+        out[label] = {"fwd_kernel": f["fwd_kernel"][0], "bwd_kernel": b["bwd_kernel"][0]}
+        del loss
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def variants(parent, report):
+    """The --variants mode: every variant, this checkout's source and
+    parent's (when not None) timed in turns; their readings and means go
+    into report."""
+    with open(os.path.join(HERE, SRC)) as fp:
+        src = fp.read()
+    texts = {}
+    if parent:
+        with open(os.path.join(parent, SRC)) as fp:
+            texts["parent"] = fp.read()
+    texts["this checkout"] = src
+    texts.update((name, cu_copies.substitute(src, edits, f"variant {name!r}"))
+                 for name, edits in VARIANTS.items())
+    runs = {name: [] for name in texts}
+    with tempfile.TemporaryDirectory(prefix="stx_variants_") as out_dir:
+        libs = cu_copies.build(texts, out_dir)
+        for name in list(texts) + list(reversed(texts)):
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--variant-once",
+                                  libs[name]], capture_output=True, text=True, cwd=HERE)
+            if out.returncode != 0:
+                raise RuntimeError(f"{name}: the run failed:\n{out.stderr[-2000:]}")
+            runs[name].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    report.update(runs=runs, means={})
+    for name, readings in runs.items():
+        means = {label: {k: statistics.mean(r[label][k] for r in readings) for k in readings[0][label]}
+                 for label in readings[0]}
+        report["means"][name] = means
+        print(f"{name}: " + "; ".join(f"{label} fwd {v['fwd_kernel']:.4f} bwd {v['bwd_kernel']:.4f} ms"
+                                      for label, v in means.items()), flush=True)
+
+
+def write_json(report, json_path):
+    if json_path:
+        os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)
+        with open(json_path, "w") as fp:
+            json.dump(report, fp, indent=1)
+
+
 def main():
     if len(sys.argv) > 2 and sys.argv[1] == "--once":
         once(os.path.abspath(sys.argv[2]))
+        return 0
+    if len(sys.argv) > 2 and sys.argv[1] == "--variant-once":
+        variant_once(sys.argv[2])
         return 0
     import torch
 
@@ -333,12 +461,19 @@ def main():
         i = args.index("--json")
         json_path = args[i + 1]
         del args[i:i + 2]
-    parent = os.path.abspath(args[0])
-    change = os.path.abspath(args[1]) if len(args) > 1 else HERE
-    sys.path.insert(0, change)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    if "--variants" in args:
+        args.remove("--variants")
+        sys.path.insert(0, HERE)
+        report = {"card": card}
+        variants(os.path.abspath(args[0]) if args else None, report)
+        write_json(report, json_path)
+        return 0
+    parent = os.path.abspath(args[0])
+    change = os.path.abspath(args[1]) if len(args) > 1 else HERE
+    sys.path.insert(0, change)
     report = {"card": card, "ptxas": {}, "same_sass": {}}
     for tree, kernels in zip(("parent", "change"), ptxas([parent, change])):
         report["ptxas"][tree] = {_instance(k): v for k, v in kernels.items()}
@@ -378,10 +513,7 @@ def main():
                         for tree in ("parent", "change"))
                 print(f"{label} {side}: parent {p:.4f}, change {c:.4f} "
                       f"({100 * (c / p - 1):+.2f}%)", flush=True)
-    if json_path:
-        os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)
-        with open(json_path, "w") as fp:
-            json.dump(report, fp, indent=1)
+    write_json(report, json_path)
     return 0
 
 

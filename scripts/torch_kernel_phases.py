@@ -6,7 +6,8 @@ kernels, on the static fine case of the shared-pose step.
 
 ROOT (default: this checkout) is the root of a checkout of the repository,
 for example the parent commit unpacked with ``git archive`` into
-``runs/parent``; its GEMM core must be the wgmma weight ring. The script
+``runs/parent``; its kernels must be this source's (the wgmma weight ring,
+the epilogues in registers on its accumulators). The script
 writes a copy of ROOT's ``startrax_torch/kernels/csrc/fused_mlp.cu`` into a
 temporary directory outside the checkout, inserts the stamps by text
 substitution (each anchor must occur as often as the table says, or the
@@ -15,11 +16,6 @@ in place of the library (``torch_cu_copies.py``). It then runs the static
 fine field of ``carla_star_online_multi.txt`` (8x256, 1000 rays x 512
 samples = 512,000 points) forward, with grad on as a step runs it, and
 backward (``torch.autograd.grad``), one warm-up each.
-
-Two generations of the source are known, each with its own anchor table:
-the epilogues that read an f32 tile back from shared memory (``LEGACY``)
-and the epilogues in registers on the wgmma accumulators (``REGISTER``).
-The table is chosen by a marker of the newer source.
 
 Thread 0 of every CTA of ``fwd_kernel`` and ``bwd_kernel`` attributes each
 of its cycles, from the kernel's first statement to its end, to one
@@ -37,10 +33,10 @@ shared memory). The categories:
 - ``sums``: the column sums (bias grads) and the narrow weight grads
   (dW_a, dW_r, the b_a and b_r sums);
 - ``enc_bwd``: the encoding backward, the unwarp and the pose sums;
-- ``barriers``: waits in block barriers (``__syncthreads`` and, in the
-  newer source, the named barriers of a row strip or a warpgroup);
-- ``act_wait``: in the newer backward, the epilogues' wait for the
-  prefetched saved activation to land;
+- ``barriers``: waits in barriers (``__syncthreads`` and the named
+  barriers of a row strip or a warpgroup);
+- ``act_wait``: in the backward, the epilogues' wait for the prefetched
+  saved activation to land;
 - ``other``: the rest (the ring's set-up, the cotangent's load, the drain).
 Thread 0 takes part in every barrier, so its waits include the slowest
 warp's arrival. "Outside the core" is every category but core and wait.
@@ -145,39 +141,16 @@ extern "C" int stx_wg_read(unsigned long long* out) {
 }
 """ % (MAXC, MAXC, MAXC, MAXC)
 
-KERNEL_ANCHOR = ("  extern __shared__ __align__(128) unsigned char smem[];\n  const int W = all_in.width",
-                 "  extern __shared__ __align__(128) unsigned char smem[];\n  StxKernel stx_k;\n"
-                 "  const int W = all_in.width", 2)
-
-# The chunk loop's waits, the same in both generations.
-WAIT_ANCHORS = [
+# The fused kernels' anchors: (text to find, its replacement, how many
+# times it occurs). Category numbers follow CATS.
+ANCHORS = [
+    ("  extern __shared__ __align__(128) unsigned char smem[];\n  const int W = all_in.width",
+     "  extern __shared__ __align__(128) unsigned char smem[];\n  StxKernel stx_k;\n"
+     "  const int W = all_in.width", 2),
     ("      mbar_wait(&r->full[slot], (g / NSLOT) & 1);\n",
      "      stx_to(2); mbar_wait(&r->full[slot], (g / NSLOT) & 1); stx_to(1); stx_chunk();\n", 1),
     ("    mbar_wait(&r->empty[slot], (g / NSLOT) & 1);\n",
      "    stx_to(2); mbar_wait(&r->empty[slot], (g / NSLOT) & 1); stx_to(1);\n", 1),
-]
-
-# Anchors of each generation: (text to find, its replacement, how many times
-# it occurs). Category numbers follow CATS.
-LEGACY = [
-    ("__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, float* c, int ldc) {\n",
-     "__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, float* c, int ldc) {\n  stx_to(1);\n", 1),
-    ("  f.g = g;\n  const int row = 16 * wr", "  stx_to(4);\n  f.g = g;\n  const int row = 16 * wr", 1),
-    ("  if constexpr (ENC) {\n    stage_encoded(in.x, in.fx, XW, in.n, row0, as, LDA, false);",
-     "  stx_to(3);\n  if constexpr (ENC) {\n    stage_encoded(in.x, in.fx, XW, in.n, row0, as, LDA, false);", 1),
-    ("  {  // alpha head", "  stx_to(5);\n  {  // alpha head", 1),
-    ("  for (int i = tid; i < T * 3; i += NT) {  // rgb head", "  stx_to(5);\n"
-     "  for (int i = tid; i < T * 3; i += NT) {  // rgb head", 1),
-    ("  if constexpr (!ENC) load_points(", "  stx_to(3);\n  if constexpr (!ENC) load_points(", 1),
-    ("  // rgb head: dhv = drgb @ W_r^T", "  stx_to(5);\n  // rgb head: dhv = drgb @ W_r^T", 1),
-    ("void colsum(const float* buf, int ld, int ncols, float* out) {\n",
-     "void colsum(const float* buf, int ld, int ncols, float* out) {\n  stx_to(6);\n", 1),
-    ("                                       int F, float* out3) {\n",
-     "                                       int F, float* out3) {\n  stx_to(7);\n", 1),
-    ("__syncthreads();", "stx_sync();", 15),
-]
-
-REGISTER = [
     ("  unsigned g = f.g;\n", "  stx_to(1);\n  unsigned g = f.g;\n", 1),
     ("  f.g = g;\n  epi.template run<N>(acc);\n", "  f.g = g;\n  stx_to(4);\n  epi.template run<N>(acc);\n", 1),
     ("  if constexpr (ENC) {\n    stage_encoded(in.x, in.fx, XW, in.n, row0, as0, LDA, false);",
@@ -230,16 +203,14 @@ WGRAD_ANCHORS = [
 ]
 
 GEMM_MARK = "// (B) The weight-gradient GEMM"  # the fused kernels' part of the source ends here
-REGISTER_MARKER = "template <int N, class Epi>"
 
 
 def instrument(src):
     """fused_mlp.cu's text -> the stamped copy's text. The category anchors
     apply to the fused kernels' part of the source only (before the
     weight-gradient GEMM), whose block barriers they all stamp."""
-    table = REGISTER if REGISTER_MARKER in src else LEGACY
     cut = src.index(GEMM_MARK)
-    head = cu_copies.substitute(src[:cut], [KERNEL_ANCHOR, *WAIT_ANCHORS, *table], "the stamps")
+    head = cu_copies.substitute(src[:cut], ANCHORS, "the stamps")
     out = head + cu_copies.substitute(src[cut:], WGRAD_ANCHORS, "the stamps")
     at = out.index("namespace {")
     return out[:at] + PREAMBLE + out[at:] + EPILOGUE
@@ -304,12 +275,11 @@ def main():
                           capture_output=True, text=True, check=True).stdout.strip()
     with open(os.path.join(root, SRC)) as fp:
         src = fp.read()
-    generation = "register" if REGISTER_MARKER in src else "legacy"
-    print(f"card: {card}; tree {root}; the {generation} anchors", flush=True)
+    print(f"card: {card}; tree {root}", flush=True)
     with tempfile.TemporaryDirectory(prefix="stx_phases_") as out_dir:
         lib = cu_copies.load_in_place(cu_copies.build({"stamped": instrument(src)}, out_dir)["stamped"])
     report = measure(lib, root, cs)
-    report.update(card=card, root=root, generation=generation)
+    report.update(card=card, root=root)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)
         with open(json_path, "w") as fp:
