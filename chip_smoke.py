@@ -238,7 +238,7 @@ Phases, each printing its numbers:
      surface at MESH_FALLBACK of its largest density instead, and said), the kernel
      path's grid against the plain path's on 64^3 within parity.LIMITS; (b)
      utils/profiling.trace around one app-init step (the Chrome trace names
-     fwd_kernel and bwd_kernel) and StepTimer over 20 steps;
+     fwd_kernel and bwd_kernel, and holds the step's spans);
   15. one JSON line per kernel (with its bound: the larger of its FLOP over
      989 TFLOP/s dense bf16, 67 TFLOP/s f32 for the sums, and its bytes,
      each input read once and each output written once, over 3.35 TB/s;
@@ -373,12 +373,14 @@ DP_ONLINE_PHASES = ONLINE_PHASES[:5]
 # phase 14: the mesh grid at startrax's defaults (resolution, sigma), the
 # share of the field's largest density that stands in for sigma where the
 # field stays under it, the grid the kernel path is held on against the
-# plain path, StepTimer's steps
+# plain path
 MESH_RES = 256
 MESH_SIGMA = 50.0
 MESH_FALLBACK = 0.9
 MESH_CHECK = 64
-TIMER_STEPS = 20
+# the spans phase 14b's trace of an app-init step must hold (utils/profiling.span)
+SMOKE_SPANS = ("train.step", "train.forward", "train.backward", "train.optimizer",
+               "fused_mlp.pack")
 # NVIDIA H100 SXM: dense bf16 tensor-core peak, float32 peak outside the
 # tensor cores, and memory rate (data sheet)
 # phase 9: the occgrid app's config, the scene keys taken from phase 6's
@@ -3412,8 +3414,8 @@ def phase_utils(lego_config, lego_ckpts, app_config, card):
     the kernel path's density grid against the plain path's on a
     MESH_CHECK^3 grid within parity.LIMITS' forward limits. (b)
     utils/profiling.trace around one app-init step at app_config's widths:
-    the Chrome trace names fwd_kernel and bwd_kernel; StepTimer over
-    TIMER_STEPS steps. Returns the launches of (a) and (b)."""
+    the Chrome trace names fwd_kernel and bwd_kernel and holds the spans
+    SMOKE_SPANS. Returns the launches of (a) and (b)."""
     import numpy as np
     import torch
 
@@ -3486,7 +3488,7 @@ def phase_utils(lego_config, lego_ckpts, app_config, card):
         _require(err["fwd"] <= LIMITS["fwd"] and err["fwd_rms"] <= LIMITS["fwd_rms"],
                  "14a: the density grid within parity.LIMITS' forward limits")
 
-        # (b) profiling.trace around one app-init step, StepTimer
+        # (b) profiling.trace around one app-init step
         app = load_config(["--config", app_config])
         star_cfg, loss_cfg = star_config_from(app), loss_config_from(app)
         gen = torch.Generator(device="cuda").manual_seed(13)
@@ -3505,23 +3507,15 @@ def phase_utils(lego_config, lego_ckpts, app_config, card):
         traced = _launch_snapshot()
         text = open(os.path.join(tmp, profiling.TRACE_FILE)).read()
         names = {k: text.count(k) for k in ("fwd_kernel", "bwd_kernel", "wgrad_kernel")}
+        spans = {k: text.count(f'"{k}"') for k in SMOKE_SPANS}
         device_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
-        timer = profiling.StepTimer(sync_every=TIMER_STEPS)
-        loss, _ = step(nerf, batch, generator=gen)
-        timer.tick(loss, app.N_rand)
-        t0 = time.perf_counter()
-        for _ in range(TIMER_STEPS):
-            loss, _ = step(nerf, batch, generator=gen)
-            rate = timer.tick(loss, app.N_rand)
-        wall = time.perf_counter() - t0
         print(f"14b trace of one app-init step ({star_cfg.netdepth}x{star_cfg.netwidth}, "
               f"{app.N_rand} rays): {os.path.getsize(os.path.join(tmp, profiling.TRACE_FILE))} "
-              f"bytes, kernel names {names}, device time {device_ms:.3f} ms, launches {traced}; "
-              f"StepTimer over {TIMER_STEPS} steps {rate:.1f} rays/s "
-              f"({wall / TIMER_STEPS * 1e3:.3f} ms a step); card {card}", flush=True)
+              f"bytes, kernel names {names}, spans {spans}, device time {device_ms:.3f} ms, "
+              f"launches {traced}; card {card}", flush=True)
         _require(names["fwd_kernel"] > 0 and names["bwd_kernel"] > 0,
                  "14b: the trace names fwd_kernel and bwd_kernel")
-        _require(math.isfinite(rate) and rate > 0, "14b: a finite StepTimer rate")
+        _require(all(spans.values()), f"14b: the trace holds the step's spans: {spans}")
         traced = {k: grid_launches[k] + traced[k] for k in traced}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -8,7 +8,8 @@ the GIL for the bulk copies), so one or two workers hide it completely behind
 a >100ms device step.
 
 The port's own copy of startrax/data/prefetch.py (numpy and the
-standard library), kept so that the port imports nothing of the JAX package.
+standard library), kept so that the port imports nothing of the JAX package;
+the consumer's wait on the queue is the span ``data.wait``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import threading
 from typing import Callable, Dict, Iterator
 
 import numpy as np
+
+from ..utils.profiling import span
 
 
 class BatchPrefetcher:
@@ -68,7 +71,8 @@ class BatchPrefetcher:
         return self
 
     def __next__(self) -> Dict:
-        kind, payload = self._q.get()
+        with span("data.wait"):
+            kind, payload = self._q.get()
         if kind == "error":
             raise RuntimeError("prefetch worker failed") from payload
         return payload

@@ -67,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.encoding import encoding_dim, positional_encoding
+from ..utils.profiling import span
 
 EW = 64  # padded encoding width on the card: 63 point and 27 direction columns
 XW = 96  # padded width of pre-encoded point features (nerf_time: 84 columns)
@@ -495,7 +496,7 @@ def _kernel_weights(weights, n_blocks: int, transpose: bool, in_rows: int):
     weight ring (pack_chunks; lin_in zero-padded to in_rows rows, Wv_bot to
     EW, views split into top and bottom), f32 biases. transpose=True packs
     the backward's [K, out, in] matrices; the narrow heads (alpha, rgb) stay
-    row-major [in, out]."""
+    row-major [in, out]. Each call is the span ``fused_mlp.pack``."""
     bf = torch.bfloat16
     it = iter(weights)
     W_in, b_in = next(it), next(it)
@@ -504,18 +505,20 @@ def _kernel_weights(weights, n_blocks: int, transpose: bool, in_rows: int):
     def mat(w):
         return pack_chunks(w.transpose(-1, -2) if transpose else w, bf)
 
-    out = [mat(_pad_rows(W_in, in_rows)), b_in.contiguous()]
-    for _ in range(n_blocks):
-        W0, b0, W1, b1 = next(it), next(it), next(it), next(it)
-        out += [mat(W0), b0.contiguous(), mat(W1), b1.contiguous()]
-    W_out, b_out = next(it), next(it)
-    W_a, b_a = next(it), next(it)
-    W_f, b_f = next(it), next(it)
-    W_v, b_v = next(it), next(it)
-    W_r, b_r = next(it), next(it)
-    out += [mat(W_out), b_out.contiguous(), W_a.to(bf).contiguous(), b_a.contiguous(),
-            mat(W_f), b_f.contiguous(), mat(W_v[:, :width]), mat(_pad_rows(W_v[:, width:], EW)),
-            b_v.contiguous(), W_r.to(bf).contiguous(), b_r.contiguous()]
+    with span("fused_mlp.pack"):
+        out = [mat(_pad_rows(W_in, in_rows)), b_in.contiguous()]
+        for _ in range(n_blocks):
+            W0, b0, W1, b1 = next(it), next(it), next(it), next(it)
+            out += [mat(W0), b0.contiguous(), mat(W1), b1.contiguous()]
+        W_out, b_out = next(it), next(it)
+        W_a, b_a = next(it), next(it)
+        W_f, b_f = next(it), next(it)
+        W_v, b_v = next(it), next(it)
+        W_r, b_r = next(it), next(it)
+        out += [mat(W_out), b_out.contiguous(), W_a.to(bf).contiguous(), b_a.contiguous(),
+                mat(W_f), b_f.contiguous(), mat(W_v[:, :width]),
+                mat(_pad_rows(W_v[:, width:], EW)), b_v.contiguous(), W_r.to(bf).contiguous(),
+                b_r.contiguous()]
     return out
 
 
@@ -706,13 +709,15 @@ def _check_cuda_inputs(x, d, weights, n_blocks, pe, warp, masks):
             raise ValueError(f"{name} must be a contiguous float32 {list(shape)} tensor on {dev}")
 
 
-def _launch(counter, x, d, warp, weights, n_blocks: int, pe, masks):
+def _apply_args(counter, x, d, warp, weights, n_blocks: int, pe, masks):
+    """_FusedMLP.apply's arguments for a stacked launch, its operands
+    checked."""
     _check_cuda_inputs(x, d, weights, n_blocks, pe, warp, masks)
     mx, md = masks if masks is not None else (None, None)
     save = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, d, warp, *weights))
-    return _FusedMLP.apply(counter, save, x, d, warp, mx, md, n_blocks,
-                           None if pe is None else tuple(pe), *weights)
+    return (counter, save, x, d, warp, mx, md, n_blocks, None if pe is None else tuple(pe),
+            *weights)
 
 
 def fused_field_apply(params: Dict[str, Any], x, d, n_blocks: int, pe=None,
@@ -725,16 +730,19 @@ def fused_field_apply(params: Dict[str, Any], x, d, n_blocks: int, pe=None,
     features, and there is no warp or mask.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels (as
-    one field of a stack)."""
-    weights = flatten_params(params, n_blocks)
+    one field of a stack), their preparation the span ``fused_mlp.prepare``."""
     if x.device.type == "cpu":
-        out = fused_mlp_plain(x, d, weights, n_blocks, pe, warp=warp, masks=pe_masks)
+        out = fused_mlp_plain(x, d, flatten_params(params, n_blocks), n_blocks, pe, warp=warp,
+                              masks=pe_masks)
     elif x.device.type == "cuda":
-        if x.dim() != 2:
-            raise ValueError(f"x must be [N, C], got {list(x.shape)}")
-        out = _launch("enc_" if pe is None else "", x[None], d[None],
-                      None if warp is None else warp[None], [w[None] for w in weights], n_blocks,
-                      pe, pe_masks)[0]
+        with span("fused_mlp.prepare"):
+            if x.dim() != 2:
+                raise ValueError(f"x must be [N, C], got {list(x.shape)}")
+            args = _apply_args("enc_" if pe is None else "", x[None], d[None],
+                               None if warp is None else warp[None],
+                               [w[None] for w in flatten_params(params, n_blocks)], n_blocks,
+                               pe, pe_masks)
+        out = _FusedMLP.apply(*args)[0]
     else:
         raise ValueError(f"fused MLP: unsupported device {x.device}")
     return out[:, 0], out[:, 1:4]
@@ -751,13 +759,16 @@ def fused_stacked_apply(params_stacked: Dict[str, Any], x, d, n_blocks: int, pe=
     their grads are dx_emb and dd_emb.
 
     CPU tensors take the plain version (fused_stacked_plain); CUDA tensors
-    launch the kernels once for all K fields."""
-    weights = flatten_params(params_stacked, n_blocks)
+    launch the kernels once for all K fields, their preparation the span
+    ``fused_mlp.prepare``."""
     if x.device.type == "cpu":
-        out = fused_stacked_plain(x, d, weights, n_blocks, pe, masks=pe_masks)
+        out = fused_stacked_plain(x, d, flatten_params(params_stacked, n_blocks), n_blocks, pe,
+                                  masks=pe_masks)
     elif x.device.type == "cuda":
-        out = _launch("stacked_enc_" if pe is None else "stacked_", x, d, None, weights,
-                      n_blocks, pe, pe_masks)
+        with span("fused_mlp.prepare"):
+            args = _apply_args("stacked_enc_" if pe is None else "stacked_", x, d, None,
+                               flatten_params(params_stacked, n_blocks), n_blocks, pe, pe_masks)
+        out = _FusedMLP.apply(*args)
     else:
         raise ValueError(f"fused MLP: unsupported device {x.device}")
     return out[..., 0], out[..., 1:4]

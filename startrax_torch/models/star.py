@@ -20,6 +20,7 @@ from ..device import resolve
 from ..ops import lie
 from ..ops.compositing import raw2outputs, raw2outputs_star
 from ..ops.sampling import hierarchical_z_vals, pts_from_z, stratified_z_vals
+from ..utils.profiling import span
 from .fields import (
     FieldConfig,
     apply_field,
@@ -191,23 +192,26 @@ def render_star(params: Params, cfg: StarConfig, rays_o, rays_d, pose=None, trai
             return None
         return cfg.raw_noise_std * draw(torch.randn, n_samples)
 
-    z_vals = stratified_z_vals(R, cfg.near, cfg.far, cfg.n_samples, lindisp=cfg.lindisp,
-                               perturb=cfg.perturb if train else 0.0, u=u_strat, device=dev)
-    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    pts = pts_from_z(rays_o, rays_d, z_vals)
-    result_coarse = apply_star(params, cfg, pts, viewdirs, z_vals, rays_d, pose=pose,
-                               is_coarse=True, step=step, noise=noise_like(cfg.n_samples),
-                               with_test_outputs=with_test_outputs)
+    with span("render.coarse"):
+        z_vals = stratified_z_vals(R, cfg.near, cfg.far, cfg.n_samples, lindisp=cfg.lindisp,
+                                   perturb=cfg.perturb if train else 0.0, u=u_strat, device=dev)
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        pts = pts_from_z(rays_o, rays_d, z_vals)
+        result_coarse = apply_star(params, cfg, pts, viewdirs, z_vals, rays_d, pose=pose,
+                                   is_coarse=True, step=step, noise=noise_like(cfg.n_samples),
+                                   with_test_outputs=with_test_outputs)
     result = {f"{k}0": v for k, v in result_coarse.items()}
     if cfg.n_importance > 0:
-        z_union, z_samples = hierarchical_z_vals(
-            z_vals, result_coarse["weights"], cfg.n_importance, u=u_pdf,
-            stratified=cfg.stratified_fine)
-        pts_fine = pts_from_z(rays_o, rays_d, z_union)
-        result_fine = apply_star(params, cfg, pts_fine, viewdirs, z_union, rays_d, pose=pose,
-                                 is_coarse=False, step=step,
-                                 noise=noise_like(cfg.n_samples + cfg.n_importance),
-                                 with_test_outputs=with_test_outputs)
-        result.update(result_fine)
-        result["z_std"] = torch.std(z_samples, dim=-1, correction=0)
+        with span("render.resample"):
+            z_union, z_samples = hierarchical_z_vals(
+                z_vals, result_coarse["weights"], cfg.n_importance, u=u_pdf,
+                stratified=cfg.stratified_fine)
+        with span("render.fine"):
+            pts_fine = pts_from_z(rays_o, rays_d, z_union)
+            result_fine = apply_star(params, cfg, pts_fine, viewdirs, z_union, rays_d,
+                                     pose=pose, is_coarse=False, step=step,
+                                     noise=noise_like(cfg.n_samples + cfg.n_importance),
+                                     with_test_outputs=with_test_outputs)
+            result.update(result_fine)
+            result["z_std"] = torch.std(z_samples, dim=-1, correction=0)
     return result

@@ -22,6 +22,7 @@ from ..ops import lie
 from ..ops.losses import depth_loss as depth_loss_fn
 from ..ops.losses import img2mse, mse2psnr
 from ..ops.losses import sigma_loss as sigma_loss_fn
+from ..utils.profiling import span
 from ..utils.tree import tree_leaves, tree_map
 
 
@@ -59,60 +60,61 @@ def compute_losses(result: Dict[str, Any], batch: Dict[str, Any], star_cfg: Star
     shares sum to the one-process loss. The metrics are then the whole
     batch's values on every rank (one all-reduce of the shares, no grad),
     psnr from the whole batch's mse."""
-    has_fine = star_cfg.n_importance > 0
-    world = 1 if group is None else group.world
+    with span("train.losses"):
+        has_fine = star_cfg.n_importance > 0
+        world = 1 if group is None else group.world
 
-    def mse(rgb):
-        v = img2mse(rgb, batch["target"])
-        return v if group is None else v / world
+        def mse(rgb):
+            v = img2mse(rgb, batch["target"])
+            return v if group is None else v / world
 
-    img_loss0 = mse(result["rgb0"])
-    loss = img_loss0
-    metrics = {"loss0": img_loss0}
-    if has_fine:
-        img_loss = mse(result["rgb"])
-        loss = loss + img_loss
-        metrics["fine_loss"] = img_loss
-    else:
-        metrics["fine_loss"] = img_loss0
+        img_loss0 = mse(result["rgb0"])
+        loss = img_loss0
+        metrics = {"loss0": img_loss0}
+        if has_fine:
+            img_loss = mse(result["rgb"])
+            loss = loss + img_loss
+            metrics["fine_loss"] = img_loss
+        else:
+            metrics["fine_loss"] = img_loss0
 
-    if online:
-        reg_terms = {
-            "alpha_entropy": loss_cfg.lambda_alpha_entropy,
-            "dynamic_vs_static_reg": loss_cfg.lambda_dynamic_vs_static_reg,
-            "ray_reg": loss_cfg.lambda_ray_reg,
-            "static_reg": loss_cfg.lambda_static_reg,
-            "dynamic_reg": loss_cfg.lambda_dynamic_reg,
-        }
-        for name, lam in reg_terms.items():
-            if lam > 0:
-                v = _coarse_fine_avg(result, f"loss_{name}", has_fine)
-                if group is not None:
-                    v = v / world
-                if name == "dynamic_reg" and epoch is not None:
-                    lam = lam * float(epoch >= loss_cfg.epoch_start_dynamic_reg)
-                loss = loss + lam * v
-                metrics[name] = v
+        if online:
+            reg_terms = {
+                "alpha_entropy": loss_cfg.lambda_alpha_entropy,
+                "dynamic_vs_static_reg": loss_cfg.lambda_dynamic_vs_static_reg,
+                "ray_reg": loss_cfg.lambda_ray_reg,
+                "static_reg": loss_cfg.lambda_static_reg,
+                "dynamic_reg": loss_cfg.lambda_dynamic_reg,
+            }
+            for name, lam in reg_terms.items():
+                if lam > 0:
+                    v = _coarse_fine_avg(result, f"loss_{name}", has_fine)
+                    if group is not None:
+                        v = v / world
+                    if name == "dynamic_reg" and epoch is not None:
+                        lam = lam * float(epoch >= loss_cfg.epoch_start_dynamic_reg)
+                    loss = loss + lam * v
+                    metrics[name] = v
 
-    # supervision attaches to the fine outputs when they exist
-    suff = "" if has_fine else "0"
-    if loss_cfg.use_depth_loss:
-        dl = depth_loss_fn(result["depth" + suff], batch["target_depth"],
-                           star_cfg.near, star_cfg.far, group=group)
-        loss = loss + loss_cfg.depth_lambda * dl
-        metrics["depth_loss"] = dl
-    if loss_cfg.use_sigma_loss:
-        sl = sigma_loss_fn(result["weights" + suff], result["z_vals" + suff],
-                           result["dists" + suff], batch["target_depth"], star_cfg.near,
-                           star_cfg.far, max_dist=0.5 * star_cfg.far_dist, group=group)
-        loss = loss + loss_cfg.sigma_lambda * sl
-        metrics["sigma_loss"] = sl
-    metrics["loss"] = loss
-    metrics = reduce_metrics(metrics, group)
-    metrics["psnr0"] = mse2psnr(metrics["loss0"])
-    if has_fine:
-        metrics["psnr"] = mse2psnr(metrics["fine_loss"])
-    return loss, metrics
+        # supervision attaches to the fine outputs when they exist
+        suff = "" if has_fine else "0"
+        if loss_cfg.use_depth_loss:
+            dl = depth_loss_fn(result["depth" + suff], batch["target_depth"],
+                               star_cfg.near, star_cfg.far, group=group)
+            loss = loss + loss_cfg.depth_lambda * dl
+            metrics["depth_loss"] = dl
+        if loss_cfg.use_sigma_loss:
+            sl = sigma_loss_fn(result["weights" + suff], result["z_vals" + suff],
+                               result["dists" + suff], batch["target_depth"], star_cfg.near,
+                               star_cfg.far, max_dist=0.5 * star_cfg.far_dist, group=group)
+            loss = loss + loss_cfg.sigma_lambda * sl
+            metrics["sigma_loss"] = sl
+        metrics["loss"] = loss
+        metrics = reduce_metrics(metrics, group)
+        metrics["psnr0"] = mse2psnr(metrics["loss0"])
+        if has_fine:
+            metrics["psnr"] = mse2psnr(metrics["fine_loss"])
+        return loss, metrics
 
 
 def reduce_metrics(metrics: Dict[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
@@ -179,26 +181,29 @@ def make_online_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt,
     step, whether or not it emitted an update (gradient accumulation)."""
 
     def train_step(params, batch, epoch=0, u_strat=None, u_pdf=None, generator=None):
-        poses = params["poses"]
-        q_before = poses.detach()[..., 3:7].clone()
-        opt.zero_grad()
-        pose = gather_frame_pose(poses, batch["frame"], star_cfg.num_vehicles)
-        result = render_star(params["nerf"], star_cfg, batch["rays_o"], batch["rays_d"],
-                             pose=pose, train=True, step=epoch, u_strat=u_strat, u_pdf=u_pdf,
-                             generator=generator, shard=_shard(opt))
-        loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, epoch=epoch,
-                                       online=True, group=opt.ray_group)
-        loss.backward()
-        with torch.no_grad():
-            if (trans_only or freeze_rot) and poses.grad is not None:
-                poses.grad[..., 3:7] = 0.0
-            opt.step()
-            if trans_only:
-                poses[..., 3:7] = poses.new_tensor([0.0, 0.0, 0.0, 1.0])
-            elif freeze_rot:
-                poses[..., 3:7] = q_before
-            else:
-                poses[..., 3:7] = lie.quat_normalize(poses[..., 3:7])
+        with span("train.step"):
+            poses = params["poses"]
+            q_before = poses.detach()[..., 3:7].clone()
+            opt.zero_grad()
+            with span("train.forward"):
+                pose = gather_frame_pose(poses, batch["frame"], star_cfg.num_vehicles)
+                result = render_star(params["nerf"], star_cfg, batch["rays_o"], batch["rays_d"],
+                                     pose=pose, train=True, step=epoch, u_strat=u_strat,
+                                     u_pdf=u_pdf, generator=generator, shard=_shard(opt))
+                loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, epoch=epoch,
+                                               online=True, group=opt.ray_group)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"), torch.no_grad():
+                if (trans_only or freeze_rot) and poses.grad is not None:
+                    poses.grad[..., 3:7] = 0.0
+                opt.step()
+                if trans_only:
+                    poses[..., 3:7] = poses.new_tensor([0.0, 0.0, 0.0, 1.0])
+                elif freeze_rot:
+                    poses[..., 3:7] = q_before
+                else:
+                    poses[..., 3:7] = lie.quat_normalize(poses[..., 3:7])
         return metrics["loss"], metrics
 
     train_step.opt = opt  # what a measurement reads of the step's optimizer
@@ -255,31 +260,34 @@ def make_gauge_train_step(star_cfg: StarConfig, opt, freeze_rot: bool = False,
     (opt.ray_group) the loss is reduced as make_online_train_step's is."""
 
     def gauge_step(gauge, nerf, poses, batch, u_strat=None, u_pdf=None, generator=None):
-        opt.zero_grad()
-        fixed = tree_map(torch.Tensor.detach, nerf)
-        pose_f = gather_frame_pose(poses.detach(), batch["frame"], star_cfg.num_vehicles)
-        pose_c = lie.se3_multiply(gauge.expand(pose_f.shape), pose_f)
-        result = render_star(fixed, star_cfg, batch["rays_o"], batch["rays_d"], pose=pose_c,
-                             train=True, u_strat=u_strat, u_pdf=u_pdf, generator=generator,
-                             shard=_shard(opt))
-        has_fine = star_cfg.n_importance > 0
-        group = opt.ray_group
-        world = 1 if group is None else group.world
-        loss = img2mse(result["rgb0"], batch["target"])
-        if has_fine:
-            loss = loss + img2mse(result["rgb"], batch["target"])
-        if group is not None:
-            loss = loss / world
-        if depth_lambda > 0 and "target_depth" in batch:
-            loss = loss + depth_lambda * depth_loss_fn(result["depth" if has_fine else "depth0"],
-                                                       batch["target_depth"], star_cfg.near,
-                                                       star_cfg.far, group=group)
-        loss.backward()
-        with torch.no_grad():
-            if freeze_rot:
-                gauge.grad[..., 3:7] = 0.0
-            opt.step()
-            gauge[..., 3:7] = lie.quat_normalize(gauge[..., 3:7])
+        with span("train.step"):
+            opt.zero_grad()
+            group = opt.ray_group
+            with span("train.forward"):
+                fixed = tree_map(torch.Tensor.detach, nerf)
+                pose_f = gather_frame_pose(poses.detach(), batch["frame"], star_cfg.num_vehicles)
+                pose_c = lie.se3_multiply(gauge.expand(pose_f.shape), pose_f)
+                result = render_star(fixed, star_cfg, batch["rays_o"], batch["rays_d"],
+                                     pose=pose_c, train=True, u_strat=u_strat, u_pdf=u_pdf,
+                                     generator=generator, shard=_shard(opt))
+                has_fine = star_cfg.n_importance > 0
+                world = 1 if group is None else group.world
+                loss = img2mse(result["rgb0"], batch["target"])
+                if has_fine:
+                    loss = loss + img2mse(result["rgb"], batch["target"])
+                if group is not None:
+                    loss = loss / world
+                if depth_lambda > 0 and "target_depth" in batch:
+                    loss = loss + depth_lambda * depth_loss_fn(
+                        result["depth" if has_fine else "depth0"], batch["target_depth"],
+                        star_cfg.near, star_cfg.far, group=group)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"), torch.no_grad():
+                if freeze_rot:
+                    gauge.grad[..., 3:7] = 0.0
+                opt.step()
+                gauge[..., 3:7] = lie.quat_normalize(gauge[..., 3:7])
         return reduce_metrics({"loss": loss}, group)["loss"]
 
     return gauge_step
@@ -293,14 +301,18 @@ def make_appinit_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt):
     shape too."""
 
     def train_step(params, batch, u_strat=None, u_pdf=None, generator=None):
-        opt.zero_grad()
-        result = render_star(params, star_cfg, batch["rays_o"], batch["rays_d"], pose=None,
-                             train=True, u_strat=u_strat, u_pdf=u_pdf, generator=generator,
-                             shard=_shard(opt))
-        loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, online=False,
-                                       group=opt.ray_group)
-        loss.backward()
-        opt.step()
+        with span("train.step"):
+            opt.zero_grad()
+            with span("train.forward"):
+                result = render_star(params, star_cfg, batch["rays_o"], batch["rays_d"],
+                                     pose=None, train=True, u_strat=u_strat, u_pdf=u_pdf,
+                                     generator=generator, shard=_shard(opt))
+                loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, online=False,
+                                               group=opt.ray_group)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                opt.step()
         return metrics["loss"], metrics
 
     return train_step
@@ -316,13 +328,17 @@ def make_nerf_time_train_step(star_cfg: StarConfig, loss_cfg: LossConfig, opt, n
     frame, an int or a 0-d tensor."""
 
     def train_step(params, batch, u_strat=None, u_pdf=None, generator=None):
-        opt.zero_grad()
-        result = render_nerf_time(params, star_cfg, batch["rays_o"], batch["rays_d"],
-                                  batch["frame"], num_frames, train=True, u_strat=u_strat,
-                                  u_pdf=u_pdf, generator=generator)
-        loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, online=False)
-        loss.backward()
-        opt.step()
+        with span("train.step"):
+            opt.zero_grad()
+            with span("train.forward"):
+                result = render_nerf_time(params, star_cfg, batch["rays_o"], batch["rays_d"],
+                                          batch["frame"], num_frames, train=True,
+                                          u_strat=u_strat, u_pdf=u_pdf, generator=generator)
+                loss, metrics = compute_losses(result, batch, star_cfg, loss_cfg, online=False)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                opt.step()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     return train_step

@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from ..utils.profiling import span
 from ..utils.tree import tree_leaves
 
 Schedule = Callable[[int], float]
@@ -139,34 +140,36 @@ class FusedGroupAdam:
     def step(self) -> bool:
         """One optimizer step on the leaves' .grad; returns whether it
         updated the parameters."""
-        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                       for p in self.leaves])
-        if self.ray_group is not None:
-            self.ray_group.all_reduce(g)
-        if self.acc is not None:
-            self.acc.add_((g - self.acc) / (self.mini_step + 1))
-            self.mini_step += 1
-            if self.mini_step < self.accumulate_steps:
-                return False
-            g = self.acc.clone()
-            self.acc.zero_()
-            self.mini_step = 0
-        if self.grad_clip is not None:
-            gnorm = torch.sqrt(torch.sum(g * g))
-            g = g * torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-        lrs = torch.tensor([s(self.count) for s in self.schedules], dtype=torch.float32,
-                           device=g.device)
-        self.count += 1
-        self.m.mul_(self.b1).add_((1 - self.b1) * g)
-        self.v.mul_(self.b2).add_((1 - self.b2) * g * g)
-        mhat = self.m / (1 - self.b1 ** self.count)
-        vhat = self.v / (1 - self.b2 ** self.count)
-        update = -lrs[self.group] * mhat / (torch.sqrt(vhat) + self.eps)
-        start = 0
-        for p in self.leaves:
-            n = p.numel()
-            p.add_(update[start:start + n].view_as(p))
-            start += n
+        with span("optim.gather"):
+            g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                           for p in self.leaves])
+            if self.ray_group is not None:
+                self.ray_group.all_reduce(g)
+            if self.acc is not None:
+                self.acc.add_((g - self.acc) / (self.mini_step + 1))
+                self.mini_step += 1
+                if self.mini_step < self.accumulate_steps:
+                    return False
+                g = self.acc.clone()
+                self.acc.zero_()
+                self.mini_step = 0
+        with span("optim.adam"):
+            if self.grad_clip is not None:
+                gnorm = torch.sqrt(torch.sum(g * g))
+                g = g * torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+            lrs = torch.tensor([s(self.count) for s in self.schedules], dtype=torch.float32,
+                               device=g.device)
+            self.count += 1
+            self.m.mul_(self.b1).add_((1 - self.b1) * g)
+            self.v.mul_(self.b2).add_((1 - self.b2) * g * g)
+            mhat = self.m / (1 - self.b1 ** self.count)
+            vhat = self.v / (1 - self.b2 ** self.count)
+            update = -lrs[self.group] * mhat / (torch.sqrt(vhat) + self.eps)
+            start = 0
+            for p in self.leaves:
+                n = p.numel()
+                p.add_(update[start:start + n].view_as(p))
+                start += n
         return True
 
 

@@ -11,7 +11,7 @@
   draw_box against cv2.line as the oracle (cv2 is on this box, not on the
   card's machine), and equal to startrax's draw_box, which calls it;
   visualize_depth_with_values is the unannotated colormap.
-- utils/profiling: StepTimer's rate, trace's Chrome file, the NaN checks.
+- utils/profiling: trace's Chrome file, the NaN checks.
 - utils/logging.write_gif read back with PIL and imageio: each frame equal
   to the frames mapped to the GIF's palette, exact where the frames hold at
   most 256 colours.
@@ -165,14 +165,6 @@ def test_draw_box_matches_cv2_line():
                      tuple(int(v) for v in np.round(corners[b]).astype(int)), (0, 255, 0), 1)
         np.testing.assert_array_equal(tvis.draw_box(img.copy(), corners), oracle)
         np.testing.assert_array_equal(jvis.draw_box(img.copy(), corners), oracle)
-
-
-def test_step_timer_reports_rate():
-    t = profiling.StepTimer(sync_every=5)
-    loss = torch.tensor(1.0)
-    for _ in range(11):
-        rate = t.tick(loss, n_rays=100)
-    assert rate == t.rays_per_sec and np.isfinite(rate) and rate > 0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
