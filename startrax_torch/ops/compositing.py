@@ -34,10 +34,37 @@ def _dists_from_z(z_vals, rays_d, far_dist):
     return d * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
 
 
+class _ExclusiveCumprod(torch.autograd.Function):
+    """prod_{j<i} x_j along the last axis: the cumprod of [1, x] less its
+    last entry.
+
+    The backward is torch's cumprod backward for inputs with no zero (the
+    reversed cumsum of grad * output over the input), the same ops on the
+    same values, without its test of whether any input is zero: that test
+    reads a flag from the device and so stops the host until the device has
+    drained its queue. Every x here is 1 - alpha + TRANS_EPS with alpha =
+    1 - exp(-s) <= 1, so x >= 1e-10 > 0 in float32 and torch always takes
+    that branch: the gradients are bit-identical to torch.cumprod's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        factors = torch.cat([torch.ones_like(x[..., :1]), x], dim=-1)
+        full = torch.cumprod(factors, dim=-1)
+        ctx.save_for_backward(factors, full)
+        return full[..., :-1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        factors, full = ctx.saved_tensors
+        grad_full = grad.new_zeros(full.shape)
+        grad_full[..., :-1] = grad
+        w = full * grad_full
+        return (w.flip(-1).cumsum(-1).flip(-1) / factors)[..., 1:]
+
+
 def _transmittance(alpha):
     """T_i = prod_{j<i} (1 - alpha_j + 1e-10) along the last axis."""
-    ones = torch.ones_like(alpha[..., :1])
-    return torch.cumprod(torch.cat([ones, 1.0 - alpha + TRANS_EPS], dim=-1), dim=-1)[..., :-1]
+    return _ExclusiveCumprod.apply(1.0 - alpha + TRANS_EPS)
 
 
 def raw2outputs(raw_alpha, raw_rgb, z_vals, rays_d, noise: Optional[torch.Tensor] = None,

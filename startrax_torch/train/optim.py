@@ -157,8 +157,11 @@ class FusedGroupAdam:
             if self.grad_clip is not None:
                 gnorm = torch.sqrt(torch.sum(g * g))
                 g = g * torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+            # On CUDA through pinned memory with a non-blocking copy: a copy
+            # from pageable memory waits for the device to drain its queue.
+            # Torch's pinned allocator keeps the buffer until the copy has run.
             lrs = torch.tensor([s(self.count) for s in self.schedules], dtype=torch.float32,
-                               device=g.device)
+                               pin_memory=g.device.type == "cuda").to(g.device, non_blocking=True)
             self.count += 1
             self.m.mul_(self.b1).add_((1 - self.b1) * g)
             self.v.mul_(self.b2).add_((1 - self.b2) * g * g)

@@ -1,6 +1,9 @@
 """The fused-MLP CUDA kernels against their plain PyTorch version, on the card;
 and the card's side of the host modules: the synthetic scene's marcher
-against its numpy version, a checkpoint round trip, the app's generator.
+against its numpy version, a checkpoint round trip, the app's generator,
+FusedGroupAdam on the card's leaves against its formula bit for bit
+(adam_matches_its_formula, which tests/test_torch_train.py runs on CPU
+leaves).
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc, and skip without a card.
 They import no JAX, so they also run where JAX is absent:
@@ -36,6 +39,7 @@ from startrax_torch.models import fields as tfields
 from startrax_torch.models.star import StarConfig, init_star, pack_warp, warp_to_vehicle_frames
 from startrax_torch.ops.encoding import barf_weights
 from startrax_torch.train import checkpoint as ckpt
+from startrax_torch.train import optim
 from startrax_torch.utils.tree import tree_leaves, tree_map
 
 N = 3000
@@ -516,6 +520,79 @@ def test_checkpoint_round_trip_on_the_card(card, tmp_path):
     assert got["step"] == 3
     pairs = list(zip(tree_leaves(got["params"]), tree_leaves(params)))
     assert all(a.device.type == "cuda" and torch.equal(a, b) for a, b in pairs)
+
+
+def _adam_by_formula(leaves, group_ids, schedules, grads, grad_clip, accumulate_steps,
+                     b1=0.9, b2=0.999, eps=1e-8):
+    """FusedGroupAdam's update written out, its learning rates a tensor
+    made from the schedules' floats on the leaves' device: the leaves
+    after each step, and the final moments."""
+    device = leaves[0].device
+    params = [p.detach().clone() for p in leaves]
+    group = torch.cat([torch.full((p.numel(),), g, dtype=torch.long, device=device)
+                       for p, g in zip(params, group_ids)])
+    m = torch.zeros(group.numel(), device=device)
+    v, acc = torch.zeros_like(m), torch.zeros_like(m)
+    count = mini = 0
+    history = []
+    for step_grads in grads:
+        g = torch.cat([x.reshape(-1) for x in step_grads])
+        if accumulate_steps > 1:
+            acc.add_((g - acc) / (mini + 1))
+            mini += 1
+            if mini < accumulate_steps:
+                history.append([p.clone() for p in params])
+                continue
+            g = acc.clone()
+            acc.zero_()
+            mini = 0
+        if grad_clip is not None:
+            gnorm = torch.sqrt(torch.sum(g * g))
+            g = g * torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+        lrs = torch.tensor([s(count) for s in schedules], dtype=torch.float32, device=device)
+        count += 1
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        update = -lrs[group] * (m / (1 - b1 ** count)) / (torch.sqrt(v / (1 - b2 ** count)) + eps)
+        start = 0
+        for p in params:
+            p.add_(update[start:start + p.numel()].view_as(p))
+            start += p.numel()
+        history.append([p.clone() for p in params])
+    return history, m, v
+
+
+def adam_matches_its_formula(device, groups, accumulate_steps, steps=6):
+    """FusedGroupAdam over leaves on ``device`` in ``groups`` learning-rate
+    groups (a milestone halves each rate after the first update; the clip
+    on with three groups) gives, step by step, leaves and moments equal bit
+    for bit to _adam_by_formula's."""
+    gen = torch.Generator().manual_seed(31)
+    shapes = [(3, 4), (5,), (2, 2, 7)]
+    leaves = [torch.randn(s, generator=gen).to(device) for s in shapes]
+    group_ids = [min(i, groups - 1) for i in range(len(shapes))]
+    schedules = [optim.make_schedule(lr, decay_milestones=[1])
+                 for lr in (1e-2, 3e-2, 5e-3)[:groups]]
+    grad_clip = 1.0 if groups > 1 else None
+    grads = [[torch.randn(s, generator=gen).to(device) for s in shapes] for _ in range(steps)]
+    want, m, v = _adam_by_formula(leaves, group_ids, schedules, grads, grad_clip,
+                                  accumulate_steps)
+    opt = optim.FusedGroupAdam(leaves, group_ids, schedules, grad_clip=grad_clip,
+                               accumulate_steps=accumulate_steps)
+    for step_grads, expected in zip(grads, want):
+        for p, g in zip(leaves, step_grads):
+            p.grad = g
+        opt.step()
+        assert all(torch.equal(a, b) for a, b in zip(leaves, expected))
+    assert opt.count == steps // accumulate_steps
+    assert torch.equal(opt.m, m) and torch.equal(opt.v, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accumulate_steps", [1, 3])
+@pytest.mark.parametrize("groups", [1, 3])
+def test_fused_group_adam_on_the_card_matches_its_formula(card, groups, accumulate_steps):
+    adam_matches_its_formula(card, groups, accumulate_steps)
 
 
 @pytest.mark.cuda

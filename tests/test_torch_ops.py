@@ -201,6 +201,51 @@ def test_raw2outputs_star_grads_match_startrax():
         _close(a, g_j[k], rtol=1e-4, atol=1e-5)
 
 
+def _cumprod_transmittance(alpha):
+    """The transmittance as torch.cumprod computes it, whose backward reads
+    from the device whether any factor is zero."""
+    ones = torch.ones_like(alpha[..., :1])
+    return torch.cumprod(torch.cat([ones, 1.0 - alpha + tcomp.TRANS_EPS], dim=-1), dim=-1)[..., :-1]
+
+
+def _alphas_case(case, gen):
+    if case == "random":
+        return torch.rand(64, 32, generator=gen)
+    if case == "opaque":  # alpha exactly 1: the factor is TRANS_EPS alone
+        alpha = torch.rand(64, 32, generator=gen)
+        alpha[:, ::3] = 1.0
+        return alpha
+    if case == "underflow":  # long rays: T reaches 0 in float32
+        return 0.5 + 0.5 * torch.rand(8, 1024, generator=gen)
+    return torch.rand(16, 2, 48, generator=gen)  # [R, K, S], the dynamic fields'
+
+
+@pytest.mark.parametrize("case", ["random", "opaque", "underflow", "dynamic"])
+def test_transmittance_is_cumprod_bit_for_bit(case):
+    """Forward and gradient equal to torch.cumprod's in float32, bit for bit."""
+    gen = torch.Generator().manual_seed(21)
+    alpha = _alphas_case(case, gen)
+    cotangent = torch.randn(alpha.shape, generator=gen)
+    outs, grads = [], []
+    for fn in (_cumprod_transmittance, tcomp._transmittance):
+        a = alpha.clone().requires_grad_(True)
+        t = fn(a)
+        (t * cotangent).sum().backward()
+        outs.append(t.detach())
+        grads.append(a.grad)
+    if case in ("opaque", "underflow"):
+        assert (outs[0] == 0).any()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(grads[0], grads[1])
+    assert torch.isfinite(grads[1]).all()
+
+
+def test_transmittance_gradcheck():
+    x = 0.05 + 0.95 * torch.rand(3, 2, 9, generator=torch.Generator().manual_seed(22),
+                                 dtype=torch.float64)
+    assert torch.autograd.gradcheck(tcomp._ExclusiveCumprod.apply, (x.requires_grad_(True),))
+
+
 def test_losses_match_startrax():
     rng = np.random.default_rng(12)
     pred, target = rng.uniform(size=(2, 8, 3)).astype(np.float32)

@@ -12,9 +12,14 @@ benchmark's readers of them (benchmark/metrics/<name>.py over _spans.py).
 - The readers on hand-built traces: host ms a step by span, syncs started
   inside a train.step only, None where the trace holds no span; an idle gap
   that begins outside every aten op is named by the span open there.
+- No step reads a value from the device: no aten::item or
+  aten::_local_scalar_dense starts inside a train.step.
 - On the card (marked cuda): the flagship's online step at its widths, one
   fused_mlp.prepare a fused call and a fused_mlp.pack a forward and a
-  backward, no device record named like a span.
+  backward, no device record named like a span; and three steps of each
+  kind at the flagship's widths (one update online, three in app-init)
+  with no host sync (benchmark/metrics/_spans.SYNCS) started inside a
+  train.step.
 
 These tests import no JAX, so the card's test runs where JAX is absent:
 
@@ -34,6 +39,7 @@ if ROOT not in sys.path:
 
 from benchmark import trace as btrace  # noqa: E402
 from benchmark.metrics import (  # noqa: E402
+    _spans,
     backward_host_ms,
     forward_host_ms,
     host_syncs_per_step,
@@ -134,6 +140,17 @@ def test_adam_span_opens_once_an_update(profiled, kind):
     assert all(any(o[0] <= a and b <= o[1] for o in optimizer) for a, b in adam)
 
 
+def _started_in_steps(ranges, names):
+    """The host records named in ``names`` that start inside a train.step."""
+    steps = [(a, b) for n, a, b in ranges if n == "train.step"]
+    return [(n, a) for n, a, _ in ranges if n in names and any(s <= a < e for s, e in steps)]
+
+
+@pytest.mark.parametrize("kind", list(ACCUMULATE))
+def test_no_step_reads_the_device(profiled, kind):
+    assert _started_in_steps(profiled[kind], ("aten::item", "aten::_local_scalar_dense")) == []
+
+
 def test_trace_totals_name_the_spans(tmp_path):
     run, _ = _built("appinit", TINY, RAYS, "cpu")
     with profiling.trace(str(tmp_path)) as prof:
@@ -223,3 +240,20 @@ def test_fused_spans_on_the_flagship_step(card):
     spans = {n for n in host if n.startswith(("train.", "render.", "optim.", "fused_mlp."))}
     assert {"train.step", "fused_mlp.pack", "render.fine"} <= spans
     assert not spans & device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ACCUMULATE))
+def test_no_host_sync_inside_a_flagship_step(card, kind):
+    run, _ = _built(kind, FLAGSHIP, 1000, card)
+    run(0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(1, STEPS + 1):
+            run(i)
+        torch.cuda.synchronize()
+    ranges = _host_ranges(prof)
+    adam = [n for n, _, _ in ranges if n == "optim.adam"]
+    assert len(adam) == STEPS // ACCUMULATE[kind]
+    assert _started_in_steps(ranges, _spans.SYNCS) == []

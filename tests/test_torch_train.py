@@ -26,6 +26,7 @@ from startrax_torch.models.star import StarConfig
 from startrax_torch.train import loop as tloop
 from startrax_torch.train import optim as toptim
 from startrax_torch.utils.tree import tree_leaves
+from test_torch_cuda import adam_matches_its_formula
 
 N_RAYS = 8
 LR = 5e-4
@@ -157,6 +158,14 @@ def test_fused_group_adam_matches_startrax():
         topt.step()
     for k in p0:
         np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("accumulate_steps", [1, 3])
+@pytest.mark.parametrize("groups", [1, 3])
+def test_fused_group_adam_matches_its_formula(groups, accumulate_steps):
+    """Leaves and moments bit for bit equal to the update written out, on
+    CPU leaves (the card's twin is in tests/test_torch_cuda.py)."""
+    adam_matches_its_formula("cpu", groups, accumulate_steps)
 
 
 def test_gather_frame_pose_pins_frame0():
