@@ -14,16 +14,30 @@ Counterpart of startrax/kernels/occgrid.py, which is plain jnp (no Pallas):
 Randomness is explicit: the update's jitter and refresh uniforms and the
 march's jitter uniforms are arguments; where they are absent they are drawn
 from the ``generator`` given.
+
+Each update runs inside the span ``occgrid.update`` and each march inside
+``occgrid.march`` (utils/profiling.span); ``counts`` holds how many of each
+ran since ``reset_counts()``. Neither reads a value from the device: the
+AABB is copied to a device once, at its first use there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..device import resolve
+from ..utils.profiling import span
+
+counts = {"marches": 0, "updates": 0}
+
+
+def reset_counts() -> None:
+    for k in counts:
+        counts[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,11 +62,18 @@ def init_grid(cfg: OccGridConfig, device=None) -> Dict[str, Any]:
 
 
 def _aabb(cfg: OccGridConfig, device):
-    return (torch.tensor(cfg.aabb_min, dtype=torch.float32, device=device),
-            torch.tensor(cfg.aabb_max, dtype=torch.float32, device=device))
+    """(lo [3], hi [3]) on ``device``, made once a box and device: a copy
+    from the host waits for the device to drain its queue."""
+    return _box(cfg.aabb_min, cfg.aabb_max, torch.device(device))
 
 
-def _cell_centers(cfg: OccGridConfig, device=None):
+@functools.lru_cache(maxsize=None)
+def _box(aabb_min, aabb_max, device):
+    box = torch.tensor([aabb_min, aabb_max], dtype=torch.float32, device=device)
+    return box[0], box[1]
+
+
+def _cell_centers(cfg: OccGridConfig, device):
     """[r, r, r, 3] world positions of the cell centres, x on the first axis."""
     r = cfg.resolution
     lo, hi = _aabb(cfg, device)
@@ -82,7 +103,8 @@ def update_grid(grid: Dict[str, Any], density_fn: Callable, cfg: OccGridConfig,
     r = cfg.resolution
     ema = grid["density_ema"]
     dev = ema.device
-    with torch.no_grad():
+    counts["updates"] += 1
+    with span("occgrid.update"), torch.no_grad():
         centers = _cell_centers(cfg, dev)
         lo, hi = _aabb(cfg, dev)
         jitter = (_draw(u_jitter, centers.shape, generator, dev, "update_grid") - 0.5) \
@@ -128,23 +150,25 @@ def march_and_select(grid: Dict[str, Any], cfg: OccGridConfig, rays_o, rays_d, n
     u [R, n_march] (one step at most; the last sample may pass ``far``),
     drawn from ``generator`` when u is None; with neither it is not
     jittered."""
-    R, n, dev = rays_o.shape[0], cfg.n_march, rays_o.device
-    # the sample positions i / (n - 1), the last one exactly 1
-    t = torch.cat([torch.arange(n - 1, dtype=torch.float32, device=dev) / (n - 1),
-                   torch.ones(1, device=dev)]) if n > 1 else torch.zeros(1, device=dev)
-    z = (near * (1.0 - t) + far * t).expand(R, n)
-    if u is not None or generator is not None:
-        z = z + _draw(u, (R, n), generator, dev, "march_and_select") * ((far - near) / n)
+    counts["marches"] += 1
+    with span("occgrid.march"):
+        R, n, dev = rays_o.shape[0], cfg.n_march, rays_o.device
+        # the sample positions i / (n - 1), the last one exactly 1
+        t = torch.cat([torch.arange(n - 1, dtype=torch.float32, device=dev) / (n - 1),
+                       torch.ones(1, device=dev)]) if n > 1 else torch.zeros(1, device=dev)
+        z = (near * (1.0 - t) + far * t).expand(R, n)
+        if u is not None or generator is not None:
+            z = z + _draw(u, (R, n), generator, dev, "march_and_select") * ((far - near) / n)
 
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
-    occ = _lookup(occupancy(grid, cfg), pts, cfg)  # [R, n_march]
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+        occ = _lookup(occupancy(grid, cfg), pts, cfg)  # [R, n_march]
 
-    # stable compaction: occupied first, depth order kept within each part
-    order = torch.sort((~occ).to(torch.uint8), dim=-1, stable=True).indices
-    sel = order[:, :cfg.n_selected]
-    valid = torch.gather(occ, 1, sel)
-    z_sel = torch.where(valid, torch.gather(z, 1, sel), torch.full_like(z[:, :1], far))
-    return z_sel, valid, occ.sum(dim=-1)
+        # stable compaction: occupied first, depth order kept within each part
+        order = torch.sort((~occ).to(torch.uint8), dim=-1, stable=True).indices
+        sel = order[:, :cfg.n_selected]
+        valid = torch.gather(occ, 1, sel)
+        z_sel = torch.where(valid, torch.gather(z, 1, sel), torch.full_like(z[:, :1], far))
+        return z_sel, valid, occ.sum(dim=-1)
 
 
 def masked_raw_alpha(raw_alpha, valid):
