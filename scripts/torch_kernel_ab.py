@@ -3,7 +3,7 @@
 times of the raw-point instances.
 
     python3 scripts/torch_kernel_ab.py PARENT_ROOT [CHANGE_ROOT] [--json PATH]
-    python3 scripts/torch_kernel_ab.py --variants [PARENT_ROOT] [--json PATH]
+    python3 scripts/torch_kernel_ab.py --variants [PARENT_ROOT] [--only WORD,...] [--json PATH]
 
 PARENT_ROOT and CHANGE_ROOT (default: this checkout) are roots of two
 checkouts of the repository, for example the parent commit unpacked with
@@ -11,7 +11,8 @@ checkouts of the repository, for example the parent commit unpacked with
 
 1. compiles each tree's ``startrax_torch/kernels/csrc/fused_mlp.cu`` with
    ``-Xptxas -v`` to a cubin (both at once) and prints every kernel
-   instance's registers, stack frame and spills;
+   instance's registers, stack frame and spills, and where ptxas serialized
+   its wgmma (``wgmma_serialized``);
 2. disassembles both cubins with ``cuobjdump -sass`` and says, for each
    kernel instance the two trees share (the one-field and field-axis
    instances on raw points, the weight-gradient GEMM at a width that is a
@@ -51,19 +52,22 @@ checkouts of the repository, for example the parent commit unpacked with
 It prints one line per process and, with ``--json PATH``, writes every
 reading to PATH.
 
-With ``--variants``, it times variants of this checkout's source against
+With ``--variants``, it times variants of this checkout's source (those
+whose names hold one of the words of ``--only``, when given) against
 the source itself (and PARENT_ROOT's, when given): the readings behind the
 kernels' design choices. Each variant is a list of text substitutions
 (``VARIANTS``; an anchor that does not occur as often as the table says
-raises). Some are alternatives that compute the same thing; the ones named
-"ablation" drop work and give wrong results, so the time they save is what
-that work costs. All copies are built at once into a temporary directory
-outside the checkout (``torch_cu_copies.py``); each is loaded in a process
+raises; a build whose run fails is reported and left out). Some are
+alternatives that compute the same thing; the ones named "ablation" drop
+work and give wrong results, so the time they save is what that work costs.
+All copies are built at once into a temporary directory outside the
+checkout (``torch_cu_copies.py``); each is loaded in a process
 of its own in place of the library, and ``fwd_kernel`` and ``bwd_kernel``
 are timed by device time (a trace of 5 calls, by kernel name) on the
-static field calls of the shared-pose step (8x256, fine: 512,000 points)
-and of the online app's (8x128, coarse and fine: 131,072 and 262,144
-points), with grad on as a step runs them. The builds run in turns: each
+static and dynamic fine field calls of the shared-pose step (8x256 and, with
+the warp and the pose sums, 4x256: 512,000 points) and on the online app's
+static ones (8x128, coarse and fine: 131,072 and 262,144 points), with grad
+on as a step runs them. The builds run in turns: each
 once in order, then again in the reverse order; it prints each build's
 mean a case.
 
@@ -89,31 +93,60 @@ ORDER = ("parent", "change", "change", "parent") * 2
 
 # --variants: name -> [(text to find, its replacement, how many times it occurs), ...]
 VARIANTS = {
-    "saved rows by 16-byte stores at every width": [
-        ("  if (cols < 256) {\n    strip_sync(wr);", "  if (true) {\n    strip_sync(wr);", 1)],
-    "saved rows by bulk copies at every width": [
-        ("  if (cols < 256) {\n    strip_sync(wr);", "  if (false) {\n    strip_sync(wr);", 1)],
-    "the epilogue passed by reference": [
-        ("__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, const Epi epi) {",
-         "__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, const Epi& epi) {", 1),
-        ("int nout, Feed& f, const Epi epi) {", "int nout, Feed& f, const Epi& epi) {", 1)],
-    "a block barrier in place of the strip barrier": [
-        ("__device__ __forceinline__ void strip_sync(int wr) { bar_sync(1 + wr, 64); }",
-         "__device__ __forceinline__ void strip_sync(int wr) { asm volatile(\"bar.sync 0;\" ::: \"memory\"); }",
-         1)],
+    "one chunk in flight (wait_group 1, the slot released a chunk later; the first step ignores D)": [
+        ("__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db);",
+         "__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int acc_in);", 1),
+        ("(float* d, uint64_t da, uint64_t db) {", "(float* d, uint64_t da, uint64_t db, int acc_in) {", 4),
+        ("      : \"l\"(da), \"l\"(db), \"r\"(1));", "      : \"l\"(da), \"l\"(db), \"r\"(acc_in));", 4),
+        ("  float acc[N / 2];\n#pragma unroll\n  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;\n  const unsigned g0",
+         "  float acc[N / 2];\n  const unsigned g0", 1),
+        ("b_desc(b));", "b_desc(b), g != g0);", 1),
+        ("b_desc(b + 2 * (LBO / 2)));", "b_desc(b + 2 * (LBO / 2)), 1);", 1),
+        ("      asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n"
+         "      fence_acc<N>(acc);\n      release(f, g);\n    }\n  }\n  f.g = g;",
+         "      asm volatile(\"wgmma.wait_group.sync.aligned 1;\\n\" ::: \"memory\");\n"
+         "      fence_acc<N>(acc);\n      if (g != g0) release(f, g - 1);\n    }\n  }\n"
+         "  asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n"
+         "  fence_acc<N>(acc);\n  release(f, g - 1);\n  f.g = g;", 1)],
+    "the release's atomic count without block fences": [
+        ("    __threadfence_block();\n    if (atomicAdd(&r->released[slot], 1u)", "    if (atomicAdd(&r->released[slot], 1u)", 1),
+        ("      r->released[slot] = 0;\n      __threadfence_block();\n", "      r->released[slot] = 0;\n", 1)],
+    "saved rows stored without the L2 evict-first hint": [
+        ("    uint64_t policy;\n    asm volatile(\"createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\\n\" : \"=l\"(policy));\n", "", 1),
+        ("bulk_group.L2::cache_hint [%0, {%1, %2, %3}], [%4], %5;", "bulk_group [%0, {%1, %2, %3}], [%4];", 1),
+        ("\"r\"(smem_u32(tile + p * PANEL)),\n          \"l\"(policy)\n", "\"r\"(smem_u32(tile + p * PANEL))\n", 1)],
+    "saved rows stored after the chunk's release": [
+        ("      sv.run((int)(g - g0));\n", "", 1),
+        ("      fence_acc<N>(acc);\n      release(f, g);\n",
+         "      fence_acc<N>(acc);\n      release(f, g);\n      sv.run((int)(g - g0));\n", 1)],
+    "saved rows stored all in the first chunk": [
+        ("      sv.run((int)(g - g0));\n", "      if (g == g0) sv.run();\n", 1)],
+    "saved rows stored before the next GEMM's first chunk": [
+        ("      sv.run((int)(g - g0));\n", "", 1),
+        ("  const unsigned g0 = f.g;\n  unsigned g = g0;\n", "  const unsigned g0 = f.g;\n  unsigned g = g0;\n  sv.run();\n", 1)],
+    "saved rows stored after the GEMM's last chunk": [
+        ("      sv.run((int)(g - g0));\n", "", 1),
+        ("  f.g = g;\n  epi.template run<N>(acc);\n", "  sv.run();\n  f.g = g;\n  epi.template run<N>(acc);\n", 1)],
+    "ablation: no weight copies after the first three (results wrong)": [
+        ("      ring_copy(r, slot, f.im, f.ic);\n",
+         "      asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\\n\" ::\"r\"(smem_u32(&r->full[slot])) "
+         ": \"memory\");\n", 1)],
     "ablation: no column sums": [
         ("  halve_xor<M / 2>(v, 16);\n", "  if (v) return;\n  halve_xor<M / 2>(v, 16);\n", 1)],
-    "ablation: no saved rows written": [
-        ("  if (cols < 256) {\n    strip_sync(wr);",
-         "  if (cols) {\n    strip_sync(wr);\n    return;\n  }\n  if (cols < 256) {\n    strip_sync(wr);", 1)],
+    "ablation: no saved rows written": [("    if (map == nullptr || threadIdx.x != 0 || p >= panels) return;\n",
+                                         "    return;\n", 1)],
 }
-VARIANT_CASES = (("carla_star_online_multi.txt", 1), ("synthetic_star_online.txt", 0),
-                 ("synthetic_star_online.txt", 1))  # (config, index into chip_smoke.kernel_cases)
+VARIANT_CASES = (("carla_star_online_multi.txt", 1), ("carla_star_online_multi.txt", 3),
+                 ("synthetic_star_online.txt", 0), ("synthetic_star_online.txt", 1))
+# (config, index into chip_smoke.kernel_cases): the flagship's static fine field, its dynamic fine
+# field (4x256, the warp and the pose sums), the online app's static coarse and fine fields
 
 
 def ptxas(roots):
     """Each tree's kernel instances -> (registers, stack bytes, spill
-    stores, spill loads), compiled at once."""
+    stores, spill loads, and ptxas's notes on wgmma: "serialized" when it
+    had to retire each wgmma before the next, which undoes the core's
+    pipelining), compiled at once."""
     from startrax_torch.kernels.build import NVCC_FLAGS, _nvcc
 
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
@@ -129,6 +162,10 @@ def ptxas(roots):
             raise RuntimeError(text)
         kernels, name = {}, None
         for line in text.splitlines():
+            m = re.search(r"wgmma.mma_async instructions are serialized due to (.*) in the function '(\w+)'",
+                          line)
+            if m:
+                kernels.setdefault(m.group(2), {})["wgmma_serialized"] = m.group(1)
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 name = m.group(1)
@@ -405,7 +442,7 @@ def variant_once(so):
     print(json.dumps(out), flush=True)
 
 
-def variants(parent, report):
+def variants(parent, report, only=None):
     """The --variants mode: every variant, this checkout's source and
     parent's (when not None) timed in turns; their readings and means go
     into report."""
@@ -417,18 +454,23 @@ def variants(parent, report):
             texts["parent"] = fp.read()
     texts["this checkout"] = src
     texts.update((name, cu_copies.substitute(src, edits, f"variant {name!r}"))
-                 for name, edits in VARIANTS.items())
+                 for name, edits in VARIANTS.items() if only is None or any(w in name for w in only))
     runs = {name: [] for name in texts}
     with tempfile.TemporaryDirectory(prefix="stx_variants_") as out_dir:
         libs = cu_copies.build(texts, out_dir)
         for name in list(texts) + list(reversed(texts)):
             out = subprocess.run([sys.executable, os.path.abspath(__file__), "--variant-once",
                                   libs[name]], capture_output=True, text=True, cwd=HERE)
-            if out.returncode != 0:
-                raise RuntimeError(f"{name}: the run failed:\n{out.stderr[-2000:]}")
+            if out.returncode != 0:  # reported, and left out of the means
+                tail = (out.stderr.strip().splitlines() or ["?"])[-1]
+                report.setdefault("failed", {})[name] = tail
+                print(f"{name}: the run failed: {tail}", flush=True)
+                continue
             runs[name].append(json.loads(out.stdout.strip().splitlines()[-1]))
     report.update(runs=runs, means={})
     for name, readings in runs.items():
+        if not readings:
+            continue
         means = {label: {k: statistics.mean(r[label][k] for r in readings) for k in readings[0][label]}
                  for label in readings[0]}
         report["means"][name] = means
@@ -466,9 +508,14 @@ def main():
     print(f"card: {card}", flush=True)
     if "--variants" in args:
         args.remove("--variants")
+        only = None
+        if "--only" in args:  # the variants whose names contain one of these comma-separated words
+            i = args.index("--only")
+            only = args[i + 1].split(",")
+            del args[i:i + 2]
         sys.path.insert(0, HERE)
         report = {"card": card}
-        variants(os.path.abspath(args[0]) if args else None, report)
+        variants(os.path.abspath(args[0]) if args else None, report, only)
         write_json(report, json_path)
         return 0
     parent = os.path.abspath(args[0])

@@ -2,12 +2,14 @@
 """Where a fused-MLP CTA spends its cycles: clock64() stamps in a copy of the
 kernels, on the static fine case of the shared-pose step.
 
-    python3 scripts/torch_kernel_phases.py [ROOT] [--json PATH]
+    python3 scripts/torch_kernel_phases.py [ROOT] [--ablate] [--json PATH]
 
 ROOT (default: this checkout) is the root of a checkout of the repository,
 for example the parent commit unpacked with ``git archive`` into
-``runs/parent``; its kernels must be this source's (the wgmma weight ring,
-the epilogues in registers on its accumulators). The script
+``runs/parent``; its kernels must be this source's (the wgmma weight ring
+read with A from shared memory, the epilogues in registers on its
+accumulators: ``ANCHORS``); an older source takes the script of its own
+commit. The script
 writes a copy of ROOT's ``startrax_torch/kernels/csrc/fused_mlp.cu`` into a
 temporary directory outside the checkout, inserts the stamps by text
 substitution (each anchor must occur as often as the table says, or the
@@ -22,13 +24,15 @@ of its cycles, from the kernel's first statement to its end, to one
 category: a stamp switches the category and adds the cycles since the last
 switch to the one it leaves (the state lives in a few words of static
 shared memory). The categories:
-- ``core``: the GEMM core's chunk loop (ldmatrix, wgmma, release);
+- ``core``: the GEMM core's chunk loop (wgmma issue and retirement, the
+  slot's release and refill);
 - ``wait``: inside it, waiting for a weight chunk (the slot's "full"
-  barrier) and the filler's wait on a slot's "empty" barrier;
+  barrier);
 - ``encoding``: loading the points, the warp and the input encoding (the
   backward's encodings for the weight-gradient GEMM);
 - ``epilogues``: the per-layer elementwise work after each GEMM (bias,
-  relu, residual, bf16 rounding, the saved activations and dY stores);
+  relu, residual, bf16 rounding, the saved activations and dY stores, also
+  where the core stores them during its first chunks);
 - ``heads``: the alpha and rgb heads (the backward's rgb head pass);
 - ``sums``: the column sums (bias grads) and the narrow weight grads
   (dW_a, dW_r, the b_a and b_r sums);
@@ -40,8 +44,17 @@ shared memory). The categories:
 - ``other``: the rest (the ring's set-up, the cotangent's load, the drain).
 Thread 0 takes part in every barrier, so its waits include the slowest
 warp's arrival. "Outside the core" is every category but core and wait.
+Thread 0 also counts the chunks whose "full" barrier had not completed when
+it came to wait for them (``spun_share``: how often the ring starved it).
 The stamps cost a few instructions each; the readings are shares, not
-times. Needs one CUDA card and nvcc.
+times.
+
+With ``--ablate`` a second copy is stamped and run after the first: the
+same, but after the first NSLOT copies the ring's filler only arrives on
+a slot's "full" barrier and copies nothing (the slot keeps an earlier
+chunk, so the results are wrong). Its cycles a chunk are the core's with
+the weights' L2 supply taken away: wgmma's issue to retirement and the
+ring's barriers. Needs one CUDA card and nvcc.
 """
 
 import ctypes
@@ -64,11 +77,13 @@ OUTSIDE = ("encoding", "epilogues", "heads", "sums", "enc_bwd", "barriers", "act
 PREAMBLE = r"""
 #include <cuda_runtime.h>
 constexpr int STX_NCAT = %d;
-// per CTA: cycles by category, then the kernel's cycles and the chunks consumed
-__device__ unsigned long long stx_cyc[STX_NCAT + 2][%d];
+// per CTA: cycles by category, then the kernel's cycles, the chunks consumed
+// and the chunks whose "full" wait found the barrier incomplete
+__device__ unsigned long long stx_cyc[STX_NCAT + 3][%d];
 // thread 0's state: [0, STX_NCAT) cycles by category, then the last stamp,
-// the current category, the chunks, the kernel's first clock (128 bytes, so
-// that the dynamic shared memory after it keeps its alignment)
+// the current category, the chunks, the kernel's first clock, the spun
+// chunks (128 bytes, so that the dynamic shared memory after it keeps its
+// alignment)
 __shared__ unsigned long long stx_sh[16];
 __device__ __forceinline__ int stx_cta() { return blockIdx.y * gridDim.x + blockIdx.x; }
 __device__ __forceinline__ long long stx_clock() {
@@ -89,6 +104,15 @@ __device__ __forceinline__ void stx_to(int cat) {
 }
 __device__ __forceinline__ int stx_cur() { return threadIdx.x == 0 ? (int)stx_sh[STX_NCAT + 1] : 0; }
 __device__ __forceinline__ void stx_chunk() { if (threadIdx.x == 0) stx_sh[STX_NCAT + 2] += 1; }
+// counts a chunk whose "full" barrier has not completed the phase of this parity
+__device__ __forceinline__ void stx_spin(unsigned long long* bar, unsigned parity) {
+  if (threadIdx.x != 0) return;
+  unsigned ok;
+  asm volatile("{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%%1], %%2;\n"
+               "selp.u32 %%0, 1, 0, p;\n}\n"
+               : "=r"(ok) : "r"((unsigned)__cvta_generic_to_shared(bar)), "r"(parity) : "memory");
+  if (!ok) stx_sh[STX_NCAT + 4] += 1;
+}
 __device__ __forceinline__ void stx_sync() {
   const int p = stx_cur();
   stx_to(8);
@@ -108,6 +132,7 @@ struct StxKernel {  // the kernel's cycles, from construction to scope exit
       for (int i = 0; i < STX_NCAT; ++i) stx_cyc[i][stx_cta()] += stx_sh[i];
       stx_cyc[STX_NCAT][stx_cta()] += stx_clock() - (long long)stx_sh[STX_NCAT + 3];
       stx_cyc[STX_NCAT + 1][stx_cta()] += stx_sh[STX_NCAT + 2];
+      stx_cyc[STX_NCAT + 2][stx_cta()] += stx_sh[STX_NCAT + 4];
     }
   }
 };
@@ -126,11 +151,11 @@ __device__ __forceinline__ void stx_wg_add(int what, long long t0) {
 
 EPILOGUE = r"""
 extern "C" int stx_phase_reset() {
-  static unsigned long long zeros[STX_NCAT + 2][%d];
+  static unsigned long long zeros[STX_NCAT + 3][%d];
   return (int)cudaMemcpyToSymbol(stx_cyc, zeros, sizeof(zeros));
 }
 extern "C" int stx_phase_read(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, stx_cyc, sizeof(unsigned long long) * (STX_NCAT + 2) * %d);
+  return (int)cudaMemcpyFromSymbol(out, stx_cyc, sizeof(unsigned long long) * (STX_NCAT + 3) * %d);
 }
 extern "C" int stx_wg_reset() {
   static unsigned long long zeros[6][%d];
@@ -142,37 +167,52 @@ extern "C" int stx_wg_read(unsigned long long* out) {
 """ % (MAXC, MAXC, MAXC, MAXC)
 
 # The fused kernels' anchors: (text to find, its replacement, how many
-# times it occurs). Category numbers follow CATS.
+# times it occurs). Category numbers follow CATS. The stores of the last
+# epilogue's output during a GEMM's first chunks count as epilogue work.
 ANCHORS = [
     ("  extern __shared__ __align__(128) unsigned char smem[];\n  const int W = all_in.width",
      "  extern __shared__ __align__(128) unsigned char smem[];\n  StxKernel stx_k;\n"
      "  const int W = all_in.width", 2),
     ("      mbar_wait(&r->full[slot], (g / NSLOT) & 1);\n",
-     "      stx_to(2); mbar_wait(&r->full[slot], (g / NSLOT) & 1); stx_to(1); stx_chunk();\n", 1),
-    ("    mbar_wait(&r->empty[slot], (g / NSLOT) & 1);\n",
-     "    stx_to(2); mbar_wait(&r->empty[slot], (g / NSLOT) & 1); stx_to(1);\n", 1),
-    ("  unsigned g = f.g;\n", "  stx_to(1);\n  unsigned g = f.g;\n", 1),
+     "      stx_to(2); stx_spin(&r->full[slot], (g / NSLOT) & 1); mbar_wait(&r->full[slot], (g / NSLOT) & 1);"
+     " stx_to(1); stx_chunk();\n", 1),
     ("  f.g = g;\n  epi.template run<N>(acc);\n", "  f.g = g;\n  stx_to(4);\n  epi.template run<N>(acc);\n", 1),
-    ("  if constexpr (ENC) {\n    stage_encoded(in.x, in.fx, XW, in.n, row0, as0, LDA, false);",
-     "  stx_to(3);\n  if constexpr (ENC) {\n    stage_encoded(in.x, in.fx, XW, in.n, row0, as0, LDA, false);", 1),
     ("  if constexpr (!ENC) load_points(", "  stx_to(3);\n  if constexpr (!ENC) load_points(", 1),
     ("  stage_bf16(vec + vo.w_a, w.w_a, W);\n", "  stx_to(0);\n  stage_bf16(vec + vo.w_a, w.w_a, W);\n", 1),
-    ("  __syncthreads();  // the heads' partials of both warpgroups\n",
-     "  __syncthreads();  // the heads' partials of both warpgroups\n  stx_to(5);\n", 1),
+    ("  const unsigned g0 = f.g;\n", "  stx_to(1);\n  const unsigned g0 = f.g;\n", 1),
+    ("      sv.run((int)(g - g0));\n",
+     "      if ((int)(g - g0) < sv.panels) {\n        stx_to(4);\n        sv.run((int)(g - g0));\n        stx_to(1);\n      }\n",
+     1),
+    ("  if constexpr (ENC) {\n    stage_encoded<true>(in.x, in.fx, XW, in.n, row0, as0, 0, false);",
+     "  stx_to(3);\n  if constexpr (ENC) {\n    stage_encoded<true>(in.x, in.fx, XW, in.n, row0, as0, 0, false);",
+     1),
+    ("  tile_sync();  // the heads' partials of both warpgroups, and hv_in for its tensor copies\n"
+     "  Save{nxt, &maps.m[2 * nb + 3], (int)row0, k, W2 / 64}.run();\n",
+     "  tile_sync();  // the heads' partials of both warpgroups, and hv_in for its tensor copies\n  stx_to(4);\n"
+     "  Save{nxt, &maps.m[2 * nb + 3], (int)row0, k, W2 / 64}.run();\n  stx_to(5);\n", 1),
+    ("    sv.run();  // no GEMM follows\n", "    stx_to(4);\n    sv.run();  // no GEMM follows\n", 1),
     ("__device__ __forceinline__ void head_rows(float (*s)[HEADS], int r0, float* hp) {\n",
-     "__device__ __forceinline__ void head_rows(float (*s)[HEADS], int r0, float* hp) {\n  StxScope stx_s(5);\n", 1),
+     "__device__ __forceinline__ void head_rows(float (*s)[HEADS], int r0, float* hp) {\n"
+     "  StxScope stx_s(5);\n", 1),
     ("  const Frag f(N);\n  if (threadIdx.x < 64) {  // the cotangent's column sums",
      "  stx_to(5);\n  const Frag f(N);\n  if (threadIdx.x < 64) {  // the cotangent's column sums", 1),
     ("void colsum_frag(float* v, int c0, float* cb, int ldcb, float* out, int stride) {\n",
-     "void colsum_frag(float* v, int c0, float* cb, int ldcb, float* out, int stride) {\n  StxScope stx_s(6);\n", 1),
+     "void colsum_frag(float* v, int c0, float* cb, int ldcb, float* out, int stride) {\n"
+     "  StxScope stx_s(6);\n", 1),
     ("                                       int F, float* out3) {\n",
      "                                       int F, float* out3) {\n  stx_to(7);\n", 1),
-    ("{ mbar_wait(full, n & 1); }", "{ const int stx_p = stx_cur(); stx_to(9); mbar_wait(full, n & 1); stx_to(stx_p); }", 1),
-    ("__syncthreads();", "stx_sync();", 9),
+    ("{ mbar_wait(full, n & 1); }",
+     "{ const int stx_p = stx_cur(); stx_to(9); mbar_wait(full, n & 1); stx_to(stx_p); }", 1),
+    ("__syncthreads();", "stx_sync();", 7),
     ("  asm volatile(\"bar.sync %0, %1;\" ::\"r\"(id), \"r\"(n) : \"memory\");\n",
      "  const int stx_p = stx_cur();\n  stx_to(8);\n"
      "  asm volatile(\"bar.sync %0, %1;\" ::\"r\"(id), \"r\"(n) : \"memory\");\n  stx_to(stx_p);\n", 1),
 ]
+# --ablate: after the first NSLOT copies the last warp to release a chunk
+# arrives on its slot's "full" barrier without copying.
+ABLATION = [("      ring_copy(r, slot, f.im, f.ic);\n",
+             "      asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\\n\" ::\"r\"(smem_u32(&r->full[slot])) "
+             ": \"memory\");\n", 1)]
 
 # The weight-gradient GEMM's anchors: the kernel's cycles (1: slab wait, the
 # slab's mbarrier and the block barrier; 3: the math, ldmatrix, masks and
@@ -205,12 +245,13 @@ WGRAD_ANCHORS = [
 GEMM_MARK = "// (B) The weight-gradient GEMM"  # the fused kernels' part of the source ends here
 
 
-def instrument(src):
-    """fused_mlp.cu's text -> the stamped copy's text. The category anchors
+def instrument(src, ablate=False):
+    """fused_mlp.cu's text -> the stamped copy's text (with ablate, the
+    ring's copies after the first NSLOT skipped). The category anchors
     apply to the fused kernels' part of the source only (before the
     weight-gradient GEMM), whose block barriers they all stamp."""
     cut = src.index(GEMM_MARK)
-    head = cu_copies.substitute(src[:cut], ANCHORS, "the stamps")
+    head = cu_copies.substitute(src[:cut], ANCHORS + (ABLATION if ablate else []), "the stamps")
     out = head + cu_copies.substitute(src[cut:], WGRAD_ANCHORS, "the stamps")
     at = out.index("namespace {")
     return out[:at] + PREAMBLE + out[at:] + EPILOGUE
@@ -218,9 +259,11 @@ def instrument(src):
 
 def split(cyc, n_cta):
     """Per-CTA stamps -> the mean share of each category and of everything
-    outside the core, with the mean cycles per CTA and per weight chunk."""
+    outside the core, with the mean cycles per CTA and per weight chunk and
+    the share of chunks whose "full" wait found the slot not yet filled."""
     cats = [cyc[i][:n_cta] for i in range(len(CATS))]
     kernel, chunks = cyc[len(CATS)][:n_cta], cyc[len(CATS) + 1][:n_cta]
+    spun = cyc[len(CATS) + 2][:n_cta]
     out = {"ctas": n_cta}
     for name, v in zip(CATS, cats):
         out[f"{name}_share"] = statistics.mean(c / max(k, 1) for c, k in zip(v, kernel))
@@ -229,6 +272,7 @@ def split(cyc, n_cta):
     out.update(kernel_cycles=statistics.mean(kernel), core_cycles=statistics.mean(core),
                chunks=statistics.mean(chunks),
                cycles_per_chunk=statistics.mean(g / max(c, 1) for g, c in zip(core, chunks)),
+               spun_share=sum(spun) / max(sum(chunks), 1),
                attributed=statistics.mean(sum(c[i] for c in cats) / max(k, 1)
                                           for i, k in enumerate(kernel)))
     return out
@@ -258,6 +302,9 @@ def main():
         i = args.index("--json")
         json_path = args[i + 1]
         del args[i:i + 2]
+    ablate = "--ablate" in args
+    if ablate:
+        args.remove("--ablate")
     root = os.path.abspath(args[0]) if args else HERE
     sys.path.insert(0, root)
     import importlib.util
@@ -276,9 +323,15 @@ def main():
     with open(os.path.join(root, SRC)) as fp:
         src = fp.read()
     print(f"card: {card}; tree {root}", flush=True)
+    texts = {"stamped": instrument(src)}
+    if ablate:
+        texts["ablated"] = instrument(src, ablate=True)
     with tempfile.TemporaryDirectory(prefix="stx_phases_") as out_dir:
-        lib = cu_copies.load_in_place(cu_copies.build({"stamped": instrument(src)}, out_dir)["stamped"])
-    report = measure(lib, root, cs)
+        libs = cu_copies.build(texts, out_dir)
+        report = measure(cu_copies.load_in_place(libs["stamped"]), root, cs)
+        if ablate:
+            print("the same, the ring's copies after the first NSLOT skipped (results wrong):", flush=True)
+            report["ablated"] = measure(cu_copies.load_in_place(libs["ablated"]), root, cs)
     report.update(card=card, root=root)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)
@@ -306,7 +359,7 @@ def measure(lib, root, cs):
     inp = cs.case_inputs(star, case, 1)
     n = case[2]
     n_cta = -(-n // 64)
-    rows = len(CATS) + 2
+    rows = len(CATS) + 3
     buf = (ctypes.c_ulonglong * (rows * MAXC))()
 
     def read():
@@ -344,7 +397,8 @@ def measure(lib, root, cs):
         print(f"static fine {side}: {shares}; outside the core "
               f"{100 * r['outside_share']:.2f}% (mean of {r['ctas']} CTAs; "
               f"{r['kernel_cycles']:.0f} cycles a CTA, {r['chunks']:.1f} chunks, "
-              f"{r['cycles_per_chunk']:.0f} cycles a chunk in the core; "
+              f"{r['cycles_per_chunk']:.0f} cycles a chunk in the core, "
+              f"{100 * r['spun_share']:.2f}% of the chunks waited for; "
               f"{100 * r['attributed']:.2f}% of the cycles attributed)", flush=True)
     r = report["wgrad"]
     print(f"static fine wgrad: slab wait {100 * r['wait_share']:.2f}%, copies issued (while the "

@@ -5,7 +5,7 @@ startrax_torch.kernels.parity: the readings that set ``parity.ENC_LIMITS``;
 and, for every build, the weight-gradient GEMM's own reading against its
 plain version (chip_smoke.PART_TOL["wgrad"]).
 
-    python3 scripts/torch_planted_faults.py [--json PATH]
+    python3 scripts/torch_planted_faults.py [--only WORD,...] [--json PATH]
 
 Each fault is a textual change to a copy of
 ``startrax_torch/kernels/csrc/fused_mlp.cu`` written to a temporary
@@ -16,7 +16,15 @@ in place of the library and run through ``parity.compare`` on the
 pre-encoded cases of chip_smoke.py phase 5 (carla_nerf_time.txt's 8x256
 fields) and on 3,000 ragged points at widths 128 and 256 with in_ch 84 and
 63, with and without input grads (the ring's faults break every mode
-alike, so the same cases read them). For every build the script prints the
+alike, so the same cases read them). Two of the ring's faults release a
+slot while a wgmma that reads it may still be in flight. The refill's copy
+lands about a microsecond after the release, long after that read, so
+these two faults are built with the slot poisoned at its release
+(``POISON``: the refilling warp overwrites the whole slot with NaN, then
+fences it for the copy), which lands within a few dozen cycles; the sound source is built a
+second time so poisoned, which must read as the sound one. With ``--only``
+the sound source and the builds whose names hold one of the words are
+run. For every build the script prints the
 largest reading of each measure and the cases that fail ``ENC_LIMITS``
 and, with ``--json PATH``, writes them to PATH. A build whose run fails
 (the ring's cursor guard traps a cursor that runs past the stream) is
@@ -36,10 +44,31 @@ import torch_cu_copies as cu_copies
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
+# The refilling warp overwrites the slot it releases with NaN, all 32 lanes
+# in a scattered order so that every part of it is hit within a few dozen
+# cycles, then fences the stores for the copy that refills it. Harmless
+# where every wgmma that reads the slot has retired; a read still in flight
+# reads NaN.
+POISON = [
+    ("  if ((threadIdx.x & 31) == 0) {\n    const int slot = g % NSLOT;\n",
+     "  bool poison = false;\n  const int slot = g % NSLOT;\n  if ((threadIdx.x & 31) == 0) {\n", 1),
+    ("      ring_copy(r, slot, f.im, f.ic);\n    }\n  }\n  __syncwarp();\n",
+     "      poison = true;\n    }\n  }\n"
+     "  if (__shfl_sync(0xffffffffu, poison, 0)) {\n"
+     "    uint4* q = reinterpret_cast<uint4*>(r->slots + slot * r->slot_elems);\n"
+     "    const int nq = r->slot_elems / 8;\n"
+     "    for (int i = threadIdx.x & 31; i < nq; i += 32)\n"
+     "      q[(i * 37) % nq] = make_uint4(0x7fc07fc0u, 0x7fc07fc0u, 0x7fc07fc0u, 0x7fc07fc0u);\n"
+     "    asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"memory\");\n"
+     "    __syncwarp();\n"
+     "    if ((threadIdx.x & 31) == 0) ring_copy(r, slot, f.im, f.ic);\n"
+     "  }\n  __syncwarp();\n", 1)]
+SOUND_POISONED = "sound, the ring's slots poisoned at release"
+
 # name -> [(text to find, its replacement, how many times it occurs), ...]
 FAULTS = {
     "lin_in reads 64 rows (drops columns 64-83)": [
-        ("const Seg s = {cur, LDA, in_rows<ENC>(), false};", "const Seg s = {cur, LDA, EW, false};", 1),
+        ("const Seg s = {cur, in_rows<ENC>()};", "const Seg s = {cur, EW};", 1),
         ("ring_add(ring, w.w_in, in_rows<ENC>(), W);", "ring_add(ring, w.w_in, EW, W);", 1)],
     "pad columns left unzeroed": [
         ("    if (skip_tail && p >= n) continue;",
@@ -48,18 +77,22 @@ FAULTS = {
         ("gr.dd[(row0 + t) * in.fd + c] = dhs[t * (EW + 8) + c];",
          "gr.dd[(row0 + t) * in.fd + c] = 0.f;", 1)],
     "xe written at stride 64": [
-        ("stage_encoded(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * XW, XW, true);",
-         "stage_encoded(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * EW, EW, true);", 1)],
+        ("stage_encoded<false>(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * XW, XW, true);",
+         "stage_encoded<false>(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * EW, EW, true);", 1)],
     "the last ragged tile runs past n": [
         ("const int nrow = (int)min((long)T, (long)in.n - row0);",
          "const int nrow = T;", 2)],
-    "ring: the filler skips the empty wait and refills a chunk's slot as it starts the chunk": [
-        ("      mbar_wait(&r->full[slot], (g / NSLOT) & 1);\n",
-         "      mbar_wait(&r->full[slot], (g / NSLOT) & 1);\n"
-         "      if (threadIdx.x == 0 && g + NSLOT < r->total) ring_issue(r);\n      __syncwarp();\n", 1),
-        ("    mbar_wait(&r->empty[slot], (g / NSLOT) & 1);\n    ring_issue(r);", "", 1)],
-    "ring: the stream cursor skips one chunk at each GEMM boundary": [
-        ("    r->c = 0;\n    ++r->m;", "    r->c = 1;\n    ++r->m;", 1)],
+    "ring: the first warp to release a chunk refills its slot, not the last": [
+        ("    if (atomicAdd(&r->released[slot], 1u) == NT / 32 - 1) {\n      r->released[slot] = 0;\n",
+         "    const unsigned k = atomicAdd(&r->released[slot], 1u);\n"
+         "    if (k == NT / 32 - 1) r->released[slot] = 0;\n    if (k == 0) {\n", 1)] + POISON,
+    "ring: the cursor skips one chunk at each matrix boundary": [
+        ("    f.ic = 0;\n    f.nch = r->mats[++f.im].chunks;", "    f.ic = 1;\n    f.nch = r->mats[++f.im].chunks;", 1)],
+    "ring: a slot released before its wgmma group has retired (no wait_group)": [
+        ("      asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n"
+         "      fence_acc<N>(acc);\n      release(f, g);\n",
+         "      release(f, g);\n      asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n"
+         "      fence_acc<N>(acc);\n", 1)] + POISON,
     "wgrad: each split runs one point past its end": [
         ("const long p_end = min((long)t.n, p_begin + (long)t.per_split);",
          "const long p_end = min((long)t.n, p_begin + (long)t.per_split + 1);", 1)],
@@ -76,14 +109,17 @@ WGRAD_CASES = [(256, 4, 64, 1, 3000), (256, 4, 96, 1, 65536), (128, 2, 64, 2, 65
 MEASURES = ("fwd", "fwd_rms", "w", "input", "input_rms")
 
 
-def build_all(src_path, out_dir):
-    """The sound source and every faulty copy, built in out_dir -> {name:
-    shared library}."""
+def build_all(src_path, out_dir, only=None):
+    """The sound source, the sound source poisoned and every faulty copy
+    (with only, those whose names hold one of its words), built in out_dir
+    -> {name: shared library}."""
     with open(src_path) as fp:
         src = fp.read()
     texts = {"sound": src}
-    texts.update((name, cu_copies.substitute(src, edits, f"fault {name!r}"))
-                 for name, edits in FAULTS.items())
+    edits_of = {SOUND_POISONED: POISON, **FAULTS}
+    texts.update((name, cu_copies.substitute(src, edits, f"build {name!r}"))
+                 for name, edits in edits_of.items()
+                 if only is None or any(w in name for w in only))
     return cu_copies.build(texts, out_dir)
 
 
@@ -192,9 +228,10 @@ def main():
     spec.loader.exec_module(cs)
     part_tol = cs.PART_TOL["wgrad"]
     report = {"card": card, "limits": parity.ENC_LIMITS, "wgrad_tol": part_tol, "builds": {}}
+    only = sys.argv[sys.argv.index("--only") + 1].split(",") if "--only" in sys.argv else None
     with tempfile.TemporaryDirectory(prefix="stx_faults_") as out_dir:
         libs = build_all(os.path.join(HERE, "startrax_torch", "kernels", "csrc", "fused_mlp.cu"),
-                         out_dir)
+                         out_dir, only)
         for name, so in libs.items():
             out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", name, so],
                                  capture_output=True, text=True, cwd=HERE)

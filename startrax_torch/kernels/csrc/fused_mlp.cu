@@ -56,18 +56,24 @@
 // T = 64 points per CTA, one CTA of 8 warps per SM (~227 KB of shared
 // memory), keeps its activations in shared memory and streams every layer's
 // weights from L2 in KC-row chunks: 16 KB a chunk at W = 256, about 1.5 MB of
-// weights a tile for 8x256. The GEMM core (tile_gemm) multiplies with wgmma:
-// the two warpgroups split the output columns, A comes from the bf16 tile by
-// ldmatrix, B straight from a slot of a three-slot weight ring that thread 0
-// fills with one bulk copy (cp.async.bulk, no tensor map) per chunk, from a
-// copy the host packed in the order the wgmma descriptor reads. The ring
-// runs ahead across GEMMs: the sequence of chunks a kernel consumes is fixed
-// at its start (Ring), so the next layer's first chunks load while an
-// epilogue runs. Consumers wait on a slot's "full" mbarrier; each warp
-// releases the slot on its "empty" mbarrier once wgmma.wait_group has retired
-// the chunk. With the matrix loop at wgmma speed, what bounds a CTA is the L2
-// rate of the weight chunks (all SMs pull every chunk of every layer, per 64
-// points) and the work between the GEMMs (PERF.md has the stamps).
+// weights a tile for 8x256. The GEMM core (tile_gemm) multiplies with wgmma
+// with both operands in shared memory, read through descriptors: the two
+// warpgroups split the output columns and each reads all 64 rows of A, the
+// bf16 operand tile, kept in wgmma's 128-byte-swizzled K-major layout; B
+// comes straight from a slot of a three-slot weight ring, filled with one
+// bulk copy (cp.async.bulk, no tensor map) per chunk from a copy the host
+// packed in the order the wgmma descriptor reads. The ring runs ahead across
+// GEMMs: the sequence of chunks a kernel consumes is fixed at its start
+// (Ring), so the next layer's first chunks load while an epilogue runs.
+// Consumers wait on a slot's "full" mbarrier; once wgmma.wait_group has
+// retired a chunk, each warp counts itself in, and the last of the eight
+// starts the copy of the chunk NSLOT on into the slot, so that no warp
+// waits for another (each keeps its own copy of the stream's cursor). The
+// two warpgroups' wgmma alternate on the tensor cores, so retiring every
+// chunk before the next costs no tensor time (one chunk kept in flight read
+// slower on the card). What bounds a CTA is the L2 rate of the weight chunks
+// (all SMs pull every chunk of every layer, per 64 points) and the work
+// between the GEMMs (PERF.md has the stamps).
 //
 // The epilogues run in registers on the wgmma accumulators: gemm_core hands
 // its fragment (rows 16 (warp % 4) + lane / 4 and + 8, columns N (warp / 4)
@@ -75,23 +81,28 @@
 // once a CTA in shared memory by cp.async while the input is encoded),
 // keeps the residual stream h (the backward's dh) in f32 at the thread's own
 // fragment positions, rounds to bf16 and writes the next GEMM's A into the
-// other of two operand tiles. An operand
-// tile holds the pre-relu value, which is the saved activation; the relu is
-// applied to the A registers after ldmatrix (relu(bf16(v)) = bf16(relu(v)),
-// so the products are the TPU kernel's). No f32 tile goes through shared
-// memory between GEMMs, and the residual update and the next block's first
-// pass are one epilogue.
-// - Barriers: only the two warps of a 16-row strip (w and w + 4) read its
-//   rows of an operand tile and write them, so a layer needs one named
-//   barrier of the strip's 64 threads, no block barrier: with two tiles, it
+// other of two operand tiles, at swizzled addresses (a warp's 32 pair writes
+// cover 8 rows' 16-byte chunks, which the swizzle puts in 8 different bank
+// groups: no bank conflict). A tile that the
+// next GEMM reads through a relu holds bf16(relu(v)), which is
+// relu(bf16(v)), so the products are the TPU kernel's; that value is also
+// the saved activation (h, n, h_last), whose readers need only its sign
+// (the backward's relu masks) or apply the relu again (the weight-gradient
+// GEMM). No f32 tile goes through shared memory between GEMMs, and the
+// residual update and the next block's first pass are one epilogue.
+// - Barriers: each warpgroup's wgmma reads every row of A, so a layer ends
+//   with tile_sync: each thread fences its tile writes for the async proxy
+//   (which wgmma reads through), then the block barrier. With two tiles, it
 //   orders both the next GEMM's reads after the epilogue's writes and the
-//   next-but-one epilogue's writes after the partner's reads.
-//   __syncthreads stays where a pass crosses strips: the input encoding,
-//   the encoding backward, the heads' final sum.
-// - After the strip's barrier, 16 lanes copy its rows of the new tile to
-//   the saved activation (forward) or the dY (backward), one bulk copy
-//   (cp.async.bulk, shared -> global) a row that nobody waits for until the
-//   tile is due to be rewritten two layers on.
+//   next-but-one epilogue's writes after this GEMM's reads. Every tile
+//   that a tensor copy stores is behind one, since a plain barrier does
+//   not order the generic proxy's writes before the async proxy's reads.
+// - The saved activation (forward) or the dY (backward) leaves the new tile
+//   by tensor copies (one a 64-column panel, the copy engine undoing the
+//   swizzle, with an L2 evict-first hint), issued by thread 0 one a chunk
+//   while the next GEMM's first chunks run (Save, inside gemm_core); it
+//   waits for them to have read the tile at the barrier after that GEMM's
+//   epilogue, before the tile can be written again.
 // - The heads live in the epilogues: alpha = ho w_a in lin_out's, rgb in the
 //   views layer's (three partial dot products), each summed over the quad
 //   by shuffles and across the two warpgroups through a few floats of
@@ -152,7 +163,6 @@ constexpr int NT = 256;    // threads per CTA (two warpgroups of 4 warps: 16-row
 constexpr int KC = 32;     // weight rows streamed through shared memory per chunk
 constexpr int EW = 64;     // padded encoding width (63 point columns, 27 direction columns)
 constexpr int XW = 3 * KC; // padded width of pre-encoded point features (nerf_time: 84 columns)
-constexpr int LDE = EW + 8;
 constexpr int MAXB = 8;    // most residual blocks a field may have
 
 // Rows of lin_in's weight, the padded width of the point encoding.
@@ -347,35 +357,60 @@ __device__ __forceinline__ float pe_dval(const float* v, int j, int F, int* dim)
 //
 // The chunks a kernel consumes form a fixed sequence, known at its start:
 // the stream (Ring::mats). Thread 0 starts the first NSLOT copies at the
-// kernel's start; after thread 0 has consumed chunk g, it waits for every
-// warp to release g's slot ("empty") and starts chunk g + NSLOT there, which
-// may belong to the next GEMM. So the next layer's first chunks load while
-// the current epilogue runs. Consumers wait on a slot's "full" barrier.
+// kernel's start; the last warp to release chunk g starts chunk g + NSLOT in
+// its slot, which may belong to the next GEMM. So the next layer's first
+// chunks load while the current epilogue runs. Consumers wait on a slot's
+// "full" barrier; no warp waits for another to release a slot.
+//
+// A [T][k] is an operand tile in shared memory in wgmma's 128-byte-swizzled
+// K-major layout: 64-column panels of T rows of 128 bytes, 1,024-byte
+// aligned, a row's 16-byte chunk j at chunk j ^ (row % 8) (aoff). wgmma
+// reads A and B through descriptors, so no operand lives in registers; a
+// tensor copy stores a panel to global memory row-major, undoing the
+// swizzle in the copy engine (Save).
 // ---------------------------------------------------------------------------
 
 constexpr int NSLOT = 3;              // ring slots of KC x W bf16
 constexpr int LBO = 128;              // bytes from a core matrix of B to the next along K
 constexpr int SBO = (KC / 8) * 128;   // and along N (fused_mlp.py, DESC_LBO / DESC_SBO)
+constexpr int PANEL = T * 64;         // elements of an operand tile's 64-column panel
 constexpr int MAXM = 2 * MAXB + 6;    // most matrices in a kernel's stream
+constexpr int MAXSAVE = 2 * MAXB + 4; // most tiles a kernel stores (TileMaps)
+
+// Element offset of (row, col) in an operand tile.
+__host__ __device__ constexpr int aoff(int row, int col) {
+  return (col >> 6) * PANEL + row * 64 + ((((col >> 3) & 7) ^ (row & 7)) << 3) + (col & 7);
+}
+
+// The tensor maps of the rows a kernel stores from its operand tiles, by
+// destination (the forward's h and n of each block, h_last, ho, feat, hv_in;
+// the backward's dY of lin_in, of fc0 and fc1 of each block, of lin_out, the
+// feature layer and the views layer), each over [fields, n, cols] bf16 in
+// boxes of one 64-column panel of T rows (encode_rows).
+struct TileMaps { CUtensorMap m[MAXSAVE]; };
 
 struct Mat { const bf16* p; int chunks, bytes; };  // bytes: one chunk's
 
-// The ring's state in shared memory. The stream and the cursor are thread
-// 0's; the barriers everyone's.
+// The ring's state in shared memory: the stream (thread 0 writes it at the
+// kernel's start), each slot's "full" barrier and the count of warps that
+// have released the slot's chunk.
 struct Ring {
-  unsigned long long full[NSLOT], empty[NSLOT];
+  unsigned long long full[NSLOT];
+  unsigned released[NSLOT];
+  unsigned total;         // chunks in the stream
   Mat mats[MAXM];
   bf16* slots;            // NSLOT slots of slot_elems
   int slot_elems, n_mats;
-  int m, c;               // the next chunk to copy: chunk c of mats[m]
-  unsigned total, head;   // chunks in the stream; chunks copied so far
 };
 
-// One thread's view of the ring: the ring, and the chunks it has consumed.
-struct Feed { Ring* r; unsigned g; };
+// One thread's view of the ring: the chunks it has consumed (g), and where
+// chunk g + NSLOT, the next to be copied into g's slot, sits in the stream:
+// chunk ic of mats[im], which has nch chunks. Every thread advances its copy
+// alike, so whichever warp releases a chunk last can start the next copy.
+struct Feed { Ring* r; unsigned g; int im, ic, nch; };
 
-// A [T][k] (bf16, shared), row stride lda; relu applied to it in registers
-struct Seg { const bf16* a; int lda; int k; bool relu; };
+// A [T][k] (bf16, an operand tile in shared memory)
+struct Seg { const bf16* a; int k; };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -404,25 +439,19 @@ __device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
-// Starts copying chunk `head` of the stream into its slot (thread 0). A cursor
-// that has lost count and run past the stream traps.
-__device__ void ring_issue(Ring* r) {
-  if (r->m >= r->n_mats) __trap();
-  const Mat mt = r->mats[r->m];
-  const int slot = r->head % NSLOT;
+// Starts copying chunk c of mt into ring slot `slot` (one thread). A cursor
+// that has run past the stream traps.
+__device__ __forceinline__ void ring_copy(Ring* r, int slot, int m, int c) {
+  if (m >= r->n_mats) __trap();
+  const Mat mt = r->mats[m];
   const uint32_t bar = smem_u32(&r->full[slot]);
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(mt.bytes)
                : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(r->slots + slot * r->slot_elems)), "l"(mt.p + (size_t)r->c * (mt.bytes / 2)),
+      ::"r"(smem_u32(r->slots + slot * r->slot_elems)), "l"(mt.p + (size_t)c * (mt.bytes / 2)),
         "r"(mt.bytes), "r"(bar)
       : "memory");
-  ++r->head;
-  if (++r->c == mt.chunks) {
-    r->c = 0;
-    ++r->m;
-  }
 }
 
 // Appends B [k][nout] (packed) to the stream (thread 0, at the kernel's start).
@@ -434,84 +463,94 @@ __device__ __forceinline__ void ring_add(Ring* r, const bf16* p, int k, int nout
 __device__ __forceinline__ void ring_init(Ring* r, bf16* slots, int slot_elems) {
   for (int s = 0; s < NSLOT; ++s) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&r->full[s])) : "memory");
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(&r->empty[s])), "n"(NT / 32)
-                 : "memory");
+    r->released[s] = 0;
   }
   r->slots = slots; r->slot_elems = slot_elems;
-  r->n_mats = 0; r->m = 0; r->c = 0; r->total = 0; r->head = 0;
+  r->n_mats = 0; r->total = 0;
 }
 
 // After the stream is complete (thread 0): the first NSLOT copies.
 __device__ __forceinline__ void ring_start(Ring* r) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  while (r->head < min(r->total, (unsigned)NSLOT)) ring_issue(r);
+  for (int h = 0, m = 0, c = 0; h < NSLOT && h < (int)r->total; ++h) {
+    ring_copy(r, h, m, c);
+    if (++c == r->mats[m].chunks) {
+      c = 0;
+      ++m;
+    }
+  }
 }
 
-// At the kernel's end (thread 0): waits for any copy still in flight, so
-// that none lands in the shared memory of a finished CTA.
-__device__ __forceinline__ void ring_drain(Ring* r, unsigned consumed) {
-  for (unsigned h = consumed; h < r->head; ++h) mbar_wait(&r->full[h % NSLOT], (h / NSLOT) & 1);
+// Every thread's view of the ring, after a block barrier has made thread 0's
+// stream visible: nothing consumed, the cursor at chunk NSLOT.
+__device__ __forceinline__ Feed feed_start(Ring* r) {
+  Feed f = {r, 0, 0, NSLOT, r->mats[0].chunks};
+  while (f.ic >= f.nch && f.im + 1 < r->n_mats) {
+    f.ic -= f.nch;
+    f.nch = r->mats[++f.im].chunks;
+  }
+  return f;
 }
 
-// wgmma m64nNk16, D (f32, registers) += A (bf16, registers) B (bf16, shared
-// memory through desc), for the N that the GEMMs use.
+// wgmma m64nNk16, D (f32, registers) += A B, A and B bf16 in shared memory
+// through descriptors (da, db), for the N that the GEMMs use.
 template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc);
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db);
 
 template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t desc) {
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da, uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "l"(da), "l"(db), "r"(1));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<48>(float* d, const uint32_t* a, uint64_t desc) {
+__device__ __forceinline__ void wgmma_ss<48>(float* d, uint64_t da, uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
         "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "l"(da), "l"(db), "r"(1));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t desc) {
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
         "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
         "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "l"(da), "l"(db), "r"(1));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t desc) {
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
@@ -521,7 +560,7 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint6
         "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
         "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // Shared-memory descriptor of B at p: K-major core matrices without swizzle,
@@ -531,82 +570,116 @@ __device__ __forceinline__ uint64_t b_desc(const bf16* p) {
          ((uint64_t)(SBO >> 4) << 32);
 }
 
+// Shared-memory descriptor of an operand in 128-byte swizzled tiles
+// (1,024-byte aligned atoms of 8 rows of 128 bytes) at p: the next 8 rows at
+// sbo bytes; for an MN-major operand, the next 64 columns at lbo bytes (a
+// K-major one has no use for lbo: its K steps within a row move p).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, int lbo, int sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
 template <int N>
 __device__ __forceinline__ void fence_acc(float* acc) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
 }
 
-// Releases chunk g's slot: each warp arrives on its "empty" barrier once its
-// wgmma.wait_group has retired the chunk; thread 0 waits for all of them and
-// refills the slot with chunk g + NSLOT.
-__device__ __forceinline__ void release(Ring* r, unsigned g) {
-  const int slot = g % NSLOT;
-  if ((threadIdx.x & 31) == 0) mbar_arrive(&r->empty[slot]);
-  if (threadIdx.x == 0 && g + NSLOT < r->total) {
-    mbar_wait(&r->empty[slot], (g / NSLOT) & 1);
-    ring_issue(r);
+// Chunk g's slot, once this warp's wgmma.wait_group has retired the chunk:
+// lane 0 counts the warp in, and the last of the NT / 32 warps resets the
+// count and starts copying chunk g + NSLOT into the slot, so no warp waits
+// for another. Every thread then moves its cursor on by one chunk.
+__device__ __forceinline__ void release(Feed& f, unsigned g) {
+  Ring* r = f.r;
+  if (g + NSLOT >= r->total) return;
+  if ((threadIdx.x & 31) == 0) {
+    const int slot = g % NSLOT;
+    __threadfence_block();
+    if (atomicAdd(&r->released[slot], 1u) == NT / 32 - 1) {
+      r->released[slot] = 0;
+      __threadfence_block();
+      ring_copy(r, slot, f.im, f.ic);
+    }
   }
   __syncwarp();
+  if (++f.ic == f.nch && f.im + 1 < r->n_mats) {
+    f.ic = 0;
+    f.nch = r->mats[++f.im].chunks;
+  }
 }
 
-// relu on a chunk's A registers (bf16 pairs): relu(bf16(v)) = bf16(relu(v)),
-// so an operand tile may hold the pre-relu value that is also the saved
-// activation.
-__device__ __forceinline__ void relu_a(uint32_t (&a)[2][4]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&a[h][q]);
-      v = __hmax2(v, __float2bfloat162_rn(0.f));
-      a[h][q] = *reinterpret_cast<uint32_t*>(&v);
-    }
+// An operand tile's rows to global memory: rows row0 .. row0 + T - 1 of
+// field z of the destination [fields, n, cols] of map, by tensor copies
+// that thread 0 issues, one a 64-column panel (the copy engine undoes the
+// swizzle and leaves out rows past n). Each copy carries an L2 evict-first
+// hint: another kernel reads the rows back, and without the hint they
+// displace the weight chunks that every CTA streams from L2. Nothing when
+// map is null. Thread 0 waits in tile_sync for the copies to have read the
+// tile before anyone may write it again.
+struct Save {
+  const bf16* tile;
+  const CUtensorMap* map;
+  int row0, z, panels;
+  __device__ __forceinline__ void run(int p) const {  // panel p
+    if (map == nullptr || threadIdx.x != 0 || p >= panels) return;
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%1, %2, %3}], [%4], %5;\n"
+        ::"l"(reinterpret_cast<uint64_t>(map)), "r"(64 * p), "r"(row0), "r"(z), "r"(smem_u32(tile + p * PANEL)),
+          "l"(policy)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+  __device__ __forceinline__ void run() const {  // every panel
+    for (int p = 0; p < panels; ++p) run(p);
+  }
+};
+
+// At a kernel's end: thread 0 waits for its tensor copies to have read the
+// tiles, so that none reads the shared memory of a finished CTA (their
+// writes complete before the grid does).
+__device__ __forceinline__ void save_drain() {
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // The accumulators of the segments' A @ B, each warpgroup computing the
-// columns [N wg, N wg + N) with the tile's 64 rows (warp w % 4 holds rows
-// 16 (w % 4) .. + 15 of A and of D), handed to the epilogue in registers
-// (epi.run<N>(acc); Frag says where each accumulator sits). Per chunk: A
-// from ldmatrix (relu applied in registers for a segment that asks for it),
-// the slot's "full" wait, two wgmma k16 steps, wait_group 0, then the slot's
-// release. (Keeping one chunk's wgmma in flight while the next is issued
-// measured slower: the second A register set pushed the backward to 255
-// registers and spills.) No block barrier: the caller orders the tiles.
+// columns [N wg, N wg + N) from all 64 rows of A (warp w % 4 then holds
+// rows 16 (w % 4) .. + 15 of D), handed to the epilogue in registers
+// (epi.run<N>(acc); Frag says where each accumulator sits). Per chunk: the
+// slot's "full" wait, two wgmma k16 steps, commit, wait_group 0, release.
+// The two warpgroups' wgmma alternate on the tensor cores, so retiring each
+// chunk before the next costs no tensor time. sv, the previous layer's
+// output, is stored while the first chunks run, a panel a chunk. The caller
+// orders the tiles (tile_sync).
 template <int N, class Epi>
-__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, const Epi epi) {
+__device__ void gemm_core(const Seg* segs, int nseg, Feed& f, const Epi epi, const Save& sv) {
   Ring* r = f.r;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wr = warp & 3;
+  const int wg = threadIdx.x >> 7;
   float acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  unsigned g = f.g;
+  const unsigned g0 = f.g;
+  unsigned g = g0;
   for (int s = 0; s < nseg; ++s) {
     const Seg sg = segs[s];
-    const bf16* arow = sg.a + (16 * wr + (lane & 15)) * sg.lda + (lane >> 4) * 8;
     for (int k0 = 0; k0 < sg.k; k0 += KC, ++g) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                     : "=r"(a[h][0]), "=r"(a[h][1]), "=r"(a[h][2]), "=r"(a[h][3])
-                     : "r"(smem_u32(arow + k0 + 16 * h)));
-      if (sg.relu) relu_a(a);
       const int slot = g % NSLOT;
       mbar_wait(&r->full[slot], (g / NSLOT) & 1);
       // this warpgroup's N / 8 cores along N; the second k16 step 2 cores along K on
       const bf16* b = r->slots + slot * r->slot_elems + wg * (N / 8) * (SBO / 2);
+      const bf16* a = sg.a + (k0 >> 6) * PANEL + (k0 & 63);  // K steps move along a swizzled row
       fence_acc<N>(acc);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      wgmma_rs<N>(acc, a[0], b_desc(b));
-      wgmma_rs<N>(acc, a[1], b_desc(b + 2 * (LBO / 2)));
+      wgmma_ss<N>(acc, sw128_desc(a, 16, 1024), b_desc(b));
+      wgmma_ss<N>(acc, sw128_desc(a + 16, 16, 1024), b_desc(b + 2 * (LBO / 2)));
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // a panel a chunk, so that no weight copy queues behind all of them (the
+      // GEMM reads the saved tile: it has twice as many chunks as the tile panels)
+      sv.run((int)(g - g0));
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_acc<N>(acc);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)  // the A registers live until the wgmma retired
-        asm volatile("" ::"r"(a[h][0]), "r"(a[h][1]), "r"(a[h][2]), "r"(a[h][3]) : "memory");
-      release(r, g);
+      release(f, g);
     }
   }
   f.g = g;
@@ -616,11 +689,12 @@ __device__ void gemm_core(const Seg* segs, int nseg, Feed& f, const Epi epi) {
 // gemm_core for an output width nout of 2 NB or 2 NS (the two widths a
 // layer may have: W in {256, 128}, W / 2 in {128, 64}).
 template <int NB, int NS, class Epi>
-__device__ __forceinline__ void tile_gemm(const Seg* segs, int nseg, int nout, Feed& f, const Epi epi) {
+__device__ __forceinline__ void tile_gemm(const Seg* segs, int nseg, int nout, Feed& f, const Epi epi,
+                                          const Save& sv) {
   if (nout == 2 * NB)
-    gemm_core<NB>(segs, nseg, f, epi);
+    gemm_core<NB>(segs, nseg, f, epi, sv);
   else
-    gemm_core<NS>(segs, nseg, f, epi);
+    gemm_core<NS>(segs, nseg, f, epi, sv);
 }
 
 // ---------------------------------------------------------------------------
@@ -632,10 +706,19 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
-// The two warps that share row strip wr of an operand tile (wr and wr + 4):
-// the only readers of its rows in a GEMM and their only writers in an
-// epilogue.
-__device__ __forceinline__ void strip_sync(int wr) { bar_sync(1 + wr, 64); }
+// After the writes to an operand tile (an epilogue, the input's staging):
+// each thread makes its writes visible to the async proxy, which wgmma and
+// the tensor copies read through, then the block barrier, since each
+// warpgroup's wgmma reads all 64 rows. With two tiles, one such barrier a
+// layer orders both the next GEMM's reads after the epilogue's writes and
+// the next-but-one epilogue's writes after this GEMM's reads (each
+// warpgroup retires its wgmma before its epilogue) and after the copies
+// that stored the tile (Save), which thread 0 waits for first.
+__device__ __forceinline__ void tile_sync() {
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
 
 // The four warps of warpgroup wg, which hold every row of its columns.
 __device__ __forceinline__ void wg_sync(int wg) { bar_sync(5 + wg, 128); }
@@ -655,50 +738,16 @@ __device__ __forceinline__ void st_bf2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+__device__ __forceinline__ __nv_bfloat162 relu_bf2(__nv_bfloat162 v) {
+  return __hmax2(v, __float2bfloat162_rn(0.f));
+}
+
+__device__ __forceinline__ void st_relu_bf2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = relu_bf2(__floats2bfloat162_rn(a, b));
+}
+
 __device__ __forceinline__ float2 ld_bf2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// After an epilogue wrote strip wr of `tile`: the strip's barrier, then its
-// rows (t < nrow) are copied to rows row0 + t of dst [n, cols], the saved
-// activation or dY. Rows of 512 bytes or more (W = 256) go by bulk copy,
-// one a row issued by lanes 0-15 of the strip's warpgroup-0 warp (shared
-// -> global; every thread first fences its writes for the async proxy),
-// and nobody waits for them: a tile is rewritten two layers after it is
-// copied, so before the barrier of every save_strip those lanes wait
-// until their earlier copies have read their rows, and the writers of the
-// next-but-one epilogue pass that barrier first. Narrower rows (W = 128, or
-// W / 2 wide) go by 16-byte stores of the strip's two warps, which measured
-// faster there than a bulk copy a 256-byte row (PERF.md).
-__device__ __forceinline__ void save_strip(const bf16* tile, int ld, int cols, bf16* dst, long row0, int nrow) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp & 3;
-  const bool issuer = warp < 4 && lane < 16;
-  if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  if (cols < 256) {
-    strip_sync(wr);
-    const int sh = __ffs(cols / 8) - 1;  // cols / 8 is a power of 2
-    for (int i = (warp >> 2) * 32 + lane; i < 16 << sh; i += 64) {
-      const int t = 16 * wr + (i >> sh), c = (i & ((1 << sh) - 1)) * 8;
-      if (t < nrow)
-        *reinterpret_cast<uint4*>(dst + (row0 + t) * cols + c) = *reinterpret_cast<const uint4*>(tile + t * ld + c);
-    }
-    return;
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  strip_sync(wr);
-  const int t = 16 * wr + lane;
-  if (issuer && t < nrow) {
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-                 ::"l"(dst + (row0 + t) * cols), "r"(smem_u32(tile + t * ld)), "r"(cols * 2)
-                 : "memory");
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  }
-}
-
-// At a kernel's end: the issuing lanes wait for their copies, so that
-// none reads the shared memory of a finished CTA.
-__device__ __forceinline__ void save_drain() {
-  if (threadIdx.x < 128 && (threadIdx.x & 31) < 16) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Column sums over the tile's 64 rows of values held in gemm_core<N>'s
@@ -750,19 +799,20 @@ struct ColBufs {
 // ---------------------------------------------------------------------------
 // The forward's epilogues. Each adds the layer's bias (staged once a CTA in
 // shared memory) to the accumulators in f32 and writes the bf16 result at
-// the fragment's positions of `dst`, the other operand tile (row stride ld):
-// the next GEMM's A (with relu in its registers where the layer has one) and
-// the saved activation that save_strip copies out.
+// the fragment's positions of `dst`, the other operand tile: the next GEMM's
+// A and the saved activation (Save). A tile that the next GEMM reads through
+// a relu holds bf16(relu(v)) (h, n), which is relu(bf16(v)), so the products
+// are the TPU kernel's; the backward's relu masks read only the saved
+// values' sign, and the weight-gradient GEMM's relu on X is idempotent.
 // ---------------------------------------------------------------------------
 
 // The residual stream: h = acc + b (first) or h + (acc + b), kept in f32 at
 // the thread's own fragment positions of hs ([N / 8][NT] float4: column
-// pair j's rows r0 and r0 + 8 at j NT + tid).
+// pair j's rows r0 and r0 + 8 at j NT + tid); relu(h) into dst.
 struct EpiResidual {
   const float* b;
   float4* hs;
   bf16* dst;
-  int ld;
   bool first;
   template <int N>
   __device__ __forceinline__ void run(float* acc) const {
@@ -779,8 +829,8 @@ struct EpiResidual {
         v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
       }
       *p = v;
-      st_bf2(dst + f.r0 * ld + c, v.x, v.y);
-      st_bf2(dst + (f.r0 + 8) * ld + c, v.z, v.w);
+      st_relu_bf2(dst + aoff(f.r0, c), v.x, v.y);
+      st_relu_bf2(dst + aoff(f.r0 + 8, c), v.z, v.w);
     }
   }
 };
@@ -801,15 +851,15 @@ __device__ __forceinline__ void head_rows(float (*s)[HEADS], int r0, float* hp) 
     }
 }
 
-// v = acc + b into dst. With a head (HEADS outputs, weights w [cols][HEADS]
-// in f32): the thread's partial dot products of the rounded values (after
-// relu for the rgb head, HEADS = 3) with w, summed over the quad that shares
-// a row (xor 1, 2) and written per warpgroup and row to hp [2][T][HEADS].
-template <int HEADS>
+// v = acc + b into dst (relu(v) with RELU). With a head (HEADS outputs,
+// weights w [cols][HEADS] in f32): the thread's partial dot products of the
+// rounded values (after relu for the rgb head, HEADS = 3) with w, summed
+// over the quad that shares a row (xor 1, 2) and written per warpgroup and
+// row to hp [2][T][HEADS].
+template <int HEADS, bool RELU = false>
 struct EpiBias {
   const float* b;
   bf16* dst;
-  int ld;
   const float* w;
   float* hp;
   template <int N>
@@ -823,7 +873,7 @@ struct EpiBias {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const __nv_bfloat162 r = __floats2bfloat162_rn(acc[4 * j + 2 * h] + bj.x, acc[4 * j + 2 * h + 1] + bj.y);
-        *reinterpret_cast<__nv_bfloat162*>(dst + (f.r0 + 8 * h) * ld + c) = r;
+        *reinterpret_cast<__nv_bfloat162*>(dst + aoff(f.r0 + 8 * h, c)) = RELU ? relu_bf2(r) : r;
         if constexpr (HEADS > 0) {
           float2 v = __bfloat1622float2(r);
           if constexpr (HEADS == 3) v = make_float2(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f));
@@ -921,16 +971,15 @@ __device__ __forceinline__ void act_release(ActPipe* p, unsigned n, long row0, i
 
 // ---------------------------------------------------------------------------
 // The backward's epilogues. v comes from the accumulators; bf16(v), or of
-// the updated dh, goes to dst (row stride ld): the next GEMM's A and the
-// layer's dY, which save_strip copies out; the column sums go to the CTA's
-// partials.
+// the updated dh, goes to dst (an operand tile): the next GEMM's A and the
+// layer's dY (Save); the column sums go to the CTA's partials.
 //   DY:     v = acc (dfeat)                               sums of v -> out
 //   DHO:    v = acc + dalpha w_a (dho)                     sums of v -> out,
 //           and of ho dalpha (dW_a) -> out2
 //   MASKED: v = acc (act > 0): the dn of a block, or with dh the residual
 //           dh = (first ? 0 : dh) + v                      sums of v (dh) -> out
-// act is the prefetched tile (load `load` of pipe): the relu mask, or ho for
-// DHO.
+// act is the prefetched tile (load `load` of pipe, row stride ld): the relu
+// mask, or ho for DHO.
 // The masked layers share one instance (the residual chosen at run time),
 // so that the GEMM and epilogue code of the blocks' layers stays one.
 // dh holds the thread's 4 values of each column pair j (rows r0, r0 + 8)
@@ -1010,7 +1059,7 @@ struct EpiBwd {
         }
       }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) st_bf2(dst + (f.r0 + 8 * h) * ld + c, v[2 * h], v[2 * h + 1]);
+      for (int h = 0; h < 2; ++h) st_bf2(dst + aoff(f.r0 + 8 * h, c), v[2 * h], v[2 * h + 1]);
       s[2 * j] = v[0] + v[2];
       s[2 * j + 1] = v[1] + v[3];
     }
@@ -1029,7 +1078,8 @@ struct EpiBwd {
 // the next two GEMMs and the views layer's dY), b_v = its column sums, dW_r
 // = relu(hv_in)^T drgb (three column sums), and b_a, b_r = the cotangent's
 // sums (warps 0 and 1, a shuffle tree into red [2][4]). hv is the
-// prefetched hv_in tile (load 0 of pipe); rows past the batch count as zero.
+// prefetched hv_in tile (load 0 of pipe, row stride ld); rows past the
+// batch count as zero.
 template <int N>
 __device__ __forceinline__ void bwd_rgb_head(bf16* hv, int ld, unsigned long long* full, ActPipe* pipe, long row0,
                                              const float* gs, const bf16* wr, int nrow, bf16* dst,
@@ -1078,7 +1128,7 @@ __device__ __forceinline__ void bwd_rgb_head(bf16* hv, int ld, unsigned long lon
 #pragma unroll
         for (int q = 0; q < 3; ++q) sr[q][2 * j + e] = (h ? sr[q][2 * j + e] : 0.f) + rx * g[h][q];
       }
-      st_bf2(dst + r * ld + c, v[0], v[1]);
+      st_bf2(dst + aoff(r, c), v[0], v[1]);
     }
   }
   act_release(pipe, 0, row0, nrow, hv, ld, full);
@@ -1134,25 +1184,32 @@ __host__ __device__ inline FwdVecs fwd_vecs(int W, int nb) {
 constexpr int RED = 8 * 12 + 2 * 4;  // the backward's reductions: pose terms a warp, the cotangent's sums
 
 // Shared memory of the kernels at width W, region by region (the kernels
-// carve it in this order; every region is a multiple of 16 bytes, so the
-// Ring at the end is aligned). Forward: h [W/16][NT] float4 (f32, each
-// thread's fragment positions), two bf16 operand tiles [T][W+8], the
-// direction encoding [T][LDE], the weight ring, the warped points [T][6],
+// carve it in this order from a 1,024-byte aligned start, for the swizzled
+// operand tiles; every region is a multiple of 16 bytes, so the Ring at the
+// end is aligned). Forward: h [W/16][NT] float4 (f32, each
+// thread's fragment positions), two bf16 operand tiles [T][W], the
+// direction encoding's tile [T][EW], the weight ring, the warped points [T][6],
 // the staged vectors (fwd_vecs for MAXB blocks), the heads' partials
 // [2][T][1 + 3]. Backward: dh [W/16][NT] float4 (the narrow f32 results
-// [T][<= XW + 8] in its place before and after dh lives), two operand tiles,
-// the prefetched activation tile [T][W+8], the weight ring, the warped x,
+// [T][<= XW + 8] in its place before and after dh lives), two operand tiles
+// [T][W], the prefetched activation tile [T][W+8] (row-major, padded), the
+// weight ring, the warped x,
 // d [T][6], the cotangent [T][4], the world-frame d grads [T][3], two
 // column-sum buffers [2][4][W], w_a [W] and w_r [W2][3] in bf16, the
 // reductions [RED], the prefetch's mbarrier (two words) and its loads
 // (ActPipe).
+// The kernels' dynamic shared memory from its first 1,024-byte boundary.
+__device__ __forceinline__ unsigned char* smem_base(unsigned char* smem) {
+  return smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+}
+
 size_t fwd_smem(int W) {
-  return sizeof(float) * T * W + sizeof(bf16) * (2 * T * (W + 8) + T * LDE + NSLOT * KC * W) +
+  return 1024 + sizeof(float) * T * W + sizeof(bf16) * (2 * T * W + T * EW + NSLOT * KC * W) +
          sizeof(float) * (T * 6 + fwd_vecs(W, MAXB).total + 2 * T * 4) + sizeof(Ring);
 }
 
 size_t bwd_smem(int W) {
-  return sizeof(float) * T * W + sizeof(bf16) * (3 * T * (W + 8) + NSLOT * KC * W) +
+  return 1024 + sizeof(float) * T * W + sizeof(bf16) * (2 * T * W + T * (W + 8) + NSLOT * KC * W) +
          sizeof(float) * (T * (6 + 4 + 3) + 8 * W) + sizeof(bf16) * (W + 3 * (W / 2)) +
          sizeof(float) * RED + 2 * sizeof(unsigned long long) + sizeof(ActPipe) + sizeof(Ring);
 }
@@ -1180,8 +1237,15 @@ __device__ __forceinline__ void load_points(const float* x, const float* d, cons
   }
 }
 
+// Where (row t, column j) of a bf16 tile sits: an operand tile (CORE), or a
+// row-major array of row stride ld.
+template <bool CORE>
+__device__ __forceinline__ bf16* tile_at(bf16* p, int ld, int t, int j) {
+  return CORE ? p + aoff(t, j) : p + t * ld + j;
+}
+
 // A tile's encoding of v (three values a point at v + 6 t) into dst [T][ld]
-// bf16, columns [0, EW) in the ops.encoding layout (column 3 + 6 freq + 3
+// bf16 (an operand tile with CORE), columns [0, EW) in the ops.encoding layout (column 3 + 6 freq + 3
 // phase + dim is sin (phase 0) or cos (phase 1) of v[dim] 2^freq; 0 past
 // 3 + 6F), each times mask[column] when a mask is given. Four threads a
 // point (point tid / 4): thread q of the four writes identity column q < 3,
@@ -1190,13 +1254,13 @@ __device__ __forceinline__ void load_points(const float* x, const float* d, cons
 // t < nrow only (dst may be a global row stride).
 static_assert(NT == 4 * T, "encode_tile and pe_bwd take four threads a point");
 
+template <bool CORE>
 __device__ __forceinline__ void encode_tile(const float* v, int F, const float* mask, bf16* dst, int ld,
                                             int nrow) {
   const int t = threadIdx.x >> 2, q = threadIdx.x & 3;
   if (t >= nrow) return;
   const float* p = v + t * 6;
-  bf16* row = dst + t * ld;
-  if (q < 3) row[q] = __float2bfloat16(mask ? p[q] * mask[q] : p[q]);
+  if (q < 3) *tile_at<CORE>(dst, ld, t, q) = __float2bfloat16(mask ? p[q] * mask[q] : p[q]);
   for (int k = q; k < 3 * F; k += 4) {
     const int freq = k / 3, dim = k - 3 * freq, js = 3 + 6 * freq + dim;
     float sn, cn;
@@ -1205,23 +1269,25 @@ __device__ __forceinline__ void encode_tile(const float* v, int F, const float* 
       sn *= mask[js];
       cn *= mask[js + 3];
     }
-    row[js] = __float2bfloat16(sn);
-    row[js + 3] = __float2bfloat16(cn);
+    *tile_at<CORE>(dst, ld, t, js) = __float2bfloat16(sn);
+    *tile_at<CORE>(dst, ld, t, js + 3) = __float2bfloat16(cn);
   }
-  for (int j = 3 + 6 * F + q; j < EW; j += 4) row[j] = __float2bfloat16(0.f);
+  for (int j = 3 + 6 * F + q; j < EW; j += 4) *tile_at<CORE>(dst, ld, t, j) = __float2bfloat16(0.f);
 }
 
 // Copies a tile of pre-encoded features, rounded to bf16, into dst [T][ld]
-// (ld may be a global row stride): dst[t][j] = src[row0 + t][j] for j < cols
+// (an operand tile with CORE, else ld may be a global row stride):
+// dst[t][j] = src[row0 + t][j] for j < cols
 // (the row stride of src), 0 for cols <= j < width and past the batch; rows
 // past the batch are left out when skip_tail is set.
+template <bool CORE>
 __device__ __forceinline__ void stage_encoded(const float* src, int cols, int width, int n, long row0,
                                               bf16* dst, int ld, bool skip_tail) {
   for (int i = threadIdx.x; i < T * width; i += NT) {
     const int t = i / width, j = i - t * width;
     const long p = row0 + t;
     if (skip_tail && p >= n) continue;
-    dst[t * ld + j] = __float2bfloat16(p < n && j < cols ? src[p * cols + j] : 0.f);
+    *tile_at<CORE>(dst, ld, t, j) = __float2bfloat16(p < n && j < cols ? src[p * cols + j] : 0.f);
   }
 }
 
@@ -1274,30 +1340,26 @@ __device__ __forceinline__ void swap_ptr(X*& a, X*& b) {
 // the forward.) ENC selects the pre-encoded input mode (see the header).
 //
 // Each layer: the GEMM on the operand tile `cur`, its epilogue writing the
-// next operand into `nxt`, then save_strip (the strip's barrier and the
-// saved activation's copy); the tiles swap. One barrier a layer orders both
-// hazards of a strip: its rows of nxt are complete before the next GEMM
-// reads them, and the partner warp has finished reading a tile before it is
-// written again two layers on.
+// next operand into `nxt`, then tile_sync; the tiles swap, and nxt is copied
+// to its saved activation while the next GEMM's first chunks run (Save).
 template <bool STACKED, bool ENC>
-__global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts all_act, float* out) {
+__global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, float* out,
+                                                     const __grid_constant__ TileMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int W = all_in.width, W2 = W / 2, LDA = W + 8, k = STACKED ? blockIdx.y : 0;
+  const int W = all_in.width, W2 = W / 2, k = STACKED ? blockIdx.y : 0;
   const Inputs in_k = field_inputs<ENC>(all_in, k);
   const Net w_k = field_net<ENC>(net, k, W);
-  const Acts act_k = field_acts(all_act, k, all_in.n, W);
   const Inputs& in = STACKED ? in_k : all_in;
   const Net& w = STACKED ? w_k : net;
-  const Acts& act = STACKED ? act_k : all_act;
   const FieldOff f = field_off(k, in.n, W);
   const int nb = in.n_blocks;
   const FwdVecs vo = fwd_vecs(W, nb);
   out += (size_t)k * in.n * 4;
-  float4* hs = reinterpret_cast<float4*>(smem);          // [W/16][NT] residual stream h (f32)
-  bf16* as0 = reinterpret_cast<bf16*>(hs + T * W / 4);   // [T][LDA] bf16 operand tiles, two
-  bf16* as1 = as0 + T * LDA;
-  bf16* es = as1 + T * LDA;                              // [T][LDE] direction encoding
-  bf16* bs = es + T * LDE;                               // [NSLOT][KC * W] weight ring
+  float4* hs = reinterpret_cast<float4*>(smem_base(smem));  // [W/16][NT] residual stream h (f32)
+  bf16* as0 = reinterpret_cast<bf16*>(hs + T * W / 4);   // [T][W] bf16 operand tiles, two
+  bf16* as1 = as0 + T * W;
+  bf16* es = as1 + T * W;                                // [T][EW] direction encoding
+  bf16* bs = es + T * EW;                                // [NSLOT][KC * W] weight ring
   float* ps = reinterpret_cast<float*>(bs + NSLOT * KC * W);  // [T][6] warped x, d
   float* vec = ps + T * 6;                               // fwd_vecs
   float* hp = vec + fwd_vecs(W, MAXB).total;             // [2][T] alpha, [2][T][3] rgb partials
@@ -1318,7 +1380,6 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
     ring_add(ring, w.wv_bot, EW, W2);
     ring_start(ring);
   }
-  Feed feed = {ring, 0};
   stage_async(vec + vo.b_in, w.b_in, W);  // completed before the barrier after the encoding
   for (int b = 0; b < nb; ++b) {
     stage_async(vec + vo.b_blk + 2 * W * b, net.b0[b] + f.b, W);
@@ -1329,56 +1390,63 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
   stage_async(vec + vo.b_v, w.b_v, W2);
 
   if constexpr (ENC) {
-    stage_encoded(in.x, in.fx, XW, in.n, row0, as0, LDA, false);
-    stage_encoded(in.d, in.fd, EW, in.n, row0, es, LDE, false);
+    stage_encoded<true>(in.x, in.fx, XW, in.n, row0, as0, 0, false);
+    stage_encoded<true>(in.d, in.fd, EW, in.n, row0, es, 0, false);
   } else {
     load_points(in.x, in.d, in.warp, in.n, row0, nullptr, ps);
     __syncthreads();
-    encode_tile(ps, in.fx, in.mask_x, as0, LDA, T);
-    encode_tile(ps + 3, in.fd, in.mask_d, es, LDE, T);
+    encode_tile<true>(ps, in.fx, in.mask_x, as0, 0, T);
+    encode_tile<true>(ps + 3, in.fd, in.mask_d, es, 0, T);
   }
   stage_bf16(vec + vo.w_a, w.w_a, W);
   stage_bf16(vec + vo.w_r, w.w_r, 3 * W2);
   stage_f32(vec + vo.b_a, w.b_a, 1);
   stage_f32(vec + vo.b_r, w.b_r, 3);
   stage_wait();
-  __syncthreads();  // the encodings and the staged vectors, read across row strips
+  tile_sync();  // the encodings, the staged vectors and the ring's stream
+  Feed feed = feed_start(ring);
 
   bf16 *cur = as0, *nxt = as1;
+  Save sv = {};  // the last epilogue's output and its saved activation
   {
-    const Seg s = {cur, LDA, in_rows<ENC>(), false};
-    tile_gemm<128, 64>(&s, 1, W, feed, EpiResidual{vec + vo.b_in, hs, nxt, LDA, true});
-    save_strip(nxt, LDA, W, nb > 0 ? all_act.h[0] + f.act : act.h_last, row0, nrow);
+    const Seg s = {cur, in_rows<ENC>()};
+    tile_gemm<128, 64>(&s, 1, W, feed, EpiResidual{vec + vo.b_in, hs, nxt, true}, sv);
+    tile_sync();
+    sv = {nxt, &maps.m[0], (int)row0, k, W / 64};  // h of block 0, or h_last
     swap_ptr(cur, nxt);
   }
   for (int b = 0; b < nb; ++b) {
-    const Seg s0 = {cur, LDA, W, true};  // n = relu(h) W0 + b0
-    tile_gemm<128, 64>(&s0, 1, W, feed, EpiBias<0>{vec + vo.b_blk + 2 * W * b, nxt, LDA, nullptr, nullptr});
-    save_strip(nxt, LDA, W, all_act.nn[b] + f.act, row0, nrow);
+    const Seg s0 = {cur, W};  // n = relu(h) W0 + b0
+    tile_gemm<128, 64>(&s0, 1, W, feed, EpiBias<0, true>{vec + vo.b_blk + 2 * W * b, nxt, nullptr, nullptr}, sv);
+    tile_sync();
+    sv = {nxt, &maps.m[2 * b + 1], (int)row0, k, W / 64};
     swap_ptr(cur, nxt);
-    const Seg s1 = {cur, LDA, W, true};  // h = h + (relu(n) W1 + b1)
-    tile_gemm<128, 64>(&s1, 1, W, feed, EpiResidual{vec + vo.b_blk + 2 * W * b + W, hs, nxt, LDA, false});
-    save_strip(nxt, LDA, W, b + 1 < nb ? all_act.h[b + 1] + f.act : act.h_last, row0, nrow);
-    swap_ptr(cur, nxt);
-  }
-  {
-    const Seg s = {cur, LDA, W, true};  // ho = relu(h) W_out + b_out; alpha = ho w_a
-    tile_gemm<128, 64>(&s, 1, W, feed, EpiBias<1>{vec + vo.b_out, nxt, LDA, vec + vo.w_a, hp});
-    save_strip(nxt, LDA, W, act.ho, row0, nrow);
+    const Seg s1 = {cur, W};  // h = h + (relu(n) W1 + b1)
+    tile_gemm<128, 64>(&s1, 1, W, feed, EpiResidual{vec + vo.b_blk + 2 * W * b + W, hs, nxt, false}, sv);
+    tile_sync();
+    sv = {nxt, &maps.m[2 * b + 2], (int)row0, k, W / 64};  // h of block b + 1, or h_last
     swap_ptr(cur, nxt);
   }
   {
-    const Seg s = {cur, LDA, W, false};  // feat = ho W_f + b_f
-    tile_gemm<128, 64>(&s, 1, W, feed, EpiBias<0>{vec + vo.b_f, nxt, LDA, nullptr, nullptr});
-    save_strip(nxt, LDA, W, act.feat, row0, nrow);
+    const Seg s = {cur, W};  // ho = relu(h) W_out + b_out; alpha = ho w_a
+    tile_gemm<128, 64>(&s, 1, W, feed, EpiBias<1>{vec + vo.b_out, nxt, vec + vo.w_a, hp}, sv);
+    tile_sync();
+    sv = {nxt, &maps.m[2 * nb + 1], (int)row0, k, W / 64};
     swap_ptr(cur, nxt);
   }
   {
-    const Seg s[2] = {{cur, LDA, W, false}, {es, LDE, EW, false}};  // hv_in; rgb = relu(hv_in) w_r
-    tile_gemm<64, 32>(s, 2, W2, feed, EpiBias<3>{vec + vo.b_v, nxt, LDA, vec + vo.w_r, hp + 2 * T});
-    save_strip(nxt, LDA, W2, act.hv_in, row0, nrow);
+    const Seg s = {cur, W};  // feat = ho W_f + b_f
+    tile_gemm<128, 64>(&s, 1, W, feed, EpiBias<0>{vec + vo.b_f, nxt, nullptr, nullptr}, sv);
+    tile_sync();
+    sv = {nxt, &maps.m[2 * nb + 2], (int)row0, k, W / 64};
+    swap_ptr(cur, nxt);
   }
-  __syncthreads();  // the heads' partials of both warpgroups
+  {
+    const Seg s[2] = {{cur, W}, {es, EW}};  // hv_in; rgb = relu(hv_in) w_r
+    tile_gemm<64, 32>(s, 2, W2, feed, EpiBias<3>{vec + vo.b_v, nxt, vec + vo.w_r, hp + 2 * T}, sv);
+  }
+  tile_sync();  // the heads' partials of both warpgroups, and hv_in for its tensor copies
+  Save{nxt, &maps.m[2 * nb + 3], (int)row0, k, W2 / 64}.run();
   if (tid < nrow) {  // out = (alpha, rgb) + their biases
     const float* al = hp;
     const float* rg = hp + 2 * T;
@@ -1388,16 +1456,16 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, Acts
                     (rg[tid * 3 + 2] + rg[(T + tid) * 3 + 2]) + vec[vo.b_r + 2]);
   }
   save_drain();
-  if (tid == 0) ring_drain(ring, feed.g);
 }
 
 // As fwd_kernel, walking the chain backward: each GEMM's epilogue applies
 // the relu mask from the saved activation prefetched into shared memory
-// while the GEMM ran (ActPipe), writes the layer's dY to the
-// other operand tile and sums its columns from registers.
+// while the GEMM ran (ActPipe), writes the layer's dY to the other operand
+// tile and sums its columns from registers; the dY leaves for global memory
+// while the next wide GEMM's first chunks run (Save).
 template <bool STACKED, bool ENC>
 __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts all_act, const float* g,
-                                                     Grads all_gr) {
+                                                     Grads all_gr, const __grid_constant__ TileMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int W = all_in.width, W2 = W / 2, LDA = W + 8, nb = all_in.n_blocks;
   const int k = STACKED ? blockIdx.y : 0;
@@ -1414,10 +1482,10 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   const FieldOff f = field_off(k, in.n, W);
   g += (size_t)k * in.n * 4;
   // [W/16][NT] float4: the residual grad dh (f32); before and after dh, the narrow results
-  float* dhs = reinterpret_cast<float*>(smem);
-  bf16* as0 = reinterpret_cast<bf16*>(dhs + T * W);      // [T][LDA] bf16 operand tiles, two
-  bf16* as1 = as0 + T * LDA;
-  bf16* acts = as1 + T * LDA;                            // [T][LDA] the prefetched saved activation
+  float* dhs = reinterpret_cast<float*>(smem_base(smem));
+  bf16* as0 = reinterpret_cast<bf16*>(dhs + T * W);      // [T][W] bf16 operand tiles, two
+  bf16* as1 = as0 + T * W;
+  bf16* acts = as1 + T * W;                              // [T][LDA] the prefetched saved activation
   bf16* bs = acts + T * LDA;                             // [NSLOT][KC * W] weight ring
   float* ps = reinterpret_cast<float*>(bs + NSLOT * KC * W);  // [T][6] warped x, d
   float* gs = ps + T * 6;                                // [T][4] cotangent
@@ -1457,7 +1525,6 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(abar)) : "memory");
     ring_start(ring);
   }
-  Feed feed = {ring, 0};
   if (warp == 0) {
     __syncwarp();
     act_issue(pipe, 0, row0, nrow, acts, LDA, abar);
@@ -1471,13 +1538,14 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   stage_async_bf16(wr, w.w_r, 3 * W2);
   stage_wait();
   __syncthreads();
+  Feed feed = feed_start(ring);
   // encodings: the X of lin_in and Wv_bot
   if constexpr (ENC) {
-    stage_encoded(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * XW, XW, true);
-    stage_encoded(in.d, in.fd, EW, in.n, row0, gr.de + row0 * EW, EW, true);
+    stage_encoded<false>(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * XW, XW, true);
+    stage_encoded<false>(in.d, in.fd, EW, in.n, row0, gr.de + row0 * EW, EW, true);
   } else {
-    encode_tile(ps, in.fx, in.mask_x, gr.xe + row0 * EW, EW, nrow);
-    encode_tile(ps + 3, in.fd, in.mask_d, gr.de + row0 * EW, EW, nrow);
+    encode_tile<false>(ps, in.fx, in.mask_x, gr.xe + row0 * EW, EW, nrow);
+    encode_tile<false>(ps + 3, in.fd, in.mask_d, gr.de + row0 * EW, EW, nrow);
   }
 
   // rgb head: dhv = drgb @ W_r^T, dhv_in = dhv * (hv_in > 0), into as0
@@ -1485,11 +1553,15 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
     bwd_rgb_head<64>(acts, LDA, abar, pipe, row0, gs, wr, nrow, as0, cbs, red, part, o);
   else
     bwd_rgb_head<32>(acts, LDA, abar, pipe, row0, gs, wr, nrow, as0, cbs, red, part, o);
-  save_strip(as0, LDA, W2, gr.d_v, row0, nrow);
+  tile_sync();
+  // The last epilogue's output and its dY, stored during the next wide GEMM
+  // (dfeat also reads as0): the narrow GEMMs' short chunks would queue their
+  // weight copies behind the tensor copies.
+  Save sv = {as0, &maps.m[2 * nb + 3], (int)row0, k, W2 / 64};
 
   if (warped || in_grads) {  // dd_emb = dhv_in @ Wv_bot^T -> mask -> encoding backward -> M^T
-    const Seg s = {as0, LDA, W2, false};
-    gemm_core<EW / 2>(&s, 1, feed, EpiF32{dhs, EW + 8});
+    const Seg s = {as0, W2};
+    gemm_core<EW / 2>(&s, 1, feed, EpiF32{dhs, EW + 8}, Save{});
     __syncthreads();
     if constexpr (ENC) {  // dd_emb is the input grad
       for (int i = tid; i < T * in.fd; i += NT) {
@@ -1512,58 +1584,63 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   // Each layer's epilogue, as EpiBwd's members: its dY tile, the prefetched
   // tile, its load, the residual dh, the column-sum buffers and outputs.
   {  // dfeat = dhv_in @ Wv_top^T
-    const Seg s = {as0, LDA, W2, false};
+    const Seg s = {as0, W2};
     const EpiBwd<BW_DY> e = {as1, LDA, nullptr, abar, pipe, 0, row0, nullptr, false, gs, wa, nrow,
                              cbs.next(), nullptr, W, part + o.b_f, nullptr};
-    tile_gemm<128, 64>(&s, 1, W, feed, e);
-    save_strip(as1, LDA, W, gr.d_f, row0, nrow);
+    tile_gemm<128, 64>(&s, 1, W, feed, e, sv);
+    tile_sync();
+    sv = {as1, &maps.m[2 * nb + 2], (int)row0, k, W / 64};
   }
   {  // dho = dfeat @ W_f^T + dalpha W_a^T; dW_a = ho^T dalpha
-    const Seg s = {as1, LDA, W, false};
+    const Seg s = {as1, W};
     float* cb = cbs.next();
     const EpiBwd<BW_DHO> e = {as0, LDA, acts, abar, pipe, loads++, row0, nullptr, false, gs, wa, nrow,
                               cb, cbs.next(), W, part + o.b_out, part + o.w_a};
-    tile_gemm<128, 64>(&s, 1, W, feed, e);
-    save_strip(as0, LDA, W, gr.d_out, row0, nrow);
+    tile_gemm<128, 64>(&s, 1, W, feed, e, sv);
+    tile_sync();
+    sv = {as0, &maps.m[2 * nb + 1], (int)row0, k, W / 64};
   }
   float4* dh = reinterpret_cast<float4*>(dhs);
   bf16 *cur = as0, *nxt = as1;
   {  // dr = dho @ W_out^T, dh = dr * (h_last > 0): the dY of the last fc1 (or of lin_in)
-    const Seg s = {cur, LDA, W, false};
+    const Seg s = {cur, W};
     const EpiBwd<BW_MASKED> e = {nxt, LDA, acts, abar, pipe, loads++, row0, dh, true, gs, wa, nrow,
                                  cbs.next(), nullptr, W,
                                  part + (nb > 0 ? o.b_blocks + 2 * W * (nb - 1) + W : o.b_in), nullptr};
-    tile_gemm<128, 64>(&s, 1, W, feed, e);
-    save_strip(nxt, LDA, W, nb > 0 ? all_gr.d1[nb - 1] + f.act : gr.d_in, row0, nrow);
+    tile_gemm<128, 64>(&s, 1, W, feed, e, sv);
+    tile_sync();
+    sv = {nxt, &maps.m[2 * nb], (int)row0, k, W / 64};  // the dY of the last fc1, or of lin_in
     swap_ptr(cur, nxt);
   }
   for (int b = nb - 1; b >= 0; --b) {
     {  // dn = (dh @ W1^T) * (n > 0)
-      const Seg s = {cur, LDA, W, false};
+      const Seg s = {cur, W};
       const EpiBwd<BW_MASKED> e = {nxt, LDA, acts, abar, pipe, loads++, row0, nullptr, false, gs, wa, nrow,
                                    cbs.next(), nullptr, W, part + o.b_blocks + 2 * W * b, nullptr};
-      tile_gemm<128, 64>(&s, 1, W, feed, e);
-      save_strip(nxt, LDA, W, all_gr.d0[b] + f.act, row0, nrow);
+      tile_gemm<128, 64>(&s, 1, W, feed, e, sv);
+      tile_sync();
+      sv = {nxt, &maps.m[2 * b + 1], (int)row0, k, W / 64};
       swap_ptr(cur, nxt);
     }
     {  // dh += (dn @ W0^T) * (h_in > 0): the dY of the previous fc1 (or of lin_in)
-      const Seg s = {cur, LDA, W, false};
+      const Seg s = {cur, W};
       const EpiBwd<BW_MASKED> e = {nxt, LDA, acts, abar, pipe, loads++, row0, dh, false, gs, wa, nrow,
                                    cbs.next(), nullptr, W,
                                    part + (b > 0 ? o.b_blocks + 2 * W * (b - 1) + W : o.b_in), nullptr};
-      tile_gemm<128, 64>(&s, 1, W, feed, e);
-      save_strip(nxt, LDA, W, b > 0 ? all_gr.d1[b - 1] + f.act : gr.d_in, row0, nrow);
+      tile_gemm<128, 64>(&s, 1, W, feed, e, sv);
+      tile_sync();
+      sv = {nxt, &maps.m[2 * b], (int)row0, k, W / 64};  // the dY of fc1 of block b - 1, or of lin_in
       swap_ptr(cur, nxt);
     }
   }
 
   // dx_emb = dh @ W_in^T -> mask -> encoding backward -> M^T -> dx, or the pose sums
   const bool pose_sums = warped && !in_grads;
-  if (warped || in_grads) {
+  if (warped || in_grads) {  // dh is read (the tile_sync above); the narrow result takes its place
     constexpr int LDN = in_rows<ENC>() + 8;
-    __syncthreads();  // dh is read; the narrow result takes its place
-    const Seg s = {cur, LDA, W, false};
-    gemm_core<in_rows<ENC>() / 2>(&s, 1, feed, EpiF32{dhs, LDN});
+    const Seg s = {cur, W};
+    gemm_core<in_rows<ENC>() / 2>(&s, 1, feed, EpiF32{dhs, LDN}, Save{});
+    sv.run();  // after the narrow GEMM
     __syncthreads();
     if constexpr (ENC) {  // dx_emb is the input grad
       for (int i = tid; i < T * in.fx; i += NT) {
@@ -1603,6 +1680,8 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
       }
     }
     __syncthreads();
+  } else {
+    sv.run();  // no GEMM follows
   }
   if (tid < 12) {  // the warps' pose sums, in warp order
     float s = 0.f;
@@ -1611,7 +1690,6 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
     part[o.pose + tid] = s;
   }
   save_drain();
-  if (tid == 0) ring_drain(ring, feed.g);
 }
 
 // ---------------------------------------------------------------------------
@@ -1770,14 +1848,6 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float* d, const uint32_t* a, ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-
-// Shared-memory descriptor of an MN-major operand in 128-byte swizzled
-// tiles: the next 64 columns (the next tile) at lbo bytes, the next 8 rows
-// along K at sbo bytes.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, int lbo, int sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
 
 __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, int col, int row, uint32_t bar) {
   asm volatile(
@@ -2017,6 +2087,28 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The tensor map of one destination of Save: rows [fields, n, cols] bf16,
+// boxes of 64 columns x T rows of one field, 128-byte swizzled like the
+// operand tiles' panels. False where cuTensorMapEncodeTiled refuses it.
+bool encode_rows(CUtensorMap* map, const bf16* p, int cols, int n, int fields) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)n, (cuuint64_t)fields};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16), (cuuint64_t)n * cols * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, T, 1}, one[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(p), dims, strides, box, one,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps of a kernel's saved rows, dst[i] of cols[i] columns (TileMaps'
+// order); none without points.
+bool encode_saves(TileMaps& maps, bf16* const* dst, const int* cols, int count, const Inputs& in) {
+  for (int i = 0; i < count && in.n > 0; ++i)
+    if (!encode_rows(&maps.m[i], dst[i], cols[i], in.n, in.fields)) return false;
+  return true;
+}
+
 // The pre-encoded mode takes no warp or mask, and encoded widths within the
 // padded ones.
 bool enc_inputs_ok(const Inputs& in) {
@@ -2060,6 +2152,14 @@ int stx_fused_fwd(void** ptrs, const int* ints, void* stream) {
   float* out = cur.next<float>();
   const bool enc = ints[6] != 0;
   if (enc && !enc_inputs_ok(in)) return (int)cudaErrorInvalidValue;
+  const int nb = in.n_blocks, W = in.width;
+  bf16* dst[MAXSAVE];
+  int cols[MAXSAVE];
+  for (int b = 0; b < nb; ++b) { dst[2 * b] = act.h[b]; dst[2 * b + 1] = act.nn[b]; }
+  dst[2 * nb] = act.h_last; dst[2 * nb + 1] = act.ho; dst[2 * nb + 2] = act.feat; dst[2 * nb + 3] = act.hv_in;
+  for (int i = 0; i < 2 * nb + 4; ++i) cols[i] = i == 2 * nb + 3 ? W / 2 : W;
+  TileMaps maps;
+  if (!encode_saves(maps, dst, cols, 2 * nb + 4, in)) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem(in.width);
   const auto kernel = in.fields > 1 ? (enc ? fwd_kernel<true, true> : fwd_kernel<true, false>)
                                      : (enc ? fwd_kernel<false, true> : fwd_kernel<false, false>);
@@ -2067,7 +2167,7 @@ int stx_fused_fwd(void** ptrs, const int* ints, void* stream) {
   const cudaError_t e = allow_smem(kernel, smem, allowed[2 * (in.fields > 1) + enc]);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((in.n + T - 1) / T, in.fields);
-  if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, out);
+  if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, out, maps);
   return (int)cudaGetLastError();
 }
 
@@ -2089,6 +2189,15 @@ int stx_fused_bwd(void** ptrs, const int* ints, void* stream) {
   if ((gr.dx == nullptr) != (gr.dd == nullptr)) return (int)cudaErrorInvalidValue;
   const bool enc = ints[6] != 0;
   if (enc && !enc_inputs_ok(in)) return (int)cudaErrorInvalidValue;
+  const int nb = in.n_blocks, W = in.width;
+  bf16* dst[MAXSAVE];
+  int cols[MAXSAVE];
+  dst[0] = gr.d_in;
+  for (int b = 0; b < nb; ++b) { dst[2 * b + 1] = gr.d0[b]; dst[2 * b + 2] = gr.d1[b]; }
+  dst[2 * nb + 1] = gr.d_out; dst[2 * nb + 2] = gr.d_f; dst[2 * nb + 3] = gr.d_v;
+  for (int i = 0; i < 2 * nb + 4; ++i) cols[i] = i == 2 * nb + 3 ? W / 2 : W;
+  TileMaps maps;
+  if (!encode_saves(maps, dst, cols, 2 * nb + 4, in)) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem(in.width);
   const auto kernel = in.fields > 1 ? (enc ? bwd_kernel<true, true> : bwd_kernel<true, false>)
                                      : (enc ? bwd_kernel<false, true> : bwd_kernel<false, false>);
@@ -2096,7 +2205,7 @@ int stx_fused_bwd(void** ptrs, const int* ints, void* stream) {
   const cudaError_t e = allow_smem(kernel, smem, allowed[2 * (in.fields > 1) + enc]);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((in.n + T - 1) / T, in.fields);
-  if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, g, gr);
+  if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, g, gr, maps);
   return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,8 @@ outliers) and 2e-2 in rms, the per-ray pose grads within 1e-2 in rms.
 """
 
 import dataclasses
+import json
+import os
 
 import pytest
 import torch
@@ -473,6 +475,128 @@ def test_kernels_match_plain_at_the_epilogues_edges(card, instance, width, depth
         if instance == "field_axis_pre_encoded":
             bad = [k for k in bad if k != "w"]
         assert not bad, errs
+
+
+# The GEMM core's cases: every instance at the flagship depth (4 blocks),
+# both widths, one point, a partial tile, one tile, a ragged second tile and
+# a ragged end, trained (saved activations, a backward) or forward only.
+CORE_INSTANCES = ("static", "warped", "field_axis", "pre_encoded", "field_axis_pre_encoded")
+CORE_N = (1, 63, 64, 65, 3000)
+CORE_DIGESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                            "fused_mlp_core_digests.json")
+
+
+def core_case_key(instance, width, n, save):
+    return f"{instance} {width} n={n} {'train' if save else 'no_save'}"
+
+
+def core_case(instance, width, n, save):
+    """One forward (and with save, one backward) call of the fused kernels
+    at 8 layers: {"out": [the outputs], "weights": [the weight and bias
+    grads], "inputs": [the pose grad and the points' and directions' grads
+    where the instance has them]}, of the cotangent parity.compare uses.
+    The instances, each with its own weight stream: "static" (one field, raw
+    points, no warp: no narrow GEMMs in the backward), "warped" (a warp,
+    BARF masks, the pose sums), "field_axis" (K = 2 fields on points made
+    from per-ray poses, input grads), "pre_encoded" (84 point columns: a
+    three-chunk lin_in, input grads) and "field_axis_pre_encoded". Without
+    save, the forward runs under no_grad and saves nothing."""
+    seed = 40 + n % 7
+    kw, extra = {"pe": PE}, []
+    if instance in ("static", "warped"):
+        cfg, params, x, d = _setup(seed, width, 8, n)
+        if instance == "warped":
+            pose = _unit_pose(torch.device("cuda"))
+            kw.update(warp=pack_warp(pose), pe_masks=tuple(
+                tfused.pe_mask_row(barf_weights(37, 100, f, device="cuda"), f) for f in PE))
+            extra = [pose]
+    elif instance == "field_axis":
+        cfg, params, x, d, pose = _stacked_setup(width, seed, n_rays=n, n_samples=1, depth=8)
+        kw["stacked"], extra = True, [x, d, pose]
+    else:
+        kw = {"pe": None}
+        if instance == "pre_encoded":
+            cfg, params, x, d = _enc_setup(width, seed, 4, 8, n)
+        else:
+            cfg, params, x, d = _stacked_enc_setup(width, seed, depth=8, n=n)
+            kw["stacked"] = True
+        extra = [x.requires_grad_(True), d.requires_grad_(True)]
+    stacked = kw.pop("stacked", False)
+    apply = tfused.fused_stacked_apply if stacked else tfused.fused_field_apply
+
+    def run():
+        a, r = apply(params, x, d, cfg.n_blocks, **kw)
+        return torch.cat([a[..., None], r], -1)
+
+    if not save:
+        with torch.no_grad():
+            return {"out": [run()]}
+    out = run()
+    weights = list(tfused.flatten_params(params, cfg.n_blocks))
+    cot = torch.cat([torch.cos(out[..., :1]), 2.0 * out[..., 1:]], -1).detach()
+    g = torch.autograd.grad(out, weights + extra, cot)
+    return {"out": [out.detach()], "weights": list(g[:len(weights)]),
+            "inputs": list(g[len(weights):])}
+
+
+def core_digests(instance, width, n, save):
+    """core_case's tensors -> a sha256 of each group's bytes (with each
+    tensor's dtype and shape)."""
+    import hashlib
+
+    out = {}
+    for name, tensors in core_case(instance, width, n, save).items():
+        h = hashlib.sha256()
+        for t in tensors:
+            t = t.detach().contiguous().cpu()
+            h.update(f"{t.dtype} {tuple(t.shape)}".encode())
+            h.update(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+        out[name] = h.hexdigest()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save", [True, False], ids=["train", "no_save"])
+@pytest.mark.parametrize("n", CORE_N)
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("instance", CORE_INSTANCES)
+def test_gemm_core_matches_the_parent_kernel_bit_for_bit(card, instance, width, n, save):
+    """The GEMM core that reads A from shared memory (128-byte-swizzled
+    operand tiles, relu applied in the epilogues, each ring slot refilled by
+    the last warp to release it, the saved rows stored by tensor copies)
+    against the kernels it replaced (A in registers by ldmatrix, relu in
+    registers, thread 0 refilling each slot, the rows copied out a row at a
+    time), bit for bit: the outputs, the weight grads and the pose or input
+    grads of core_case, as sha256 digests recorded by
+    scripts/torch_kernel_digests.py from that source on an H100 (the JSON
+    file names the tree and the card). The cases stream every segment chunk
+    count the kernels have: 2 (lin_in on raw points, the views layer's
+    direction segment, and at width 128 the backward's W / 2 GEMMs), 3
+    (lin_in on 84 pre-encoded columns), 4 (W / 2 at width 256, W at 128), 8
+    (W at 256) and the views layer's two segments; the three-slot ring wraps
+    at every GEMM boundary. The products are the replaced kernels': a tile
+    read through a relu now holds bf16(relu(v)) = relu(bf16(v)). The
+    forward without saving gives the same outputs as with."""
+    with open(CORE_DIGESTS) as fp:
+        want = json.load(fp)["cases"]
+    got = core_digests(instance, width, n, save)
+    assert got == want[core_case_key(instance, width, n, save)]
+    if not save:
+        assert got["out"] == want[core_case_key(instance, width, n, True)]["out"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("instance", CORE_INSTANCES)
+def test_gemm_core_is_bitwise_reproducible(card, instance, width):
+    """Two calls of core_case on the same 3,000 ragged points a field give
+    the same outputs, weight grads and pose (the kernel's pose sums) or
+    input grads, bit for bit: the ring's order of chunks and every
+    reduction's order are fixed by the shapes alone."""
+    first, second = (core_case(instance, width, N, True) for _ in range(2))
+    for name in first:
+        assert all(torch.equal(a, b) for a, b in zip(first[name], second[name])), name
+    assert all(bool(g.abs().sum() > 0) for g in first["weights"] + first["inputs"])
 
 
 def _assert_as_close_to_f32(run, out_f, n_w):
