@@ -52,9 +52,9 @@ Phases, each printing its numbers:
      and backward launch counts must rise by 2 per app-init step and 6 per
      online step, the stacked ones not at all, the GEMM's by one and the
      sums' by two a backward call, and the loss must be finite
-     and fall; then the median step time of the kernel path and of the
-     plain path; then the kernel path's render against the plain path's on
-     a small batch;
+     and fall; then peak memory, the kernel path's render against the plain
+     path's on a small batch, and one plain-path step, which must launch no
+     kernel;
   4b. the per-ray-pose (mixed-frame) path at the full widths of
      synthetic_star_online_scaled.txt: one fixed batch of 2048 rays with
      per-ray frames drawn from [0, 8), a uniform target and depth; the
@@ -67,9 +67,9 @@ Phases, each printing its numbers:
      fields' and poses' grads alone, and the launches per step be those the
      path makes (online: fwd, bwd, stacked_fwd, stacked_bwd +2 each, and
      the backward's GEMM and sums, one and two a call;
-     gauge: fwd +2, bwd +0, stacked +2 each, no GEMM or sum). Then the step
-     times of the kernel and plain paths, the gauge step's, peak memory, and
-     the kernel path's render against the plain path's on a small batch;
+     gauge: fwd +2, bwd +0, stacked +2 each, no GEMM or sum). Then peak
+     memory, the kernel path's render against the plain path's on a small
+     batch, and one plain-path joint step, which must launch no kernel;
   5. the time-conditioned baseline (nerf_time) at the full widths of
      startrax/configs/carla_nerf_time.txt (8x256 coarse and fine, 84 + 27
      encoded input columns, 1000 rays x (256 + 256) samples, bf16): (a) the
@@ -78,9 +78,10 @@ Phases, each printing its numbers:
      points with input grads and on the coarse shape with input grads, with
      times; (b) 20 steps on one fixed batch at frame 3 of 16 through the
      kernels, each adding exactly 2 "enc_fwd" and 2 "enc_bwd" launches, their
-     GEMM and sums, and none of another kind, the loss finite and falling,
-     then 5 steps of the plain path; (c) the tiled eval render of a 64x64
-     frame from get_rays, kernel path against plain path;
+     GEMM and sums, and none of another kind, the loss finite and falling;
+     (c) the tiled eval render of a 64x64 frame from get_rays, kernel path
+     against plain path, then one plain-path step, which must launch no
+     kernel;
   6. the appearance-init app at synthetic_star_online_scaled.txt's widths
      (scene 192x192, 32 + 4 views, 8 frames, K = 2; static field 8x128,
      N_rand 2048, 64 + 64 samples, accumulation 4), its depth cut by
@@ -181,7 +182,7 @@ Phases, each printing its numbers:
   10. nerf_time's app (apps/nerf_time.py) at carla_nerf_time.txt's widths
      on phase 6's scene, cut by NT_APP_CUT: the loss finite and falling, 2 +
      2 pre-encoded launches, 2 GEMMs and 4 sums a step, a validation PSNR an
-     epoch, the step time; then --test true from its checkpoint over
+     epoch; then --test true from its checkpoint over
      NT_TEST_FRAMES frames of each held-out view: finite rows;
   10b. a CARLA-format capture (57 cameras, CARLA_FRAMES frames, 2
      vehicles, the 24-bit depth code, semantic id 10, bboxes.npy) written
@@ -197,8 +198,7 @@ Phases, each printing its numbers:
      its argv parser on lego.txt at its published widths (8x256, 64 + 128
      samples, N_rand 1024, white background, half_res to 400x400), cut in
      epochs and steps by LEGO_CUT: the fine loss finite and falling, a
-     finite val PSNR an epoch, each step 2 fwd + 2 bwd + 2 GEMMs + 4 sums,
-     the median step by CUDA events;
+     finite val PSNR an epoch, each step 2 fwd + 2 bwd + 2 GEMMs + 4 sums;
   12. startrax_torch.apps.mip.main on carla_star_app_init_mip.txt (8x256,
      24 + 4 IPE frequencies, N_rand 1000, 256 + 512 samples, bf16), then on
      carla_star_online_mip.txt (256 + 256 samples) warm-started from its
@@ -207,8 +207,7 @@ Phases, each printing its numbers:
      schedule (MIP_APP_CUT, MIP_ONLINE_CUT with the accumulation cut from
      50 to 4, MIP_TEST_CUT; printed): finite losses, the app-init loss
      falling, unit quaternions, pose-error and val rows, finite test rows,
-     no fused-kernel launch; the median step by CUDA events and the peak
-     memory of each app;
+     no fused-kernel launch; the peak memory of each app;
   13. ray-axis data parallelism, DP_WORLD ranks on the one card over gloo
      (spawned by startrax_torch.parallel.mesh.run_ranks; NCCL refuses two
      ranks on one device, so this is correctness, not a speed-up): (a) the
@@ -256,7 +255,9 @@ Float32 matmuls and convolutions on the plain paths run in full float32
 (TF32 off).
 """
 
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -267,24 +268,22 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 N_APPINIT = 3
 N_ONLINE = 20
-N_PLAIN = 5
 FRAME = 3
-# phase 4b: steps of the BARF warmup, the joint phase, the gauge fit, and the
-# plain path; the BARF step (epoch) of the warmup and of phase 3b's masks
+# phase 4b: steps of the BARF warmup, the joint phase and the gauge fit; the
+# BARF step (epoch) of the warmup and of phase 3b's masks
 N_WARMUP = 8
 N_JOINT = 48
 N_GAUGE = 8
-N_PLAIN_RAY = 5
 BARF_STEP = 5
 SLICE_CONFIG = "synthetic_star_online_scaled.txt"
-# phase 5: nerf_time's config, its kernel-path and plain-path steps, the
-# render's frame size
+# phase 5: nerf_time's config, its kernel-path steps, the render's frame
+# size
 NT_CONFIG = "carla_nerf_time.txt"
 N_NT = 20
-N_NT_PLAIN = 5
 RENDER_HW = 64
 SRC = "startrax_torch/kernels/csrc/fused_mlp.cu"
 # phase 6: the app's depth cut (existing config fields), the side of the
@@ -413,23 +412,20 @@ CARLA_CUT = ("--epochs_online", "1", "--steps_per_epoch", "10", "--epoch_val", "
 STACKED_ENC_K = 2
 STACKED_ENC_CALLS = 3
 # phase 11: the Blender-format capture (lego's published 800x800, halved by
-# half_res), its views a split, lego's cut in epochs and steps, and the
-# steps the median skips
+# half_res), its views a split, and lego's cut in epochs and steps
 BLENDER_HW = (800, 800)
 BLENDER_VIEWS = {"train": 16, "val": 2, "test": 2}
 BLENDER_RADIUS = 0.5
 LEGO_CONFIG = "lego.txt"
 LEGO_CUT = ("--epochs_appearance", "2", "--steps_per_epoch", "60", "--epoch_val", "1")
-LEGO_WARM = 5
-# phase 12: the mip configs, each app's cut in depth and schedule, the
-# test's frames, and the steps a median skips
+# phase 12: the mip configs, each app's cut in depth and schedule, and the
+# test's frames
 MIP_APP_CONFIG = "carla_star_app_init_mip.txt"
 MIP_ONLINE_CONFIG = "carla_star_online_mip.txt"
 MIP_APP_CUT = ("--epochs_appearance", "2", "--steps_per_epoch", "8", "--epoch_ckpt", "1")
 MIP_ONLINE_CUT = ("--epochs_online", "2", "--steps_per_epoch", "8", "--accumulate_grad_batches",
                   "4", "--epoch_val", "1", "--epoch_ckpt", "1")
 MIP_TEST_CUT = ("--eval_last_frame", "2")
-MIP_WARM = 2
 PEAK_FLOPS = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -475,6 +471,39 @@ def _step_designs():
 
 def _deltas(counts, before):
     return {k: counts[k] - before[k] for k in before}
+
+
+@contextlib.contextmanager
+def _patched(module, name, wrap):
+    """Within the block, module.name (a step builder) builds wrap(step) in
+    place of each step it builds; the builder is restored after the block,
+    also when it raises. An app's steps are seen only where the app looks
+    the builder up through its module at call time (loop.make_*_train_step,
+    or a module-level name of its own), never through a name it imported:
+    tests/test_torch_port.py holds the apps to that."""
+    make = getattr(module, name)
+    setattr(module, name, lambda *args, **kw: wrap(make(*args, **kw)))
+    try:
+        yield
+    finally:
+        setattr(module, name, make)
+
+
+def _recording(steps):
+    """A wrap for _patched: each step's launches (fused kernels, GEMM and
+    sums) appended to steps. Launch counts are kept on the host, so nothing
+    waits for the device."""
+
+    def wrap(step):
+        def recorded(*args, **kw):
+            before = _launch_snapshot()
+            out = step(*args, **kw)
+            steps.append(_deltas(_launch_snapshot(), before))
+            return out
+
+        return recorded
+
+    return wrap
 
 
 def _card_line():
@@ -978,19 +1007,9 @@ def _online(star_cfg, loss_cfg, cfg, seed):
     return params, opt, loop.make_online_train_step(star_cfg, loss_cfg, opt)
 
 
-def _timed_steps(step, n, *args, **kw):
-    import torch
-
-    losses, ms = [], []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss, _ = step(*args, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
-        losses.append(float(loss))
-    return losses, ms
+def _run_steps(step, n, *args, **kw):
+    """n calls of step(*args, **kw); returns their losses."""
+    return [float(step(*args, **kw)[0]) for _ in range(n)]
 
 
 def phase_main_path(cfg, star_cfg, loss_cfg):
@@ -1009,9 +1028,9 @@ def phase_main_path(cfg, star_cfg, loss_cfg):
     app_step = loop.make_appinit_train_step(star_cfg, loss_cfg, app_opt)
 
     fm.reset_launch_counts()
-    app_losses, app_ms = _timed_steps(app_step, N_APPINIT, params["nerf"], batch, generator=gen)
+    app_losses = _run_steps(app_step, N_APPINIT, params["nerf"], batch, generator=gen)
     after_app = dict(fm.launches)
-    losses, ms = _timed_steps(step, N_ONLINE, params, batch, epoch=0, generator=gen)
+    losses = _run_steps(step, N_ONLINE, params, batch, epoch=0, generator=gen)
     counts, parts = dict(fm.launches), dict(fm.part_launches)
     print(f"app-init losses {app_losses}", flush=True)
     print(f"online losses {losses}", flush=True)
@@ -1031,20 +1050,8 @@ def phase_main_path(cfg, star_cfg, loss_cfg):
     _require(parts == want, f"launches of the backward's GEMM and sums {want}, got {parts}")
     _require(all(math.isfinite(v) for v in app_losses + losses), "finite losses")
     _require(statistics.mean(losses[-3:]) < statistics.mean(losses[:3]), "the loss falls")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    kernel_ms = statistics.median(ms[2:])
-    print(f"kernel path: median online step {kernel_ms:.3f} ms (steps 3-{N_ONLINE}), "
-          f"app-init step {statistics.median(app_ms):.3f} ms, "
-          f"{cfg.N_rand / kernel_ms * 1e3:.1f} rays/s, peak memory {peak_gb:.2f} GB",
+    print(f"kernel path: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
           flush=True)
-
-    # where the time goes: one profiled online step, kernel time by name
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(params, batch, epoch=0, generator=gen)
-        torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), flush=True)
 
     # the same batch through the kernel path and the plain path at a small size
     small = {k: (v[:64] if torch.is_tensor(v) else v) for k, v in batch.items()}
@@ -1066,12 +1073,11 @@ def phase_main_path(cfg, star_cfg, loss_cfg):
     del params, opt, step, app_opt, app_step, outs
     torch.cuda.empty_cache()
 
-    # the plain path (use_fused=False), same shapes
+    # one step of the plain path (use_fused=False), same shapes
     params, opt, step = _online(plain_cfg, loss_cfg, cfg, seed=0)
-    plain_losses, plain_ms = _timed_steps(step, N_PLAIN, params, batch, epoch=0, generator=gen)
-    plain_med = statistics.median(plain_ms[1:])
-    print(f"plain path: losses {plain_losses}, median online step {plain_med:.3f} ms "
-          f"(steps 2-{N_PLAIN}), {cfg.N_rand / plain_med * 1e3:.1f} rays/s", flush=True)
+    plain_losses = _run_steps(step, 1, params, batch, epoch=0, generator=gen)
+    print(f"plain path: loss {plain_losses}", flush=True)
+    _require(all(math.isfinite(v) for v in plain_losses), "a finite plain-path loss")
     _require(dict(fm.launches) == after, "the plain path launches no kernel")
     del params, opt, step
     torch.cuda.empty_cache()
@@ -1139,20 +1145,14 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
     mini_steps = [0]
 
     def run(step, n, launches_per_step, parts_per_step):
-        """n calls of step() -> loss, each timed with CUDA events and held to
-        its launches, the backward's GEMM and sums included; an online step
-        also to the accumulation rhythm."""
-        losses, ms = [], []
+        """n calls of step() -> loss, each held to its launches, the
+        backward's GEMM and sums included; an online step also to the
+        accumulation rhythm. Returns the losses."""
+        losses = []
         for _ in range(n):
             before = [w().detach().clone() for w in watched]
             counts0, parts0 = dict(fm.launches), dict(fm.part_launches)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            loss = step()
-            end.record()
-            torch.cuda.synchronize()
-            ms.append(start.elapsed_time(end))
-            losses.append(float(loss))
+            losses.append(float(step()))
             delta = _deltas(fm.launches, counts0)
             _require(delta == launches_per_step,
                      f"launches per step {launches_per_step}, got {delta}")
@@ -1166,22 +1166,21 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
                 _require(changed == (mini_steps[0] % k_acc == 0),
                          f"mini-step {mini_steps[0]}: parameters changed {changed}, an update "
                          f"every {k_acc} steps")
-        return losses, ms
+        return losses
 
     fm.reset_launch_counts()
-    warm_losses, warm_ms = run(lambda: warmup(params, batch, epoch=BARF_STEP, generator=gen)[0],
-                               N_WARMUP, online_launches, online_parts)
+    warm_losses = run(lambda: warmup(params, batch, epoch=BARF_STEP, generator=gen)[0],
+                      N_WARMUP, online_launches, online_parts)
 
     def joint_step():
         return joint(params, batch, epoch=cfg.end_barf, generator=gen)[0]
 
-    joint_losses, joint_ms = run(joint_step, 1, online_launches, online_parts)
+    joint_losses = run(joint_step, 1, online_launches, online_parts)
     grad = params["poses"].grad
     for f in sorted(set(batch["frame"].tolist()) - {0}):
         _require(bool((grad[f - 1].abs().amax(-1) > 0).all()),
                  f"frame {f}: a non-zero pose grad for every vehicle after one joint step")
-    more_losses, more_ms = run(joint_step, N_JOINT - 1, online_launches, online_parts)
-    joint_losses, joint_ms = joint_losses + more_losses, joint_ms + more_ms
+    joint_losses += run(joint_step, N_JOINT - 1, online_launches, online_parts)
 
     grads_before = [(leaf, leaf.grad, leaf.grad.clone()) for leaf in tree_leaves(params)]
     gauge = lie.se3_identity(K, device="cuda").requires_grad_(True)
@@ -1189,9 +1188,8 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
         star_cfg, optim.make_gauge_optimizer(gauge, cfg.lrate_pose),
         freeze_rot=cfg.gauge_freeze_rot, depth_lambda=cfg.gauge_depth_lambda)
     batch0 = dict(batch, frame=torch.zeros_like(batch["frame"]))  # frame-0 rays
-    gauge_losses, gauge_ms = run(
-        lambda: gauge_step(gauge, nerf, params["poses"], batch0, generator=gen), N_GAUGE,
-        gauge_launches, gauge_parts)
+    gauge_losses = run(lambda: gauge_step(gauge, nerf, params["poses"], batch0, generator=gen),
+                       N_GAUGE, gauge_launches, gauge_parts)
     counts = dict(fm.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"per-ray path: BARF warmup losses {warm_losses}", flush=True)
@@ -1213,18 +1211,7 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
     _require(bool(gauge.detach()[:, :3].abs().amax() > 0), "the gauge translation moves")
     _require(all(leaf.grad is g and torch.equal(leaf.grad, c) for leaf, g, c in grads_before),
              "the gauge step leaves the fields' and poses' grads untouched")
-    step_ms = statistics.median(joint_ms[4:])
-    print(f"per-ray path, kernel path: median joint step {step_ms:.3f} ms (steps 5-{N_JOINT}), "
-          f"{cfg.N_rand / step_ms * 1e3:.1f} rays/s; median BARF warmup step "
-          f"{statistics.median(warm_ms[2:]):.3f} ms; median gauge step "
-          f"{statistics.median(gauge_ms[2:]):.3f} ms; peak memory {peak_gb:.2f} GB", flush=True)
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        joint_step()
-        torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
+    print(f"per-ray path, kernel path: peak memory {peak_gb:.2f} GB", flush=True)
 
     # the kernel path's render against the plain path's on a small batch,
     # per-ray poses, without and with the BARF mask
@@ -1248,14 +1235,13 @@ def phase_per_ray_path(cfg, star_cfg, star_cfg_barf, loss_cfg):
     del params, opt, warmup, joint, gauge_step, outs, grads_before
     torch.cuda.empty_cache()
 
+    # one joint step of the plain path
     plain_cfg = dataclasses.replace(star_cfg, use_fused=False)
     params, opt = _per_ray_online(cfg, plain_cfg, seed=4)
-    plain_losses, plain_ms = _timed_steps(loop.make_online_train_step(plain_cfg, loss_cfg, opt),
-                                          N_PLAIN_RAY, params, batch, epoch=cfg.end_barf,
-                                          generator=gen)
-    plain_med = statistics.median(plain_ms[1:])
-    print(f"per-ray path, plain path: losses {plain_losses}, median joint step {plain_med:.3f} ms "
-          f"(steps 2-{N_PLAIN_RAY}), {cfg.N_rand / plain_med * 1e3:.1f} rays/s", flush=True)
+    plain_losses = _run_steps(loop.make_online_train_step(plain_cfg, loss_cfg, opt), 1, params,
+                              batch, epoch=cfg.end_barf, generator=gen)
+    print(f"per-ray path, plain path: loss {plain_losses}", flush=True)
+    _require(all(math.isfinite(v) for v in plain_losses), "a finite plain-path loss")
     _require(dict(fm.launches) == after, "the plain path launches no kernel")
     del params, opt
     torch.cuda.empty_cache()
@@ -1339,13 +1325,11 @@ def phase_nerf_time(cfg, star_cfg, loss_cfg):
     torch.cuda.reset_peak_memory_stats()
     params, step = setup(star_cfg)
     fm.reset_launch_counts()
-    losses, ms = [], []
+    losses = []
     step_parts = _part_counts(*(c[1] for c in nerf_time_cases(star_cfg, cfg.N_rand)[:2]))
     for _ in range(N_NT):
         before, parts0 = dict(fm.launches), dict(fm.part_launches)
-        (loss,), (t,) = _timed_steps(step, 1, params, batch, generator=gen)
-        losses.append(loss)
-        ms.append(t)
+        losses += _run_steps(step, 1, params, batch, generator=gen)
         delta = _deltas(fm.launches, before)
         _require(delta == _counts(enc_fwd=2, enc_bwd=2),
                  f"2 launches of each pre-encoded kernel per nerf_time step, none other, got {delta}")
@@ -1358,16 +1342,7 @@ def phase_nerf_time(cfg, star_cfg, loss_cfg):
     print(f"launches after {N_NT} nerf_time steps {counts}", flush=True)
     _require(all(math.isfinite(v) for v in losses), "finite nerf_time losses")
     _require(statistics.mean(losses[-3:]) < statistics.mean(losses[:3]), "the nerf_time loss falls")
-    kernel_ms = statistics.median(ms[2:])
-    print(f"nerf_time kernel path: median step {kernel_ms:.3f} ms (steps 3-{N_NT}), "
-          f"{cfg.N_rand / kernel_ms * 1e3:.1f} rays/s, peak memory {peak_gb:.2f} GB", flush=True)
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(params, batch, generator=gen)
-        torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
+    print(f"nerf_time kernel path: peak memory {peak_gb:.2f} GB", flush=True)
 
     # the tiled eval render of one frame, kernel path against plain path
     K = intrinsics_matrix(RENDER_HW, RENDER_HW, focal_from_fov(RENDER_HW, 60.0))
@@ -1393,11 +1368,10 @@ def phase_nerf_time(cfg, star_cfg, loss_cfg):
     del params, step, outs
     torch.cuda.empty_cache()
 
-    params, step = setup(plain_cfg)
-    plain_losses, plain_ms = _timed_steps(step, N_NT_PLAIN, params, batch, generator=gen)
-    plain_med = statistics.median(plain_ms[1:])
-    print(f"nerf_time plain path: losses {plain_losses}, median step {plain_med:.3f} ms "
-          f"(steps 2-{N_NT_PLAIN}), {cfg.N_rand / plain_med * 1e3:.1f} rays/s", flush=True)
+    params, step = setup(plain_cfg)  # one step of the plain path
+    plain_losses = _run_steps(step, 1, params, batch, generator=gen)
+    print(f"nerf_time plain path: loss {plain_losses}", flush=True)
+    _require(all(math.isfinite(v) for v in plain_losses), "a finite plain-path loss")
     _require(dict(fm.launches) == after, "the plain path launches no kernel")
     del params, step
     torch.cuda.empty_cache()
@@ -1498,12 +1472,9 @@ def phase_app_init(cfg, config_path, basedir):
     # steps profiled for its device time (device activity only, so that each
     # kernel counts once, as _device_ms counts it)
     step_ms, prof = [], profile(activities=[ProfilerActivity.CUDA])
-    make_step = loop.make_appinit_train_step
 
-    def timed_make_step(*args, **kw):
-        step = make_step(*args, **kw)
-
-        def timed(*a, **k):
+    def timed(step):
+        def run(*a, **k):
             i = len(step_ms)
             if i == APP_PROFILED[0]:
                 torch.cuda.synchronize()
@@ -1518,15 +1489,12 @@ def phase_app_init(cfg, config_path, basedir):
                 prof.stop()
             return out
 
-        return timed
+        return run
 
-    loop.make_appinit_train_step = timed_make_step
     fm.reset_launch_counts()
     t0 = time.perf_counter()
-    try:
+    with _patched(loop, "make_appinit_train_step", timed):
         params = app_init.main(argv)
-    finally:
-        loop.make_appinit_train_step = make_step
     app_s = time.perf_counter() - t0
     counts, parts = dict(fm.launches), dict(fm.part_launches)
 
@@ -1865,17 +1833,15 @@ class _StepRecorder:
     def __enter__(self):
         from startrax_torch.train import loop
 
-        self._blocks = [loop.wrapping_online_steps(self.online),
-                        loop.wrapping_gauge_steps(self.gauge)]
-        for b in self._blocks:
-            b.__enter__()
+        self._patches = contextlib.ExitStack()
+        self._patches.enter_context(_patched(loop, "make_online_train_step", self.online))
+        self._patches.enter_context(_patched(loop, "make_gauge_train_step", self.gauge))
         return self
 
     def __exit__(self, *exc):
         import torch
 
-        for b in reversed(self._blocks):
-            b.__exit__(*exc)
+        self._patches.close()
         for kind in [k for k in self.profs if k not in self.done]:
             torch.cuda.synchronize()
             self.profs.pop(kind).stop()  # a window that its kind's steps did not fill
@@ -2357,6 +2323,7 @@ def phase_occgrid(config_path, scene_path, cache, basedir, worst):
     from startrax_torch.apps import occgrid_init
     from startrax_torch.apps.common import make_dataset
     from startrax_torch.kernels import fused_mlp as fm, occgrid
+    from startrax_torch.models.fields import query_density
     from startrax_torch.train import checkpoint as ckpt
     from startrax_torch.utils.config import load_config
     from startrax_torch.utils.tree import tree_leaves
@@ -2383,8 +2350,7 @@ def phase_occgrid(config_path, scene_path, cache, basedir, worst):
 
     steps, updates = [], []
     prof = profile(activities=[ProfilerActivity.CUDA])
-    make_step, update = occgrid_init.make_train_step, occgrid.update_grid
-    grid_step = occgrid_init.GridStep.__call__
+    update, grid_step = occgrid.update_grid, occgrid_init.GridStep.__call__
 
     def profiled(self, *args, **kw):
         # around the whole step call: its span train.step holds the update too
@@ -2397,10 +2363,8 @@ def phase_occgrid(config_path, scene_path, cache, basedir, worst):
             prof.stop()
         return out
 
-    def timed_make(*args, **kw):
-        step = make_step(*args, **kw)
-
-        def timed(params, grid, batch, occ, generator=None):
+    def timed(step):
+        def run(params, grid, batch, occ, generator=None):
             before = _launch_snapshot()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -2411,7 +2375,7 @@ def phase_occgrid(config_path, scene_path, cache, basedir, worst):
                           "launches": _deltas(_launch_snapshot(), before)})
             return out
 
-        return timed
+        return run
 
     def timed_update(grid, fn, occ, **kw):
         torch.cuda.synchronize()
@@ -2428,15 +2392,12 @@ def phase_occgrid(config_path, scene_path, cache, basedir, worst):
                         "launches": _deltas(_launch_snapshot(), before)})
         return out
 
-    occgrid_init.make_train_step, occgrid.update_grid = timed_make, timed_update
-    occgrid_init.GridStep.__call__ = profiled
     fm.reset_launch_counts()
     t0 = time.perf_counter()
-    try:
+    with (_patched(occgrid_init, "make_train_step", timed),
+          mock.patch.object(occgrid, "update_grid", timed_update),
+          mock.patch.object(occgrid_init.GridStep, "__call__", profiled)):
         params, grid = occgrid_init.main(argv)
-    finally:
-        occgrid_init.make_train_step, occgrid.update_grid = make_step, update
-        occgrid_init.GridStep.__call__ = grid_step
     app_s = time.perf_counter() - t0
     counts, parts = dict(fm.launches), dict(fm.part_launches)
 
@@ -2512,7 +2473,7 @@ def phase_occgrid(config_path, scene_path, cache, basedir, worst):
     march_ms = _cuda_ms(lambda: occgrid.march_and_select(grid, occ, o, d, cfg.near, cfg.far,
                                                          generator=g), 5)
     update_ms = _cuda_ms(lambda: occgrid.update_grid(
-        grid, occgrid_init.density_fn(params, field_cfg), occ, generator=g), 3)
+        grid, functools.partial(query_density, params, field_cfg), occ, generator=g), 3)
     z, valid, n_occ = occgrid.march_and_select(grid, occ, o, d, cfg.near, cfg.far, generator=g)
     occupied = float(occgrid.occupancy(grid, occ).float().mean())
     print(f"occgrid alone (CUDA events): march_and_select {march_ms:.3f} ms ({cfg.N_rand} rays x "
@@ -2674,13 +2635,10 @@ def phase_nerf_time_app(config_path, scene_path, cache, basedir):
           f"{published.steps_per_epoch} -> {cfg.steps_per_epoch}, epoch_val "
           f"{published.epoch_val} -> {cfg.epoch_val})", flush=True)
     steps = []
-    make = _timing_steps(loop, "make_nerf_time_train_step", steps)
     fm.reset_launch_counts()
     t0 = time.perf_counter()
-    try:
+    with _patched(loop, "make_nerf_time_train_step", _recording(steps)):
         nerf_time.main(argv)
-    finally:
-        loop.make_nerf_time_train_step = make
     app_s = time.perf_counter() - t0
     counts = _launch_snapshot()
     run_dir = os.path.join(basedir, cfg.expname, "nerf_time")
@@ -2691,16 +2649,14 @@ def phase_nerf_time_app(config_path, scene_path, cache, basedir):
     val = make_dataset(cfg, "val")
     tiles = -(-val.H * val.W // 8192)
     design = _counts(enc_fwd=2, enc_bwd=2) | _part_counts("coarse", "fine")
-    med = statistics.median(s["ms"] for s in steps[2:])
     print(f"nerf_time app: {n} steps in {app_s:.2f} s; fine loss per epoch {losses}; val (PSNR, "
-          f"SSIM) {vals}; median step {med:.3f} ms (CUDA events, steps 3-{n}), "
-          f"{cfg.N_rand / med * 1e3:.1f} rays/s; launches {counts}", flush=True)
+          f"SSIM) {vals}; launches {counts}", flush=True)
     _require(n == cfg.epochs_online * cfg.steps_per_epoch and len(losses) == cfg.epochs_online
              and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
              "nerf_time app: every epoch trained, a finite fine loss that falls")
     _require(len(vals) == len(losses) and all(math.isfinite(p) for p, _ in vals),
              "nerf_time app: a finite validation PSNR each epoch")
-    _require(all(s["launches"] == design for s in steps), f"every nerf_time step launches {design}")
+    _require(all(s == design for s in steps), f"every nerf_time step launches {design}")
     want = _counts(enc_fwd=2 * n + 2 * tiles * len(vals), enc_bwd=2 * n) | {
         k: n * v for k, v in _part_counts("c", "f").items()}
     _require(counts == want, f"the nerf_time app's launches {want}, got {counts}")
@@ -2985,41 +2941,13 @@ def _write_blender_capture(root):
     return written
 
 
-def _timing_steps(module, name, steps):
-    """Wrap module.name (a step factory) so that each step it builds is
-    timed by CUDA events and its launches recorded into steps; returns the
-    original, for restoring."""
-    import torch
-
-    make = getattr(module, name)
-
-    def timed_make(*args, **kw):
-        step = make(*args, **kw)
-
-        def timed(*a, **k):
-            before = _launch_snapshot()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step(*a, **k)
-            end.record()
-            torch.cuda.synchronize()
-            steps.append({"ms": start.elapsed_time(end),
-                          "launches": _deltas(_launch_snapshot(), before)})
-            return out
-
-        return timed
-
-    setattr(module, name, timed_make)
-    return make
-
-
 def phase_lego(config_path, basedir):
     """11: a Blender-format capture written with write_png and read back
     bit-exact, then startrax_torch.apps.lego.main through its argv parser
     on lego.txt at its published widths, cut in epochs and steps by
     LEGO_CUT: the fine loss finite and falling, a finite val PSNR an epoch,
-    each step 2 fwd + 2 bwd + 2 GEMMs + 4 sums, the median step by CUDA
-    events. Returns the app's launches."""
+    each step 2 fwd + 2 bwd + 2 GEMMs + 4 sums. Returns the app's
+    launches."""
     import numpy as np
     import torch
 
@@ -3050,14 +2978,11 @@ def phase_lego(config_path, basedir):
           f"{cfg.N_importance}, N_rand {cfg.N_rand}, white_bkgd {cfg.white_bkgd}, half_res "
           f"{cfg.half_res}, mixed_precision {cfg.mixed_precision}", flush=True)
     steps = []
-    make = _timing_steps(loop, "make_appinit_train_step", steps)
     fm.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
+    with _patched(loop, "make_appinit_train_step", _recording(steps)):
         lego.main(argv)
-    finally:
-        loop.make_appinit_train_step = make
     app_s = time.perf_counter() - t0
     counts = _launch_snapshot()
     rows = [json.loads(line) for line in open(os.path.join(basedir, cfg.expname, "app_init",
@@ -3065,19 +2990,17 @@ def phase_lego(config_path, basedir):
     losses = [r["train/fine_loss"] for r in rows if "train/fine_loss" in r]
     vals = [(r["val/psnr"], r["val/ssim"]) for r in rows if "val/psnr" in r]
     n = len(steps)
-    med = statistics.median(s["ms"] for s in steps[LEGO_WARM:])
     design = _counts(fwd=2, bwd=2) | _part_counts("coarse", "fine")
     print(f"lego app: {n} steps in {app_s:.2f} s; fine loss per epoch {losses}; val (PSNR, SSIM) "
-          f"{vals}; median step {med:.3f} ms (CUDA events, steps {LEGO_WARM + 1}-{n}), "
-          f"{cfg.N_rand / med * 1e3:.1f} rays/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts}", flush=True)
+          f"{vals}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{counts}", flush=True)
     _require(n == cfg.epochs_appearance * cfg.steps_per_epoch
              and len(losses) == cfg.epochs_appearance
              and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
              "lego app: every epoch trained, a finite fine loss that falls")
     _require(len(vals) == len(losses) and all(math.isfinite(p) for p, _ in vals),
              "lego app: a finite validation PSNR each epoch")
-    _require(all(s["launches"] == design for s in steps), f"every lego step launches {design}")
+    _require(all(s == design for s in steps), f"every lego step launches {design}")
     return counts
 
 
@@ -3089,8 +3012,8 @@ def phase_mip(app_config, online_config, scene_path, cache, basedir):
     MIP_APP_CUT, MIP_ONLINE_CUT and MIP_TEST_CUT (printed): the losses
     finite and the app-init loss falling, the quaternions unit-norm, pose
     errors and val rows logged, the test rows finite, no fused-kernel
-    launch; the median step by CUDA events and the peak memory of each
-    app. Returns the launches (all zero)."""
+    launch; the peak memory of each app. Returns the launches (all
+    zero)."""
     import torch
 
     from startrax_torch.apps import mip
@@ -3116,26 +3039,20 @@ def phase_mip(app_config, online_config, scene_path, cache, basedir):
               f"frequencies, N_rand {cfg.N_rand}, samples {cfg.N_samples} + {cfg.N_importance}, "
               f"K={cfg.num_vehicles}, mixed_precision {cfg.mixed_precision}", flush=True)
         steps = []
-        make = _timing_steps(mip, "make_train_step", steps)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        try:
+        with _patched(mip, "make_train_step", _recording(steps)):
             mip.main(argv)
-        finally:
-            mip.make_train_step = make
         run_dir = os.path.join(basedir, cfg.expname, f"mip_{label}")
         rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
         losses = [r["train/fine_loss"] for r in rows if "train/fine_loss" in r]
-        med = statistics.median(s["ms"] for s in steps[MIP_WARM:])
         peak = torch.cuda.max_memory_allocated() / 1e9
         runs[label] = {"dir": run_dir, "rows": rows, "cfg": cfg}
         print(f"mip {label}: {len(steps)} steps in {time.perf_counter() - t0:.2f} s; fine loss "
-              f"per epoch {losses}; median step {med:.3f} ms (CUDA events, steps "
-              f"{MIP_WARM + 1}-{len(steps)}), {cfg.N_rand / med * 1e3:.1f} rays/s; peak memory "
-              f"{peak:.2f} GB", flush=True)
+              f"per epoch {losses}; peak memory {peak:.2f} GB", flush=True)
         _require(len(losses) >= 2 and all(math.isfinite(v) for v in losses),
                  f"mip {label}: a finite fine loss each epoch")
-        _require(all(not any(s["launches"].values()) for s in steps),
+        _require(all(not any(s.values()) for s in steps),
                  f"mip {label}: no fused-kernel launch in a step")
     app_losses = [r["train/fine_loss"] for r in runs["app_init"]["rows"] if "train/fine_loss" in r]
     _require(app_losses[-1] < app_losses[0], "mip app init: the fine loss falls")

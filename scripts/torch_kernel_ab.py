@@ -42,12 +42,7 @@ checkouts of the repository, for example the parent commit unpacked with
 4. in the same processes, each tree's chip_smoke phase 3c (``parts``): the
    weight-gradient GEMM's and the ordered sums' times summed over one
    shared-pose step's calls, with their plain versions' and the library
-   yardsticks' (torch.mm, torch.sum) in the same process;
-5. then chip_smoke's three training steps (``step_times``: shared-pose,
-   per-ray joint, nerf_time), each the median of event-timed steps and one
-   step's device time, with the device time and launches of its
-   ``wgrad_kernel`` and ``sum_rows_kernel`` in that step, so that a step's
-   change is read against the parent on one machine, its host included.
+   yardsticks' (torch.mm, torch.sum) in the same process.
 
 It prints one line per process and, with ``--json PATH``, writes every
 reading to PATH.
@@ -88,7 +83,6 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join("startrax_torch", "kernels", "csrc", "fused_mlp.cu")
 CUBIN_DIR = os.path.join(HERE, "runs", "ptxas")
 REPS = 10
-STEPS, STEP_WARMUP = 14, 4
 ORDER = ("parent", "change", "change", "parent") * 2
 
 # --variants: name -> [(text to find, its replacement, how many times it occurs), ...]
@@ -318,9 +312,7 @@ def once(root):
         flag, flag_cfg.N_rand, on_star, on_cfg.N_rand, slice_star, slice_cfg.N_rand, nt_star,
         nt_cfg.N_rand, port_config.star_config_from(occ_cfg).static_field()))
     parts = {k: {key: v[key] for key in ("ms", "plain_ms", "library_ms")} for k, v in parts.items()}
-    torch.cuda.empty_cache()
-    steps = step_times(cs, (flag_cfg, flag), (slice_cfg, slice_star), (nt_cfg, nt_star))
-    print(json.dumps({"root": root, "times": times, "parts": parts, "steps": steps}), flush=True)
+    print(json.dumps({"root": root, "times": times, "parts": parts}), flush=True)
 
 
 def grid_update(cs, fm, occ_cfg, field_cfg):
@@ -350,53 +342,6 @@ def grid_update(cs, fm, occ_cfg, field_cfg):
     out = {label: {"fwd": cs._cuda_ms(fwd, REPS), "fwd_device": device_ms(fwd)}}
     del x, d, params, centers
     torch.cuda.empty_cache()
-    return out
-
-
-def step_times(cs, flag, per_ray, nerf_time):
-    """chip_smoke's three training steps on their fixed batches, each
-    (Config, StarConfig): the shared-pose online step (phase 4), the per-ray
-    joint step (phase 4b, accumulation as configured) and the nerf_time step
-    (phase 5). For each, the median of STEPS event-timed steps after
-    STEP_WARMUP, and the device time of one more step (device_ms), whose gap
-    to the median is host time the card waits for."""
-    import torch
-
-    from startrax_torch.models.nerf_time import init_nerf_time
-    from startrax_torch.train import loop, optim
-    from startrax_torch.utils.config import loss_config_from
-    from startrax_torch.utils.tree import tree_leaves
-
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    out = {}
-
-    def timed(name, step, *args, **kw):
-        _, ms = cs._timed_steps(step, STEPS, *args, **kw)
-        dev, kernels = device_ms(lambda: step(*args, **kw), 1, ("wgrad_kernel", "sum_rows_kernel"))
-        out[name] = {"step": statistics.median(ms[STEP_WARMUP:]), "step_device": dev,
-                     **{f"{k}_device": v[0] for k, v in kernels.items()},
-                     **{f"{k}_launches": v[1] for k, v in kernels.items()}}
-        torch.cuda.empty_cache()
-
-    cfg, star = flag
-    params, _, step = cs._online(star, loss_config_from(cfg), cfg, seed=0)
-    timed("shared-pose step", step, params, cs._batch(cfg.N_rand), epoch=0, generator=gen)
-    cfg, star = per_ray
-    params, opt = cs._per_ray_online(cfg, star, seed=4)
-    timed("per-ray joint step", loop.make_online_train_step(star, loss_config_from(cfg), opt),
-          params, cs._batch(cfg.N_rand, cfg.num_frames, star.near, star.far), epoch=cfg.end_barf,
-          generator=gen)
-    cfg, star = nerf_time
-    params = init_nerf_time(star, generator=torch.Generator(device="cuda").manual_seed(5),
-                            device="cuda")
-    for leaf in tree_leaves(params):
-        leaf.requires_grad_(True)
-    opt = optim.make_appinit_optimizer(params, cfg.lrate, steps_per_epoch=cfg.steps_per_epoch,
-                                       decay_rate=cfg.lrate_decay_rate, decay_epochs=cfg.lrate_decay,
-                                       decay_milestones=cfg.lrate_decay_steps)
-    timed("nerf_time step", loop.make_nerf_time_train_step(star, loss_config_from(cfg), opt,
-                                                            cfg.num_frames),
-          params, cs._batch(cfg.N_rand), generator=gen)
     return out
 
 
@@ -540,18 +485,12 @@ def main():
         if out.returncode != 0:
             raise RuntimeError(f"{tree} run failed:\n{out.stdout}\n{out.stderr}")
         line = json.loads(out.stdout.strip().splitlines()[-1])
-        runs.append({"tree": tree, "times": line["times"], "parts": line["parts"],
-                     "steps": line["steps"]})
+        runs.append({"tree": tree, "times": line["times"], "parts": line["parts"]})
         print(f"{tree}: " + "; ".join(f"{k} " + ", ".join(f"{side} {v[side]:.3f}" for side in v)
-                                      for k, v in line["times"].items())
-              + "; " + "; ".join(f"{k} {v['step']:.3f} ms (device {v['step_device']:.3f})"
-                                 for k, v in line["steps"].items()), flush=True)
+                                      for k, v in line["times"].items()), flush=True)
     report["runs"] = runs
     for key, sides in (("times", ("fwd", "bwd", "fwd_device", "bwd_device")),
-                       ("parts", ("ms", "plain_ms", "library_ms")),
-                       ("steps", ("step", "step_device", "wgrad_kernel_device",
-                                  "wgrad_kernel_launches", "sum_rows_kernel_device",
-                                  "sum_rows_kernel_launches"))):
+                       ("parts", ("ms", "plain_ms", "library_ms"))):
         for label in runs[0][key]:
             for side in sides:
                 if side not in runs[0][key][label]:

@@ -141,6 +141,8 @@ def _online(args, online, loop, common, app_dir, basedir, cfg, mode):
     "sync" waits for the card after every step."""
     import torch
 
+    from chip_smoke import _patched
+
     starts = []  # (host clock, epoch, kind) at each step's call
     place = {"epoch": -1, "gauge": 0}  # a gauge step's epoch: after the last online step's
 
@@ -170,7 +172,8 @@ def _online(args, online, loop, common, app_dir, basedir, cfg, mode):
     argv = common + ["--basedir", basedir, "--train_minutes", str(args.minutes),
                      "--appearance_ckpt_path", os.path.join(app_dir, "ckpts"), *args.online_args]
     t0 = time.perf_counter()
-    with loop.wrapping_online_steps(recording), loop.wrapping_gauge_steps(recording_gauge):
+    with (_patched(loop, "make_online_train_step", recording),
+          _patched(loop, "make_gauge_train_step", recording_gauge)):
         online.main(argv)
     seconds = time.perf_counter() - t0
 

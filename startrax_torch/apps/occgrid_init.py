@@ -26,15 +26,15 @@ Usage: python -m startrax_torch.apps.occgrid_init --config startrax/configs/<nam
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import torch
-import torch.nn.functional as F
 
 from ..data.prefetch import BatchPrefetcher
 from ..device import resolve
 from ..kernels import occgrid
-from ..models.fields import FieldConfig, apply_field, init_field
+from ..models.fields import FieldConfig, apply_field, init_field, query_density
 from ..ops.compositing import raw2outputs
 from ..ops.losses import img2mse, mse2psnr
 from ..train import checkpoint as ckpt
@@ -64,20 +64,6 @@ def field_config(cfg: Config) -> FieldConfig:
         depth=cfg.netdepth, width=cfg.netwidth, multires=cfg.multires,
         multires_views=cfg.multires_views,
         compute_dtype=torch.bfloat16 if cfg.mixed_precision else torch.float32)
-
-
-def density_fn(params, field_cfg: FieldConfig):
-    """pts [N, 3] -> the field's density [N] (post-softplus), each point
-    seen along (0, 0, -1)."""
-
-    def fn(pts):
-        # (0, 0, -1) made on the device: a copy from the host would wait for it
-        down = F.pad(pts.new_full((1, 1), -1.0), (2, 0))
-        raw_alpha, _ = apply_field(params, field_cfg, pts[:, None, :],
-                                   down.expand(pts.shape[0], 3))
-        return torch.nn.functional.softplus(raw_alpha[:, 0])
-
-    return fn
 
 
 def _given(**draws):
@@ -148,7 +134,8 @@ class GridStep:
         with span("train.step"):
             if self.count % GRID_UPDATE_EVERY == 0:
                 self.grid = occgrid.update_grid(
-                    self.grid, density_fn(self.params, self.field_cfg), self.occ_cfg,
+                    self.grid, functools.partial(query_density, self.params, self.field_cfg),
+                    self.occ_cfg,
                     **_given(u_jitter=u_jitter, u_refresh=u_refresh, generator=generator))
             self.count += 1
             return self.train_step(self.params, self.grid, batch, self.occ_cfg,

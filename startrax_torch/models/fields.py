@@ -163,7 +163,9 @@ def apply_field(params: Params, cfg: FieldConfig, pts, viewdirs, step=None, warp
 
 
 def _down_dirs(pts):
-    return pts.new_tensor([[0.0, 0.0, -1.0]]).expand(pts.shape[0], 3)
+    """(0, 0, -1) for each point of pts [N, 3], made on the device: a copy
+    from the host would wait for the device's queue to drain."""
+    return torch.nn.functional.pad(pts.new_full((1, 1), -1.0), (2, 0)).expand(pts.shape[0], 3)
 
 
 def query_density(params: Params, cfg: FieldConfig, pts):

@@ -20,7 +20,8 @@ import torch.nn.functional as F
 from ..device import resolve
 from ..kernels import occgrid
 from ..ops.compositing import raw2outputs, raw2outputs_star
-from .fields import FieldConfig, apply_field, apply_stacked_fields, init_field, init_stacked_fields
+from .fields import (FieldConfig, _down_dirs, apply_field, apply_stacked_fields, init_field,
+                     init_stacked_fields)
 from .star import StarConfig, warp_to_vehicle_frames
 
 Params = Dict[str, Any]
@@ -47,7 +48,7 @@ def joint_density_fn(params: Params, cfg: StarConfig, pose=None):
     fcfg = _pair_field_cfg(cfg)
 
     def fn(pts):
-        dirs = pts.new_tensor([[0.0, 0.0, -1.0]]).expand(pts.shape[0], 3)
+        dirs = _down_dirs(pts)
         raw_s, _ = apply_field(params["static"], fcfg, pts[:, None, :], dirs)
         sigma = F.softplus(raw_s[:, 0])
         if pose is not None:

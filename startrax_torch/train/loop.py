@@ -9,7 +9,6 @@ returns the loss and the logged metrics.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -214,33 +213,6 @@ def batch_kind(batch) -> str:
     """"per_ray" for a batch of per-ray frames (an [R] tensor), "shared" for
     a batch at one frame (an int)."""
     return "per_ray" if torch.is_tensor(batch["frame"]) else "shared"
-
-
-@contextlib.contextmanager
-def _wrapping(builder: str, wrap):
-    make = globals()[builder]
-
-    def wrapped(*args, **kw):
-        return wrap(make(*args, **kw))
-
-    globals()[builder] = wrapped
-    try:
-        yield
-    finally:
-        globals()[builder] = make
-
-
-def wrapping_online_steps(wrap):
-    """Within the block, every step that make_online_train_step builds is
-    wrap(step): a measurement observes an app's steps through its entry
-    point."""
-    return _wrapping("make_online_train_step", wrap)
-
-
-def wrapping_gauge_steps(wrap):
-    """wrapping_online_steps for the steps that make_gauge_train_step
-    builds."""
-    return _wrapping("make_gauge_train_step", wrap)
 
 
 def make_gauge_train_step(star_cfg: StarConfig, opt, freeze_rot: bool = False,

@@ -395,16 +395,3 @@ def test_gauge_step_on_a_shared_pose_batch_matches_startrax():
                                atol=2 * LR * 3)
     np.testing.assert_array_equal(tgauge.detach()[:, 3:].numpy(), g0[:, 3:])
     assert all(t.grad is None for t in tree_leaves(tparams))
-
-
-def test_wrapping_gauge_steps_wraps_and_restores():
-    """loop.wrapping_gauge_steps wraps each step make_gauge_train_step
-    builds inside the block and restores the builder after it; the online
-    builder is left alone."""
-    make, make_online = tloop.make_gauge_train_step, tloop.make_online_train_step
-    with tloop.wrapping_gauge_steps(lambda step: ("wrapped", step)):
-        gauge = tlie.se3_identity(2).requires_grad_(True)
-        out = tloop.make_gauge_train_step(None, toptim.make_gauge_optimizer(gauge, 1e-3))
-        assert out[0] == "wrapped" and callable(out[1])
-        assert tloop.make_online_train_step is make_online
-    assert tloop.make_gauge_train_step is make

@@ -1,8 +1,7 @@
 """The online app's parts, on the CPU: test() against startrax's, resume,
 the warm start, the refusals (data parallelism, an unknown polish_mode, the
 video and LPIPS), selection, the optimizer state round trip,
-the gradient-isolation diagnostic, the synthetic adapter's interface and
-the step-wrapping helper that the measurement scripts use.
+the gradient-isolation diagnostic and the synthetic adapter's interface.
 
 test(): both packages' test protocol (startrax/apps/test_protocol.py and
 its port) on one parameter tree (random fields from a seed, the scene's
@@ -374,21 +373,3 @@ def test_synthetic_adapter_interface_matches_startrax():
     j = JAdapter(JScene(**scene), num_views=1)
     assert public(t) == public(j)
     np.testing.assert_allclose(t.bbox_local_vertices(), j.bbox_local_vertices(), rtol=1e-6)
-
-
-def test_wrapping_online_steps_wraps_every_built_step_and_restores():
-    """loop.wrapping_online_steps wraps each step that
-    make_online_train_step builds inside the block, and puts the builder
-    back after it, also when the block raises; batch_kind reads a batch's
-    frame layout."""
-    make = tloop.make_online_train_step
-    wrapped = []
-    with tloop.wrapping_online_steps(lambda step: wrapped.append(step) or "wrapped"):
-        assert tloop.make_online_train_step(None, None, None) == "wrapped"
-    assert tloop.make_online_train_step is make and callable(wrapped[0])
-    with pytest.raises(RuntimeError, match="inside"):
-        with tloop.wrapping_online_steps(lambda step: step):
-            raise RuntimeError("inside")
-    assert tloop.make_online_train_step is make
-    assert tloop.batch_kind({"frame": 3}) == "shared"
-    assert tloop.batch_kind({"frame": torch.zeros(4, dtype=torch.int32)}) == "per_ray"

@@ -9,11 +9,17 @@
 - Every entry point that makes tensors raises without a device where there
   is no CUDA device, and runs with device="cpu"; so do the apps' train and
   test functions, before they make a run directory.
+- The tools observe an app's steps by patching its step builder
+  (chip_smoke._patched): the patch wraps every step built inside its block
+  and is undone after it, also when the block raises; and every app looks
+  each builder the tools patch up through its module when it calls it
+  (an ast scan), so that no step escapes the patch.
 """
 
 import ast
 import dataclasses
 import glob
+import importlib.util
 import os
 
 import numpy as np
@@ -29,7 +35,7 @@ from startrax_torch.eval import render
 from startrax_torch.kernels import occgrid
 from startrax_torch.models import fields, mip, nerf_time, star, star_occgrid
 from startrax_torch.ops import rays
-from startrax_torch.train import loop
+from startrax_torch.train import loop, optim
 from startrax_torch.utils import config as tconfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -152,3 +158,97 @@ def test_app_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         APPS[name](cfg)
     assert os.listdir(tmp_path) == []
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# each builder chip_smoke.py's step recorder and scripts/torch_online_reading.py
+# patch, the other one, and the builder's arguments
+BUILDERS = {
+    "make_online_train_step": ("make_gauge_train_step",
+                               lambda: (TINY, loop.LossConfig(), None)),
+    "make_gauge_train_step": ("make_online_train_step",
+                              lambda: (TINY, optim.make_gauge_optimizer(
+                                  torch.zeros(2, 7, requires_grad=True), 1e-3))),
+}
+
+
+@pytest.mark.parametrize("builder", sorted(BUILDERS))
+def test_patched_wraps_every_built_step_and_restores(chip_smoke, builder):
+    """chip_smoke._patched(loop, builder, wrap): every step the builder
+    builds inside the block is wrap(step), the other builder is left alone,
+    and the builder is the original again after the block, also when the
+    block raises. batch_kind, which the recorder files steps by, reads a
+    batch's frame layout."""
+    make = getattr(loop, builder)
+    other, args = BUILDERS[builder][0], BUILDERS[builder][1]
+    make_other = getattr(loop, other)
+    wrapped = []
+
+    def wrap(step):
+        wrapped.append(step)
+        return ("wrapped", step)
+
+    with chip_smoke._patched(loop, builder, wrap):
+        built = [getattr(loop, builder)(*args()) for _ in range(2)]
+        assert getattr(loop, other) is make_other
+    assert built == [("wrapped", step) for step in wrapped] and len(wrapped) == 2
+    assert all(callable(step) for step in wrapped) and wrapped[0] is not wrapped[1]
+    assert getattr(loop, builder) is make and callable(make(*args()))
+    with pytest.raises(RuntimeError, match="inside"):
+        with chip_smoke._patched(loop, builder, wrap):
+            raise RuntimeError("inside")
+    assert getattr(loop, builder) is make and len(wrapped) == 2
+    assert loop.batch_kind({"frame": 3}) == "shared"
+    assert loop.batch_kind({"frame": torch.zeros(4, dtype=torch.int32)}) == "per_ray"
+
+
+# (app, the module that holds what the tools patch, its name): the step
+# builders that chip_smoke.py and scripts/torch_online_reading.py patch to
+# observe an app's steps, and the grid update that chip_smoke.py times
+PATCHED = [("online", "train.loop", "make_online_train_step"),
+           ("online", "train.loop", "make_gauge_train_step"),
+           ("app_init", "train.loop", "make_appinit_train_step"),
+           ("nerf_time", "train.loop", "make_nerf_time_train_step"),
+           ("occgrid_init", "apps.occgrid_init", "make_train_step"),
+           ("occgrid_init", "kernels.occgrid", "update_grid"),
+           ("mip", "apps.mip", "make_train_step")]
+
+
+@pytest.mark.parametrize("app, module, name", PATCHED, ids=[f"{a}.{n}" for a, _, n in PATCHED])
+def test_apps_look_patched_builders_up_when_they_call_them(app, module, name):
+    """The app never imports the name itself (from ... import name), and
+    every reference to it is a call, inside a function, of module.name (or,
+    for a name of the app's own module, of the module-level name): a name
+    bound at import time would keep the original past a patch."""
+    path = os.path.join(ROOT, "startrax_torch", "apps", f"{app}.py")
+    tree = ast.parse(open(path).read(), filename=path)
+    package, _, leaf = module.rpartition(".")
+    own = module == f"apps.{app}"
+    parents = {child: node for node in ast.walk(tree) for child in ast.iter_child_nodes(node)}
+    imports = [node for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)]
+    assert [node.lineno for node in imports if any(a.name == name for a in node.names)] == []
+    if own:
+        assert any(isinstance(node, ast.FunctionDef) and node.name == name for node in tree.body)
+        refs = [node for node in ast.walk(tree) if isinstance(node, ast.Name) and node.id == name]
+    else:
+        aliases = {a.asname or a.name for node in imports if node.level == 2
+                   and node.module == package for a in node.names if a.name == leaf}
+        assert aliases, f"{app} imports no {module}"
+        refs = [node for node in ast.walk(tree) if isinstance(node, ast.Attribute)
+                and node.attr == name and isinstance(node.value, ast.Name)
+                and node.value.id in aliases]
+    assert refs, f"{app} never calls {name}"
+    for ref in refs:
+        call = parents[ref]
+        assert isinstance(call, ast.Call) and call.func is ref, f"{app}.py:{ref.lineno}"
+        scope = parents[call]
+        while not isinstance(scope, (ast.FunctionDef, ast.Module)):
+            scope = parents[scope]
+        assert isinstance(scope, ast.FunctionDef), f"{app}.py:{ref.lineno} runs at import time"
