@@ -49,7 +49,8 @@ reading to PATH.
 
 With ``--variants``, it times variants of this checkout's source (those
 whose names hold one of the words of ``--only``, when given) against
-the source itself (and PARENT_ROOT's, when given): the readings behind the
+the source itself (and PARENT_ROOT's, when given, loaded by this
+checkout's Python: its C interface must be this source's): the readings behind the
 kernels' design choices. Each variant is a list of text substitutions
 (``VARIANTS``; an anchor that does not occur as often as the table says
 raises; a build whose run fails is reported and left out). Some are
@@ -102,9 +103,6 @@ VARIANTS = {
          "      fence_acc<N>(acc);\n      if (g != g0) release(f, g - 1);\n    }\n  }\n"
          "  asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n"
          "  fence_acc<N>(acc);\n  release(f, g - 1);\n  f.g = g;", 1)],
-    "the release's atomic count without block fences": [
-        ("    __threadfence_block();\n    if (atomicAdd(&r->released[slot], 1u)", "    if (atomicAdd(&r->released[slot], 1u)", 1),
-        ("      r->released[slot] = 0;\n      __threadfence_block();\n", "      r->released[slot] = 0;\n", 1)],
     "saved rows stored without the L2 evict-first hint": [
         ("    uint64_t policy;\n    asm volatile(\"createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\\n\" : \"=l\"(policy));\n", "", 1),
         ("bulk_group.L2::cache_hint [%0, {%1, %2, %3}], [%4], %5;", "bulk_group [%0, {%1, %2, %3}], [%4];", 1),
@@ -122,9 +120,25 @@ VARIANTS = {
         ("      sv.run((int)(g - g0));\n", "", 1),
         ("  f.g = g;\n  epi.template run<N>(acc);\n", "  sv.run();\n  f.g = g;\n  epi.template run<N>(acc);\n", 1)],
     "ablation: no weight copies after the first three (results wrong)": [
-        ("      ring_copy(r, slot, f.im, f.ic);\n",
-         "      asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\\n\" ::\"r\"(smem_u32(&r->full[slot])) "
-         ": \"memory\");\n", 1)],
+        ("      ring_copy(r, slot, m, c);\n",
+         "      if (g < NSLOT) ring_copy(r, slot, m, c); else mbar_arrive(&r->full[slot]);\n", 1)],
+    "ablation: every weight copy 16 bytes (the copies issued, their bytes dropped; results wrong)": [
+        ("::\"r\"(bar), \"r\"(mt.bytes)\n", "::\"r\"(bar), \"r\"(16)\n", 1),
+        ("        \"r\"(mt.bytes), \"r\"(bar)\n", "        \"r\"(16), \"r\"(bar)\n", 1)],
+    "the producer polls its empty barrier (test_wait) instead of try_wait": [
+        ("      if (g >= NSLOT) mbar_wait(&r->empty[slot], (g / NSLOT - 1) & 1);\n",
+         "      if (g >= NSLOT) {\n        const uint32_t a = smem_u32(&r->empty[slot]), ph = (g / NSLOT - 1) & 1;\n"
+         "        uint32_t ok = 0;\n        while (!ok)\n"
+         "          asm volatile(\"{\\n.reg .pred p;\\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\\n\"\n"
+         "                       \"selp.u32 %0, 1, 0, p;\\n}\\n\" : \"=r\"(ok) : \"r\"(a), \"r\"(ph) : \"memory\");\n"
+         "      }\n", 1)],
+    "ablation: the backward's saved activation prefetched by one copy a load, unpadded (results wrong)": [
+        ("  for (int t = lane; t < nrow; t += 32)\n    asm volatile(\n"
+         "        \"cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\\n\"\n"
+         "        ::\"r\"(smem_u32(dst + t * ld)), \"l\"(src + (row0 + t) * cols), \"r\"(cols * 2), \"r\"(bar)\n",
+         "  if (lane == 0 && nrow > 0)\n    asm volatile(\n"
+         "        \"cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\\n\"\n"
+         "        ::\"r\"(smem_u32(dst)), \"l\"(src + row0 * cols), \"r\"(nrow * cols * 2), \"r\"(bar)\n", 1)],
     "ablation: no column sums": [
         ("  halve_xor<M / 2>(v, 16);\n", "  if (v) return;\n  halve_xor<M / 2>(v, 16);\n", 1)],
     "ablation: no saved rows written": [("    if (map == nullptr || threadIdx.x != 0 || p >= panels) return;\n",
@@ -313,6 +327,7 @@ def once(root):
         nt_cfg.N_rand, port_config.star_config_from(occ_cfg).static_field()))
     parts = {k: {key: v[key] for key in ("ms", "plain_ms", "library_ms")} for k, v in parts.items()}
     print(json.dumps({"root": root, "times": times, "parts": parts}), flush=True)
+
 
 
 def grid_update(cs, fm, occ_cfg, field_cfg):

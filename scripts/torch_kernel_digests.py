@@ -11,8 +11,9 @@ commit unpacked with ``git archive`` into ``runs/parent``. The script puts
 ROOT's ``startrax_torch`` first on the path, imports this checkout's
 ``tests/test_torch_cuda.py`` (whose ``core_case`` makes each case's inputs
 from its seed and runs it), and writes, for every case of ``CORE_INSTANCES``
-x widths 128 and 256 x ``CORE_N`` x trained and forward-only, the sha256
-of each group of tensors (``core_digests``) to PATH, with the card's name and
+x widths 128 and 256 x ``CORE_N`` x trained and forward-only, and for the
+grid update's forward (``UPDATE_KEY``), the sha256 of each group of tensors
+(``digests``) to PATH, with the card's name and
 power limit and TEXT (what the tree is) beside them. Needs one CUDA card
 and nvcc.
 """
@@ -62,6 +63,7 @@ def main():
                 for save in (True, False):
                     key = tests.core_case_key(instance, width, n, save)
                     cases[key] = tests.core_digests(instance, width, n, save)
+    cases[tests.UPDATE_KEY] = tests.digests(tests.update_case())
     torch.cuda.synchronize()
     report = {"tree": opts.get("--tree", root), "card": card, "torch": torch.__version__,
               "cases": cases}

@@ -7,9 +7,9 @@ kernels, on the static fine case of the shared-pose step.
 ROOT (default: this checkout) is the root of a checkout of the repository,
 for example the parent commit unpacked with ``git archive`` into
 ``runs/parent``; its kernels must be this source's (the wgmma weight ring
-read with A from shared memory, the epilogues in registers on its
-accumulators: ``ANCHORS``); an older source takes the script of its own
-commit. The script
+read with A from shared memory and refilled by a producer warp, the
+epilogues in registers on its accumulators: ``ANCHORS``); an older source
+takes the script of its own commit (``runs/parent/scripts/...``). The script
 writes a copy of ROOT's ``startrax_torch/kernels/csrc/fused_mlp.cu`` into a
 temporary directory outside the checkout, inserts the stamps by text
 substitution (each anchor must occur as often as the table says, or the
@@ -25,7 +25,7 @@ category: a stamp switches the category and adds the cycles since the last
 switch to the one it leaves (the state lives in a few words of static
 shared memory). The categories:
 - ``core``: the GEMM core's chunk loop (wgmma issue and retirement, the
-  slot's release and refill);
+  slot's release; the producer warp refills it);
 - ``wait``: inside it, waiting for a weight chunk (the slot's "full"
   barrier);
 - ``encoding``: loading the points, the warp and the input encoding (the
@@ -50,7 +50,7 @@ The stamps cost a few instructions each; the readings are shares, not
 times.
 
 With ``--ablate`` a second copy is stamped and run after the first: the
-same, but after the first NSLOT copies the ring's filler only arrives on
+same, but after the first NSLOT copies the producer warp only arrives on
 a slot's "full" barrier and copies nothing (the slot keeps an earlier
 chunk, so the results are wrong). Its cycles a chunk are the core's with
 the weights' L2 supply taken away: wgmma's issue to retirement and the
@@ -203,16 +203,15 @@ ANCHORS = [
      "                                       int F, float* out3) {\n  stx_to(7);\n", 1),
     ("{ mbar_wait(full, n & 1); }",
      "{ const int stx_p = stx_cur(); stx_to(9); mbar_wait(full, n & 1); stx_to(stx_p); }", 1),
-    ("__syncthreads();", "stx_sync();", 7),
+    ("__syncthreads();", "stx_sync();", 2),
     ("  asm volatile(\"bar.sync %0, %1;\" ::\"r\"(id), \"r\"(n) : \"memory\");\n",
      "  const int stx_p = stx_cur();\n  stx_to(8);\n"
      "  asm volatile(\"bar.sync %0, %1;\" ::\"r\"(id), \"r\"(n) : \"memory\");\n  stx_to(stx_p);\n", 1),
 ]
-# --ablate: after the first NSLOT copies the last warp to release a chunk
-# arrives on its slot's "full" barrier without copying.
-ABLATION = [("      ring_copy(r, slot, f.im, f.ic);\n",
-             "      asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\\n\" ::\"r\"(smem_u32(&r->full[slot])) "
-             ": \"memory\");\n", 1)]
+# --ablate: after the first NSLOT copies the producer warp arrives on a
+# slot's "full" barrier without copying.
+ABLATION = [("      ring_copy(r, slot, m, c);\n",
+             "      if (g < NSLOT) ring_copy(r, slot, m, c); else mbar_arrive(&r->full[slot]);\n", 1)]
 
 # The weight-gradient GEMM's anchors: the kernel's cycles (1: slab wait, the
 # slab's mbarrier and the block barrier; 3: the math, ldmatrix, masks and

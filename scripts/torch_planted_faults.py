@@ -16,19 +16,23 @@ in place of the library and run through ``parity.compare`` on the
 pre-encoded cases of chip_smoke.py phase 5 (carla_nerf_time.txt's 8x256
 fields) and on 3,000 ragged points at widths 128 and 256 with in_ch 84 and
 63, with and without input grads (the ring's faults break every mode
-alike, so the same cases read them). Two of the ring's faults release a
+alike, so the same cases read them). Three of the ring's faults refill a
 slot while a wgmma that reads it may still be in flight. The refill's copy
-lands about a microsecond after the release, long after that read, so
-these two faults are built with the slot poisoned at its release
-(``POISON``: the refilling warp overwrites the whole slot with NaN, then
-fences it for the copy), which lands within a few dozen cycles; the sound source is built a
-second time so poisoned, which must read as the sound one. With ``--only``
-the sound source and the builds whose names hold one of the words are
-run. For every build the script prints the
-largest reading of each measure and the cases that fail ``ENC_LIMITS``
-and, with ``--json PATH``, writes them to PATH. A build whose run fails
-(the ring's cursor guard traps a cursor that runs past the stream) is
-reported with its error: caught before parity reads it. The copies are made
+lands about a microsecond after it is issued, long after that read, so
+these faults are built with the slot poisoned at its refill (``POISON``:
+the producer warp overwrites the whole slot with NaN once its "empty" wait
+has returned, then fences it for the copy), which lands within a few dozen
+cycles; the sound source is built a second time so poisoned, which must
+read as the sound one. With ``--only`` the sound source and the builds
+whose names hold one of the words are run. The sound builds and the ring's
+faults also run the card tests that hold the kernels bit for bit to the
+parent's digests (``tests/test_torch_cuda.py -k bit_for_bit``, by pytest
+in a process of its own with the build in place of the library). For
+every build the script prints the largest reading of each measure and the
+cases that fail ``ENC_LIMITS`` and, with ``--json PATH``, writes them to
+PATH. A build whose run fails (a consumer waiting for a chunk that never
+comes traps its wait after about ten seconds) is reported with its error:
+caught before parity reads it. The copies are made
 and loaded by ``torch_cu_copies.py``. Needs one CUDA card and nvcc.
 """
 
@@ -44,26 +48,41 @@ import torch_cu_copies as cu_copies
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-# The refilling warp overwrites the slot it releases with NaN, all 32 lanes
-# in a scattered order so that every part of it is hit within a few dozen
-# cycles, then fences the stores for the copy that refills it. Harmless
-# where every wgmma that reads the slot has retired; a read still in flight
-# reads NaN.
-POISON = [
-    ("  if ((threadIdx.x & 31) == 0) {\n    const int slot = g % NSLOT;\n",
-     "  bool poison = false;\n  const int slot = g % NSLOT;\n  if ((threadIdx.x & 31) == 0) {\n", 1),
-    ("      ring_copy(r, slot, f.im, f.ic);\n    }\n  }\n  __syncwarp();\n",
-     "      poison = true;\n    }\n  }\n"
-     "  if (__shfl_sync(0xffffffffu, poison, 0)) {\n"
-     "    uint4* q = reinterpret_cast<uint4*>(r->slots + slot * r->slot_elems);\n"
-     "    const int nq = r->slot_elems / 8;\n"
-     "    for (int i = threadIdx.x & 31; i < nq; i += 32)\n"
-     "      q[(i * 37) % nq] = make_uint4(0x7fc07fc0u, 0x7fc07fc0u, 0x7fc07fc0u, 0x7fc07fc0u);\n"
-     "    asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"memory\");\n"
-     "    __syncwarp();\n"
-     "    if ((threadIdx.x & 31) == 0) ring_copy(r, slot, f.im, f.ic);\n"
-     "  }\n  __syncwarp();\n", 1)]
-SOUND_POISONED = "sound, the ring's slots poisoned at release"
+# The producer warp overwrites each slot it refills with NaN, once the
+# slot's "empty" wait has returned and before the copy, all 32 lanes in a
+# scattered order so that every part of it is hit within a few dozen
+# cycles, then fences the stores for the copy. Harmless where every wgmma
+# that reads the slot has retired; a read still in flight reads NaN. WAIT
+# is the empty wait's phase parity (a fault may move it).
+PRODUCER = ("  if ((threadIdx.x & 31) != 0) return;\n  unsigned g = 0;\n"
+            "  for (int m = 0; m < r->n_mats; ++m)\n"
+            "    for (int c = 0; c < r->mats[m].chunks; ++c, ++g) {\n"
+            "      const int slot = g % NSLOT;\n"
+            "      if (g >= NSLOT) mbar_wait(&r->empty[slot], (g / NSLOT - 1) & 1);\n"
+            "      ring_copy(r, slot, m, c);\n    }\n")
+
+
+def poisoned(wait="(g / NSLOT - 1) & 1"):
+    return [(PRODUCER,
+             "  const int lane = threadIdx.x & 31;\n  unsigned g = 0;\n"
+             "  for (int m = 0; m < r->n_mats; ++m)\n"
+             "    for (int c = 0; c < r->mats[m].chunks; ++c, ++g) {\n"
+             "      const int slot = g % NSLOT;\n"
+             "      if (g >= NSLOT) {\n"
+             f"        if (lane == 0) mbar_wait(&r->empty[slot], {wait});\n"
+             "        __syncwarp();\n"
+             "        uint4* q = reinterpret_cast<uint4*>(r->slots + slot * r->slot_elems);\n"
+             "        const int nq = r->slot_elems / 8;\n"
+             "        for (int i = lane; i < nq; i += 32)\n"
+             "          q[(i * 37) % nq] = make_uint4(0x7fc07fc0u, 0x7fc07fc0u, 0x7fc07fc0u, 0x7fc07fc0u);\n"
+             "        asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"memory\");\n"
+             "        __syncwarp();\n"
+             "      }\n"
+             "      if (lane == 0) ring_copy(r, slot, m, c);\n    }\n", 1)]
+
+
+POISON = poisoned()
+SOUND_POISONED = "sound, the ring's slots poisoned at refill"
 
 # name -> [(text to find, its replacement, how many times it occurs), ...]
 FAULTS = {
@@ -82,17 +101,21 @@ FAULTS = {
     "the last ragged tile runs past n": [
         ("const int nrow = (int)min((long)T, (long)in.n - row0);",
          "const int nrow = T;", 2)],
-    "ring: the first warp to release a chunk refills its slot, not the last": [
-        ("    if (atomicAdd(&r->released[slot], 1u) == NT / 32 - 1) {\n      r->released[slot] = 0;\n",
-         "    const unsigned k = atomicAdd(&r->released[slot], 1u);\n"
-         "    if (k == NT / 32 - 1) r->released[slot] = 0;\n    if (k == 0) {\n", 1)] + POISON,
-    "ring: the cursor skips one chunk at each matrix boundary": [
-        ("    f.ic = 0;\n    f.nch = r->mats[++f.im].chunks;", "    f.ic = 1;\n    f.nch = r->mats[++f.im].chunks;", 1)],
+    "ring: the producer refills a slot once the first consumer warp has released it": [
+        ("\"r\"(smem_u32(&r->empty[s])), \"r\"(NT / 32)", "\"r\"(smem_u32(&r->empty[s])), \"r\"(1)", 1)] + POISON,
+    "ring: the producer skips one chunk at each matrix boundary": [
+        ("    for (int c = 0; c < r->mats[m].chunks; ++c, ++g) {", "    for (int c = m > 0; c < r->mats[m].chunks; ++c, ++g) {", 1)],
     "ring: a slot released before its wgmma group has retired (no wait_group)": [
         ("      asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n"
          "      fence_acc<N>(acc);\n      release(f, g);\n",
          "      release(f, g);\n      asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n"
          "      fence_acc<N>(acc);\n", 1)] + POISON,
+    "ring: the producer refills a slot without waiting for its release (the empty wait a phase early)":
+        poisoned("(g / NSLOT) & 1"),
+    "ring: a refill arrives on its slot's full barrier without the copy's bytes": [
+        ("  asm volatile(\"mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n\" ::\"r\"(bar), \"r\"(mt.bytes)\n"
+         "               : \"memory\");\n",
+         "  asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\\n\" ::\"r\"(bar) : \"memory\");\n", 1)],
     "wgrad: each split runs one point past its end": [
         ("const long p_end = min((long)t.n, p_begin + (long)t.per_split);",
          "const long p_end = min((long)t.n, p_begin + (long)t.per_split + 1);", 1)],
@@ -209,10 +232,40 @@ def wgrad_reading():
     return worst
 
 
+def card_tests(so, xml):
+    """The card tests that hold the kernels bit for bit to the parent's
+    digests (tests/test_torch_cuda.py, ``-k bit_for_bit``), run by pytest
+    with the library so in place of this checkout's (in a process of its
+    own); their results go to the JUnit file xml."""
+    import pytest
+
+    cu_copies.load_in_place(so)
+    return pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q", "-m", "cuda", "-k",
+                        "bit_for_bit", f"--junitxml={xml}",
+                        os.path.join(HERE, "tests", "test_torch_cuda.py")])
+
+
+def card_test_counts(name, so, out_dir):
+    """card_tests' passes, failures and errors for one build."""
+    import xml.etree.ElementTree as ET
+
+    xml = os.path.join(out_dir, f"card_tests_{abs(hash(name))}.xml")
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--card-tests", so, xml],
+                   capture_output=True, text=True, cwd=HERE)
+    if not os.path.exists(xml):
+        return {"error": "pytest wrote no results"}
+    suite = ET.parse(xml).getroot()
+    suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
+    n, f, e, sk = (int(suite.get(k, 0)) for k in ("tests", "failures", "errors", "skipped"))
+    return {"passed": n - f - e - sk, "failed": f, "errors": e, "skipped": sk}
+
+
 def main():
     if len(sys.argv) == 4 and sys.argv[1] == "--one":
         one(sys.argv[2], sys.argv[3])
         return 0
+    if len(sys.argv) == 4 and sys.argv[1] == "--card-tests":
+        return card_tests(sys.argv[2], sys.argv[3])
     import torch
 
     if not torch.cuda.is_available():
@@ -233,14 +286,19 @@ def main():
         libs = build_all(os.path.join(HERE, "startrax_torch", "kernels", "csrc", "fused_mlp.cu"),
                          out_dir, only)
         for name, so in libs.items():
+            tests = None
+            if name.startswith(("ring", "sound")):
+                tests = card_test_counts(name, so, out_dir)
+                print(f"{name}: card tests -k bit_for_bit: {tests}", flush=True)
             out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", name, so],
                                  capture_output=True, text=True, cwd=HERE)
             if out.returncode != 0:  # the fault broke the run itself
                 tail = (out.stderr.strip().splitlines() or ["?"])[-1]
-                report["builds"][name] = {"error": tail}
+                report["builds"][name] = {"error": tail, "card_tests": tests}
                 print(f"{name}: the run failed: {tail}", flush=True)
                 continue
             r = json.loads(out.stdout.strip().splitlines()[-1])
+            r["card_tests"] = tests
             report["builds"][name] = r
             print(f"{name}: worst " + ", ".join(f"{k} {v:.3e}" for k, v in r["worst"].items())
                   + f"; fails in {len(r['failing'])} of {r['cases']} cases; wgrad "

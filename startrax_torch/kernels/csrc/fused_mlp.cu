@@ -53,11 +53,11 @@
 // training step forward (about 3x that with the backward) against ~6 KB of
 // saved bf16 activations a point, so the arithmetic intensity is far above the
 // card's balance point and device-memory bytes are not the bound. A tile of
-// T = 64 points per CTA, one CTA of 8 warps per SM (~227 KB of shared
-// memory), keeps its activations in shared memory and streams every layer's
-// weights from L2 in KC-row chunks: 16 KB a chunk at W = 256, about 1.5 MB of
-// weights a tile for 8x256. The GEMM core (tile_gemm) multiplies with wgmma
-// with both operands in shared memory, read through descriptors: the two
+// T = 64 points per CTA, one CTA of 8 warps and a producer warp per SM
+// (~227 KB of shared memory), keeps its activations in shared memory and
+// streams every layer's weights from L2 in KC-row chunks: 16 KB a chunk at
+// W = 256, about 1.5 MB of weights a tile for 8x256. The GEMM core
+// (tile_gemm) multiplies with wgmma with both operands in shared memory, read through descriptors: the two
 // warpgroups split the output columns and each reads all 64 rows of A, the
 // bf16 operand tile, kept in wgmma's 128-byte-swizzled K-major layout; B
 // comes straight from a slot of a three-slot weight ring, filled with one
@@ -66,14 +66,22 @@
 // GEMMs: the sequence of chunks a kernel consumes is fixed at its start
 // (Ring), so the next layer's first chunks load while an epilogue runs.
 // Consumers wait on a slot's "full" mbarrier; once wgmma.wait_group has
-// retired a chunk, each warp counts itself in, and the last of the eight
-// starts the copy of the chunk NSLOT on into the slot, so that no warp
-// waits for another (each keeps its own copy of the stream's cursor). The
+// retired a chunk, each warp arrives on the slot's "empty" mbarrier, and a
+// ninth warp, the producer, which does nothing but copy chunks, starts the
+// copy of the chunk NSLOT on into the slot once all eight have. So no
+// consumer warp waits for another, and none issues a copy or counts the
+// others in: when the last consumer warp to release a slot refilled it,
+// the copies cost the 8x256 forward 19% whatever their size (every copy
+// cut to 16 bytes ran no faster, none after the first three ran 19%
+// faster), and the producer warp took 22% to 29% off every forward. The
 // two warpgroups' wgmma alternate on the tensor cores, so retiring every
-// chunk before the next costs no tensor time (one chunk kept in flight read
-// slower on the card). What bounds a CTA is the L2 rate of the weight chunks
-// (all SMs pull every chunk of every layer, per 64 points) and the work
-// between the GEMMs (PERF.md has the stamps).
+// chunk before the next costs no tensor time (one chunk kept in flight
+// read slower on the card). What bounds a CTA is the issue and retirement
+// of each chunk and the work between the GEMMs (PERF.md has the stamps);
+// in the backward at W = 256 also the saved activations' prefetch, whose
+// row copies queue ahead of the weight chunks'. The weights' L2 bytes do
+// not: copying each chunk once for a cluster of two or four CTAs, by
+// multicast, made the kernels slower.
 //
 // The epilogues run in registers on the wgmma accumulators: gemm_core hands
 // its fragment (rows 16 (warp % 4) + lane / 4 and + 8, columns N (warp / 4)
@@ -356,11 +364,13 @@ __device__ __forceinline__ float pe_dval(const float* v, int j, int F, int* dim)
 // of KC * nout * 2 bytes, which one bulk copy moves into a ring slot.
 //
 // The chunks a kernel consumes form a fixed sequence, known at its start:
-// the stream (Ring::mats). Thread 0 starts the first NSLOT copies at the
-// kernel's start; the last warp to release chunk g starts chunk g + NSLOT in
-// its slot, which may belong to the next GEMM. So the next layer's first
+// the stream (Ring::mats). The producer warp copies them in order: the
+// first NSLOT at the kernel's start, then chunk g + NSLOT into chunk g's
+// slot once every consumer warp has released chunk g (the slot's "empty"
+// barrier); it may belong to the next GEMM. So the next layer's first
 // chunks load while the current epilogue runs. Consumers wait on a slot's
-// "full" barrier; no warp waits for another to release a slot.
+// "full" barrier and arrive on its "empty" one; no consumer warp waits for
+// another, and the producer leaves once it has issued the last copy.
 //
 // A [T][k] is an operand tile in shared memory in wgmma's 128-byte-swizzled
 // K-major layout: 64-column panels of T rows of 128 bytes, 1,024-byte
@@ -371,6 +381,7 @@ __device__ __forceinline__ float pe_dval(const float* v, int j, int F, int* dim)
 // ---------------------------------------------------------------------------
 
 constexpr int NSLOT = 3;              // ring slots of KC x W bf16
+constexpr int NP = 32;                // the producer warp's threads, after the NT consumers
 constexpr int LBO = 128;              // bytes from a core matrix of B to the next along K
 constexpr int SBO = (KC / 8) * 128;   // and along N (fused_mlp.py, DESC_LBO / DESC_SBO)
 constexpr int PANEL = T * 64;         // elements of an operand tile's 64-column panel
@@ -392,22 +403,17 @@ struct TileMaps { CUtensorMap m[MAXSAVE]; };
 struct Mat { const bf16* p; int chunks, bytes; };  // bytes: one chunk's
 
 // The ring's state in shared memory: the stream (thread 0 writes it at the
-// kernel's start), each slot's "full" barrier and the count of warps that
-// have released the slot's chunk.
+// kernel's start) and each slot's barriers: "full" (the copy's arrival and
+// bytes) and "empty" (one arrival a consumer warp).
 struct Ring {
-  unsigned long long full[NSLOT];
-  unsigned released[NSLOT];
-  unsigned total;         // chunks in the stream
+  unsigned long long full[NSLOT], empty[NSLOT];
   Mat mats[MAXM];
   bf16* slots;            // NSLOT slots of slot_elems
   int slot_elems, n_mats;
 };
 
-// One thread's view of the ring: the chunks it has consumed (g), and where
-// chunk g + NSLOT, the next to be copied into g's slot, sits in the stream:
-// chunk ic of mats[im], which has nch chunks. Every thread advances its copy
-// alike, so whichever warp releases a chunk last can start the next copy.
-struct Feed { Ring* r; unsigned g; int im, ic, nch; };
+// A consumer thread's view of the ring: the chunks it has consumed (g).
+struct Feed { Ring* r; unsigned g; };
 
 // A [T][k] (bf16, an operand tile in shared memory)
 struct Seg { const bf16* a; int k; };
@@ -439,10 +445,8 @@ __device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
-// Starts copying chunk c of mt into ring slot `slot` (one thread). A cursor
-// that has run past the stream traps.
+// Starts copying chunk c of mats[m] into ring slot `slot` (one thread).
 __device__ __forceinline__ void ring_copy(Ring* r, int slot, int m, int c) {
-  if (m >= r->n_mats) __trap();
   const Mat mt = r->mats[m];
   const uint32_t bar = smem_u32(&r->full[slot]);
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(mt.bytes)
@@ -457,39 +461,33 @@ __device__ __forceinline__ void ring_copy(Ring* r, int slot, int m, int c) {
 // Appends B [k][nout] (packed) to the stream (thread 0, at the kernel's start).
 __device__ __forceinline__ void ring_add(Ring* r, const bf16* p, int k, int nout) {
   r->mats[r->n_mats++] = {p, k / KC, KC * nout * (int)sizeof(bf16)};
-  r->total += k / KC;
 }
 
 __device__ __forceinline__ void ring_init(Ring* r, bf16* slots, int slot_elems) {
   for (int s = 0; s < NSLOT; ++s) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&r->full[s])) : "memory");
-    r->released[s] = 0;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(&r->empty[s])), "r"(NT / 32)
+                 : "memory");
   }
-  r->slots = slots; r->slot_elems = slot_elems;
-  r->n_mats = 0; r->total = 0;
-}
-
-// After the stream is complete (thread 0): the first NSLOT copies.
-__device__ __forceinline__ void ring_start(Ring* r) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  for (int h = 0, m = 0, c = 0; h < NSLOT && h < (int)r->total; ++h) {
-    ring_copy(r, h, m, c);
-    if (++c == r->mats[m].chunks) {
-      c = 0;
-      ++m;
-    }
-  }
+  r->slots = slots; r->slot_elems = slot_elems;
+  r->n_mats = 0;
 }
 
-// Every thread's view of the ring, after a block barrier has made thread 0's
-// stream visible: nothing consumed, the cursor at chunk NSLOT.
-__device__ __forceinline__ Feed feed_start(Ring* r) {
-  Feed f = {r, 0, 0, NSLOT, r->mats[0].chunks};
-  while (f.ic >= f.nch && f.im + 1 < r->n_mats) {
-    f.ic -= f.nch;
-    f.nch = r->mats[++f.im].chunks;
-  }
-  return f;
+// The producer warp, after a block barrier has made thread 0's stream
+// visible: its lane 0 copies every chunk of the stream in order, chunk g
+// into slot g % NSLOT, from chunk NSLOT on once every consumer warp has
+// released chunk g - NSLOT there. A consumer that never releases a slot
+// traps the wait after about ten seconds.
+__device__ void ring_produce(Ring* r) {
+  if ((threadIdx.x & 31) != 0) return;
+  unsigned g = 0;
+  for (int m = 0; m < r->n_mats; ++m)
+    for (int c = 0; c < r->mats[m].chunks; ++c, ++g) {
+      const int slot = g % NSLOT;
+      if (g >= NSLOT) mbar_wait(&r->empty[slot], (g / NSLOT - 1) & 1);
+      ring_copy(r, slot, m, c);
+    }
 }
 
 // wgmma m64nNk16, D (f32, registers) += A B, A and B bf16 in shared memory
@@ -586,26 +584,9 @@ __device__ __forceinline__ void fence_acc(float* acc) {
 }
 
 // Chunk g's slot, once this warp's wgmma.wait_group has retired the chunk:
-// lane 0 counts the warp in, and the last of the NT / 32 warps resets the
-// count and starts copying chunk g + NSLOT into the slot, so no warp waits
-// for another. Every thread then moves its cursor on by one chunk.
+// lane 0 arrives on the slot's "empty" barrier, for the producer warp.
 __device__ __forceinline__ void release(Feed& f, unsigned g) {
-  Ring* r = f.r;
-  if (g + NSLOT >= r->total) return;
-  if ((threadIdx.x & 31) == 0) {
-    const int slot = g % NSLOT;
-    __threadfence_block();
-    if (atomicAdd(&r->released[slot], 1u) == NT / 32 - 1) {
-      r->released[slot] = 0;
-      __threadfence_block();
-      ring_copy(r, slot, f.im, f.ic);
-    }
-  }
-  __syncwarp();
-  if (++f.ic == f.nch && f.im + 1 < r->n_mats) {
-    f.ic = 0;
-    f.nch = r->mats[++f.im].chunks;
-  }
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&f.r->empty[g % NSLOT]);
 }
 
 // An operand tile's rows to global memory: rows row0 .. row0 + T - 1 of
@@ -706,6 +687,10 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
+// The fused kernels' block barrier after the producer warp has left: the
+// NT consumer threads (named barrier 1).
+__device__ __forceinline__ void consumer_sync() { bar_sync(1, NT); }
+
 // After the writes to an operand tile (an epilogue, the input's staging):
 // each thread makes its writes visible to the async proxy, which wgmma and
 // the tensor copies read through, then the block barrier, since each
@@ -717,7 +702,7 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 __device__ __forceinline__ void tile_sync() {
   if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
+  consumer_sync();
 }
 
 // The four warps of warpgroup wg, which hold every row of its columns.
@@ -1343,8 +1328,8 @@ __device__ __forceinline__ void swap_ptr(X*& a, X*& b) {
 // next operand into `nxt`, then tile_sync; the tiles swap, and nxt is copied
 // to its saved activation while the next GEMM's first chunks run (Save).
 template <bool STACKED, bool ENC>
-__global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, float* out,
-                                                     const __grid_constant__ TileMaps maps) {
+__global__ void __launch_bounds__(NT + NP, 1) fwd_kernel(Inputs all_in, Net net, float* out,
+                                                          const __grid_constant__ TileMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int W = all_in.width, W2 = W / 2, k = STACKED ? blockIdx.y : 0;
   const Inputs in_k = field_inputs<ENC>(all_in, k);
@@ -1378,7 +1363,11 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, floa
     ring_add(ring, w.w_f, W, W);
     ring_add(ring, w.wv_top, W, W2);
     ring_add(ring, w.wv_bot, EW, W2);
-    ring_start(ring);
+  }
+  __syncthreads();  // the ring's stream and barriers, for the producer warp
+  if (tid >= NT) {  // the producer warp copies the weight chunks, then leaves
+    ring_produce(ring);
+    return;
   }
   stage_async(vec + vo.b_in, w.b_in, W);  // completed before the barrier after the encoding
   for (int b = 0; b < nb; ++b) {
@@ -1394,7 +1383,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, floa
     stage_encoded<true>(in.d, in.fd, EW, in.n, row0, es, 0, false);
   } else {
     load_points(in.x, in.d, in.warp, in.n, row0, nullptr, ps);
-    __syncthreads();
+    consumer_sync();
     encode_tile<true>(ps, in.fx, in.mask_x, as0, 0, T);
     encode_tile<true>(ps + 3, in.fd, in.mask_d, es, 0, T);
   }
@@ -1403,8 +1392,8 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, floa
   stage_f32(vec + vo.b_a, w.b_a, 1);
   stage_f32(vec + vo.b_r, w.b_r, 3);
   stage_wait();
-  tile_sync();  // the encodings, the staged vectors and the ring's stream
-  Feed feed = feed_start(ring);
+  tile_sync();  // the encodings and the staged vectors
+  Feed feed = {ring, 0};
 
   bf16 *cur = as0, *nxt = as1;
   Save sv = {};  // the last epilogue's output and its saved activation
@@ -1464,8 +1453,9 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(Inputs all_in, Net net, floa
 // tile and sums its columns from registers; the dY leaves for global memory
 // while the next wide GEMM's first chunks run (Save).
 template <bool STACKED, bool ENC>
-__global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts all_act, const float* g,
-                                                     Grads all_gr, const __grid_constant__ TileMaps maps) {
+__global__ void __launch_bounds__(NT + NP, 1) bwd_kernel(Inputs all_in, Net net, Acts all_act,
+                                                          const float* g, Grads all_gr,
+                                                          const __grid_constant__ TileMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int W = all_in.width, W2 = W / 2, LDA = W + 8, nb = all_in.n_blocks;
   const int k = STACKED ? blockIdx.y : 0;
@@ -1523,7 +1513,11 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
       act_add(pipe, all_act.h[b] + f.act, W);
     }
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(abar)) : "memory");
-    ring_start(ring);
+  }
+  __syncthreads();  // the ring's stream and barriers, for the producer warp
+  if (tid >= NT) {  // the producer warp copies the weight chunks, then leaves
+    ring_produce(ring);
+    return;
   }
   if (warp == 0) {
     __syncwarp();
@@ -1537,8 +1531,8 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   stage_async_bf16(wa, w.w_a, W);
   stage_async_bf16(wr, w.w_r, 3 * W2);
   stage_wait();
-  __syncthreads();
-  Feed feed = feed_start(ring);
+  consumer_sync();
+  Feed feed = {ring, 0};
   // encodings: the X of lin_in and Wv_bot
   if constexpr (ENC) {
     stage_encoded<false>(in.x, in.fx, XW, in.n, row0, gr.xe + row0 * XW, XW, true);
@@ -1562,7 +1556,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
   if (warped || in_grads) {  // dd_emb = dhv_in @ Wv_bot^T -> mask -> encoding backward -> M^T
     const Seg s = {as0, W2};
     gemm_core<EW / 2>(&s, 1, feed, EpiF32{dhs, EW + 8}, Save{});
-    __syncthreads();
+    consumer_sync();
     if constexpr (ENC) {  // dd_emb is the input grad
       for (int i = tid; i < T * in.fd; i += NT) {
         const int t = i / in.fd, c = i - t * in.fd;
@@ -1578,7 +1572,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
           for (int c = 0; c < 3; ++c) gr.dd[(row0 + t) * 3 + c] = pd[t * 3 + c];
       }
     }
-    __syncthreads();  // the narrow result is read; dh takes its place
+    consumer_sync();  // the narrow result is read; dh takes its place
   }
 
   // Each layer's epilogue, as EpiBwd's members: its dY tile, the prefetched
@@ -1641,7 +1635,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
     const Seg s = {cur, W};
     gemm_core<in_rows<ENC>() / 2>(&s, 1, feed, EpiF32{dhs, LDN}, Save{});
     sv.run();  // after the narrow GEMM
-    __syncthreads();
+    consumer_sync();
     if constexpr (ENC) {  // dx_emb is the input grad
       for (int i = tid; i < T * in.fx; i += NT) {
         const int t = i / in.fx, c = i - t * in.fx;
@@ -1679,7 +1673,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(Inputs all_in, Net net, Acts
         }
       }
     }
-    __syncthreads();
+    consumer_sync();
   } else {
     sv.run();  // no GEMM follows
   }
@@ -2167,7 +2161,7 @@ int stx_fused_fwd(void** ptrs, const int* ints, void* stream) {
   const cudaError_t e = allow_smem(kernel, smem, allowed[2 * (in.fields > 1) + enc]);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((in.n + T - 1) / T, in.fields);
-  if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, out, maps);
+  if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT + NP, smem, (cudaStream_t)stream>>>(in, w, out, maps);
   return (int)cudaGetLastError();
 }
 
@@ -2205,7 +2199,7 @@ int stx_fused_bwd(void** ptrs, const int* ints, void* stream) {
   const cudaError_t e = allow_smem(kernel, smem, allowed[2 * (in.fields > 1) + enc]);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((in.n + T - 1) / T, in.fields);
-  if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(in, w, act, g, gr, maps);
+  if (grid.x > 0 && grid.y > 0) kernel<<<grid, NT + NP, smem, (cudaStream_t)stream>>>(in, w, act, g, gr, maps);
   return (int)cudaGetLastError();
 }
 

@@ -478,12 +478,17 @@ def test_kernels_match_plain_at_the_epilogues_edges(card, instance, width, depth
 
 
 # The GEMM core's cases: every instance at the flagship depth (4 blocks),
-# both widths, one point, a partial tile, one tile, a ragged second tile and
-# a ragged end, trained (saved activations, a backward) or forward only.
+# both widths, one point, a partial tile, one tile, a ragged second tile,
+# a ragged third tile and a ragged end (47 tiles a field), trained (saved
+# activations, a backward) or forward only.
 CORE_INSTANCES = ("static", "warped", "field_axis", "pre_encoded", "field_axis_pre_encoded")
-CORE_N = (1, 63, 64, 65, 3000)
+CORE_N = (1, 63, 64, 65, 129, 3000)
 CORE_DIGESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                             "fused_mlp_core_digests.json")
+# The occupancy grid's update: the 8x256 field's forward, nothing saved, on
+# one point a cell of a 128^3 grid along (0, 0, -1) (32,768 point tiles).
+UPDATE_N = 128 ** 3
+UPDATE_KEY = f"grid update 256 n={UPDATE_N} no_save"
 
 
 def core_case_key(instance, width, n, save):
@@ -539,13 +544,28 @@ def core_case(instance, width, n, save):
             "inputs": list(g[len(weights):])}
 
 
+def update_case():
+    """The grid update's forward (UPDATE_KEY): {"out": [the outputs]}."""
+    cfg, params, x, d = _setup(47, 256, 8, UPDATE_N)
+    d = torch.tensor([0.0, 0.0, -1.0], device="cuda").expand(UPDATE_N, 3).contiguous()
+    with torch.no_grad():
+        a, r = tfused.fused_field_apply(params, x, d, cfg.n_blocks, PE)
+    return {"out": [torch.cat([a[..., None], r], -1)]}
+
+
 def core_digests(instance, width, n, save):
     """core_case's tensors -> a sha256 of each group's bytes (with each
+    tensor's dtype and shape)."""
+    return digests(core_case(instance, width, n, save))
+
+
+def digests(case):
+    """{group: [tensors]} -> a sha256 of each group's bytes (with each
     tensor's dtype and shape)."""
     import hashlib
 
     out = {}
-    for name, tensors in core_case(instance, width, n, save).items():
+    for name, tensors in case.items():
         h = hashlib.sha256()
         for t in tensors:
             t = t.detach().contiguous().cpu()
@@ -563,26 +583,39 @@ def core_digests(instance, width, n, save):
 def test_gemm_core_matches_the_parent_kernel_bit_for_bit(card, instance, width, n, save):
     """The GEMM core that reads A from shared memory (128-byte-swizzled
     operand tiles, relu applied in the epilogues, each ring slot refilled by
-    the last warp to release it, the saved rows stored by tensor copies)
-    against the kernels it replaced (A in registers by ldmatrix, relu in
-    registers, thread 0 refilling each slot, the rows copied out a row at a
-    time), bit for bit: the outputs, the weight grads and the pose or input
-    grads of core_case, as sha256 digests recorded by
-    scripts/torch_kernel_digests.py from that source on an H100 (the JSON
-    file names the tree and the card). The cases stream every segment chunk
+    the producer warp once every consumer warp has released it, the saved
+    rows stored by tensor copies) against the kernels before it, bit for
+    bit: the outputs, the weight grads and the pose or input grads of
+    core_case, as sha256 digests recorded by scripts/torch_kernel_digests.py
+    from the parent source on an H100 (the JSON file names the tree and the
+    card). The cases stream every segment chunk
     count the kernels have: 2 (lin_in on raw points, the views layer's
     direction segment, and at width 128 the backward's W / 2 GEMMs), 3
     (lin_in on 84 pre-encoded columns), 4 (W / 2 at width 256, W at 128), 8
     (W at 256) and the views layer's two segments; the three-slot ring wraps
-    at every GEMM boundary. The products are the replaced kernels': a tile
-    read through a relu now holds bf16(relu(v)) = relu(bf16(v)). The
-    forward without saving gives the same outputs as with."""
+    at every GEMM boundary. A tile read through a relu holds bf16(relu(v)) =
+    relu(bf16(v)), so the products are those of the kernels with A in
+    registers (ff3b3ee), whose digests the cases before n = 129 read too;
+    every digest was recorded again from 6878a1e. The forward without
+    saving gives the same outputs as with."""
     with open(CORE_DIGESTS) as fp:
         want = json.load(fp)["cases"]
     got = core_digests(instance, width, n, save)
     assert got == want[core_case_key(instance, width, n, save)]
     if not save:
         assert got["out"] == want[core_case_key(instance, width, n, True)]["out"]
+
+
+@pytest.mark.cuda
+def test_grid_update_forward_matches_the_parent_kernel_bit_for_bit(card):
+    """The occupancy grid update's forward at its size (2,097,152 points,
+    nothing saved, 32,768 point tiles) against the parent's digest of the
+    same call, recorded with the GEMM core's cases."""
+    with open(CORE_DIGESTS) as fp:
+        want = json.load(fp)["cases"][UPDATE_KEY]
+    tfused.reset_launch_counts()
+    assert digests(update_case()) == want
+    assert tfused.launches["fwd"] == 1
 
 
 @pytest.mark.cuda
